@@ -1,0 +1,69 @@
+"""Normalization conventions and dtype helpers (PyTorch port).
+
+Counterpart of ``cfftpack_tpu/config.py``.  The reference library uses
+FFTPACK scaling: the *forward* transform is scaled by 1/N and the
+inverse is unscaled; ``"ortho"`` scales both by 1/sqrt(N).
+
+=============  ====================  ====================
+norm           forward scale         inverse scale
+=============  ====================  ====================
+``"fftpack"``  1/N                   1       (reference default)
+``"ortho"``    1/sqrt(N)             1/sqrt(N)
+``"backward"`` 1                     1/N     (numpy/scipy default)
+``"forward"``  1/N                   1       (alias of fftpack)
+=============  ====================  ====================
+
+The JAX package's f64 routing policy exists because TPUs lack native
+f64; the card has it, so float64 runs natively here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+VALID_NORMS = ("fftpack", "ortho", "backward", "forward")
+DEFAULT_NORM = "fftpack"
+
+
+def check_norm(norm: str | None) -> str:
+    if norm is None:
+        return DEFAULT_NORM
+    if norm not in VALID_NORMS:
+        raise ValueError(f"norm must be one of {VALID_NORMS}, got {norm!r}")
+    return norm
+
+
+def fwd_scale(norm: str, n: int) -> float:
+    """Scalar applied to the forward transform output."""
+    norm = check_norm(norm)
+    if norm in ("fftpack", "forward"):
+        return 1.0 / n
+    if norm == "ortho":
+        return float(1.0 / np.sqrt(n))
+    return 1.0  # backward
+
+
+def inv_scale(norm: str, n: int) -> float:
+    """Scalar applied to the inverse transform output."""
+    norm = check_norm(norm)
+    if norm in ("fftpack", "forward"):
+        return 1.0
+    if norm == "ortho":
+        return float(1.0 / np.sqrt(n))
+    return 1.0 / n  # backward
+
+
+def real_dtype_of(dtype: torch.dtype) -> torch.dtype:
+    """Real dtype underlying a complex (or real) dtype."""
+    if dtype == torch.complex64:
+        return torch.float32
+    if dtype == torch.complex128:
+        return torch.float64
+    return dtype
+
+
+def complex_dtype_of(dtype: torch.dtype) -> torch.dtype:
+    """Complex dtype matching a real (or complex) dtype's precision."""
+    if dtype in (torch.float64, torch.complex128):
+        return torch.complex128
+    return torch.complex64

@@ -1,0 +1,3 @@
+from .cfft import fft, ifft, fft_split, ifft_split  # noqa: F401
+from .rfft import (rfft, irfft, rfft_split, irfft_split,  # noqa: F401
+                   rfilter_split)

@@ -1,0 +1,326 @@
+"""Transform planning: factorization, twiddle tables, fast sizes.
+
+Counterpart of ``cfftpack_tpu/plan.py``, whose numpy code it copies:
+importing ``cfftpack_tpu.plan`` would load JAX through the package's
+``__init__``.  Everything here is host numpy in float64, except
+:func:`device_tables`, which turns one length's tables into tensors of
+the working dtype on the working device and caches them.
+
+* ``factor`` mirrors FFTPACK's greedy factorization (``factor_``):
+  radices 4, 2, 3, 5 first, then ascending odd trial factors.
+* ``stage_twiddles`` holds the per-Stockham-stage twiddles as dense
+  (p, m/p) arrays.
+* ``fft_next_fast_size`` and friends mirror cfftextra.c:20-82.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+# Largest prime factor handled by a direct in-line DFT stage; beyond it
+# Bluestein's chirp-z algorithm runs.
+MAX_DIRECT_RADIX = 32
+
+
+def _factor_py(n: int) -> tuple[int, ...]:
+    """Greedy factorization into radices (4,2,3,5, then odd primes)."""
+    if n < 1:
+        raise ValueError(f"transform length must be >= 1, got {n}")
+    fac = []
+    while n % 4 == 0:
+        fac.append(4)
+        n //= 4
+    for p in (2, 3, 5):
+        while n % p == 0:
+            fac.append(p)
+            n //= p
+    p = 7
+    while n > 1:
+        while n % p == 0:
+            fac.append(p)
+            n //= p
+        p += 2
+        if p * p > n and n > 1:
+            fac.append(n)
+            break
+    return tuple(fac)
+
+
+@functools.lru_cache(maxsize=4096)
+def factor(n: int) -> tuple[int, ...]:
+    return _factor_py(n)
+
+
+def max_prime_factor(n: int) -> int:
+    return max(factor(n)) if n > 1 else 1
+
+
+def is_smooth(n: int, primes: Sequence[int] = (2, 3, 5)) -> bool:
+    if n < 1:
+        return False
+    for p in primes:
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def needs_bluestein(n: int) -> bool:
+    """True when n has a prime factor too large for a direct DFT stage."""
+    return n > 1 and max_prime_factor(n) > MAX_DIRECT_RADIX
+
+
+def fft_next_fast_size(n: int) -> int:
+    """Next 5-smooth size >= n (cfftextra.c:20-38 behavior)."""
+    n = max(n, 2)
+    while not is_smooth(n):
+        n += 1
+    return n
+
+
+def fft_next_fast_even_size(n: int) -> int:
+    """Next even 5-smooth size >= n (cfftextra.c:40-46)."""
+    n = max(n, 2)
+    if n % 2:
+        n += 1
+    while not is_smooth(n):
+        n += 2
+    return n
+
+
+def fft_next_fast_size_2nm1(n: int) -> int:
+    """Next n >= given such that 2n-1 is 5-smooth (cfftextra.c:48-62)."""
+    n = max(n, 2)
+    while not is_smooth(2 * n - 1):
+        n += 1
+    return n
+
+
+def fft_next_fast_size_2np1(n: int) -> int:
+    """Next n >= given such that 2n+1 is 5-smooth (cfftextra.c:64-82)."""
+    n = max(n, 1)
+    while not is_smooth(2 * n + 1):
+        n += 1
+    return n
+
+
+def next_stream_size(x: int, max_m: int = 4096) -> int | None:
+    """Smallest N = 128*m >= x with m a 5-smooth multiple of 16 and
+    m <= max_m: the shape the streaming four-step kernel (K2, not yet
+    ported) takes.  None when x exceeds that cap."""
+    if x > 128 * max_m:
+        return None
+    m = max(16, -(-x // 128))
+    m += (-m) % 16
+    while m <= max_m and not is_smooth(m):
+        m += 16
+    if m > max_m:
+        return None
+    return 128 * m
+
+
+@functools.lru_cache(maxsize=1024)
+def stage_twiddles(n: int) -> tuple[np.ndarray, ...]:
+    """Per-stage Stockham twiddle tables for length ``n``.
+
+    Stage s with radix p and remaining sub-length m (product of factors
+    s..end) uses ``tw[k, j] = exp(-2j*pi*k*j/m)`` of shape (p, m//p).
+    The forward transform multiplies by ``tw``; the inverse by
+    ``conj(tw)``.
+    """
+    out = []
+    m = n
+    for p in factor(n):
+        mn = m // p
+        k = np.arange(p).reshape(p, 1)
+        j = np.arange(mn).reshape(1, mn)
+        out.append(np.exp((-2j * np.pi / m) * (k * j)))
+        m = mn
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def dft_matrix(p: int) -> np.ndarray:
+    """Dense p x p forward DFT matrix D[k, j] = exp(-2j*pi*k*j/p)."""
+    k = np.arange(p).reshape(p, 1)
+    j = np.arange(p).reshape(1, p)
+    return np.exp((-2j * np.pi / p) * (k * j))
+
+
+def host_fft(x: np.ndarray) -> np.ndarray:
+    """Host-side (numpy, float64) unscaled forward DFT on the same
+    Stockham schedule as the device path; used only to build plan
+    constants, so no external FFT is needed anywhere."""
+    x = np.asarray(x, dtype=np.complex128)
+    n = x.shape[-1]
+    if n == 1:
+        return x.copy()
+    S = x.reshape(-1, 1, n)
+    L, m = 1, n
+    for p, tw in zip(factor(n), stage_twiddles(n)):
+        mn = m // p
+        T = S.reshape(-1, L, p, mn)
+        U = np.einsum("kp,blpj->blkj", dft_matrix(p), T)
+        U *= tw[None, None]
+        S = U.transpose(0, 2, 1, 3).reshape(-1, L * p, mn)
+        L *= p
+        m = mn
+    return S.reshape(x.shape)
+
+
+@functools.lru_cache(maxsize=512)
+def bluestein_tables(n: int, m: int | None = None
+                     ) -> tuple[int, np.ndarray, np.ndarray]:
+    """Host tables (m, chirp, bq) for Bluestein's chirp-z FFT of length
+    ``n``: m is the 5-smooth convolution length >= 2n-1, chirp[j] =
+    exp(-1j*pi*j^2/n), and bq the unscaled length-m forward DFT of the
+    circular chirp-conjugate kernel."""
+    if m is None:
+        m = fft_next_fast_size(2 * n - 1)
+    elif m < 2 * n - 1 or not is_smooth(m):
+        raise ValueError(f"bluestein pad m={m} must be a 5-smooth "
+                         f"size >= 2n-1 = {2 * n - 1}")
+    # exponent j^2 mod 2n keeps the angle exact for large n
+    jsq = (np.arange(n, dtype=np.int64) ** 2) % (2 * n)
+    chirp = np.exp((-1j * np.pi / n) * jsq)
+    b = np.zeros(m, dtype=np.complex128)
+    b[:n] = np.conj(chirp)
+    b[m - n + 1:] = np.conj(chirp[1:][::-1])
+    bq = host_fft(b)
+    return m, chirp, bq
+
+
+# ------------------------------------------------------- device plans
+
+def host_tables(n: int) -> dict:
+    """Every host table a length-``n`` transform reads, as numpy f64.
+
+    Keys: ``factors``; ``twiddles`` (stage tables); ``dense`` ({p:
+    dft_matrix(p)} for radices 7..31); ``bluestein`` ((m, chirp, bq)
+    or None); ``rfft_merge``, ``irfft_merge`` (8 real tables each) and
+    ``rfilter`` (4 complex tables), None for odd n.  A ``source`` dict
+    given to :func:`device_tables` has the same keys.
+    """
+    from .ops.core import _irfft_merge_tables, _rfft_merge_tables
+    from .ops.rfft import _rfilter_tables
+    facs = factor(n)
+    even = n > 1 and n % 2 == 0
+    return {
+        "factors": facs,
+        "twiddles": stage_twiddles(n),
+        "dense": {p: dft_matrix(p) for p in set(facs)
+                  if 5 < p <= MAX_DIRECT_RADIX},
+        "bluestein": bluestein_tables(n) if needs_bluestein(n) else None,
+        "rfft_merge": _rfft_merge_tables(n) if even else None,
+        "irfft_merge": _irfft_merge_tables(n) if even else None,
+        "rfilter": _rfilter_tables(n) if even else None,
+    }
+
+
+@dataclass(frozen=True)
+class DeviceTables:
+    """One length's plan as tensors of one dtype on one device.
+
+    ``twr``/``twi`` are the flat stage twiddles (forward sign) with
+    stage s at ``offs[s]:offs[s+1]``; ``dr``/``di`` the dense DFT
+    matrices of the radices 7..31, stage s at ``dense_offs[s]`` (0
+    for closed-form radices).  ``dense`` maps p to (Dr, Di) views.
+    ``bluestein`` is (m, chirp_r, chirp_i, bq_r, bq_i); the real
+    tables are tuples of h-bin tensors.
+    """
+    n: int
+    factors: tuple[int, ...]
+    offs: tuple[int, ...]
+    twr: torch.Tensor
+    twi: torch.Tensor
+    dense_offs: tuple[int, ...]
+    dr: torch.Tensor
+    di: torch.Tensor
+    dense: dict
+    bluestein: tuple | None
+    rfft_merge: tuple | None
+    irfft_merge: tuple | None
+    rfilter: tuple | None
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def clear_device_tables() -> None:
+    _DEVICE_TABLES.clear()
+
+
+def to_device(a, dtype, device) -> torch.Tensor:
+    """A float64 numpy table as a tensor of ``dtype`` on ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64))
+    return t.to(dtype).to(device)
+
+
+def _build(n: int, tabs: dict, dtype, device) -> DeviceTables:
+    from .ops.fused_fft import _flat_twiddles
+    facs = tuple(int(p) for p in tabs["factors"])
+    offs, twr, twi = _flat_twiddles(tabs["twiddles"])
+    dense_offs, blocks, pos = [], [], 0
+    for p in facs:
+        if 5 < p <= MAX_DIRECT_RADIX:
+            dense_offs.append(pos)
+            blocks.append(np.asarray(tabs["dense"][p]).ravel())
+            pos += p * p
+        else:
+            dense_offs.append(0)
+    dflat = (np.concatenate(blocks) if blocks
+             else np.zeros(0, dtype=np.complex128))
+    dr = to_device(dflat.real, dtype, device)
+    di = to_device(dflat.imag, dtype, device)
+    dense = {}
+    for p, o in zip(facs, dense_offs):
+        if 5 < p <= MAX_DIRECT_RADIX:
+            dense[p] = (dr[o:o + p * p].view(p, p),
+                        di[o:o + p * p].view(p, p))
+    blu = tabs["bluestein"]
+    if blu is not None:
+        m, chirp, bq = blu
+        blu = (int(m),) + tuple(to_device(a, dtype, device) for a in (
+            chirp.real, chirp.imag, bq.real, bq.imag))
+
+    def reals(key):
+        t = tabs[key]
+        if t is None:
+            return None
+        return tuple(to_device(a, dtype, device) for a in t)
+
+    rfl = tabs["rfilter"]
+    if rfl is not None:
+        rfl = tuple(to_device(part, dtype, device)
+                    for c in rfl for part in (c.real, c.imag))
+    return DeviceTables(
+        n=n, factors=facs, offs=offs, twr=to_device(twr, dtype, device),
+        twi=to_device(twi, dtype, device), dense_offs=tuple(dense_offs),
+        dr=dr, di=di, dense=dense, bluestein=blu,
+        rfft_merge=reals("rfft_merge"), irfft_merge=reals("irfft_merge"),
+        rfilter=rfl)
+
+
+def device_tables(n: int, dtype: torch.dtype, device, source: dict | None
+                  = None) -> DeviceTables:
+    """Cached device plan of length ``n`` in ``dtype`` on ``device``.
+
+    ``source`` is a dict with the keys of :func:`host_tables` holding
+    numpy tables from elsewhere (the JAX package's own, for instance).
+    The plan built from it replaces the cached one for this key, so
+    every transform that follows reads it; :func:`clear_device_tables`
+    drops it again.
+    """
+    device = torch.device(device)
+    key = (n, dtype, device)
+    if source is None:
+        hit = _DEVICE_TABLES.get(key)
+        if hit is not None:
+            return hit
+        source = host_tables(n)
+    tables = _build(n, source, dtype, device)
+    _DEVICE_TABLES[key] = tables
+    return tables

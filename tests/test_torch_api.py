@@ -1,0 +1,162 @@
+"""The port's public transforms against the JAX package's: all four
+norms, a non-last axis, promotion, and the error cases."""
+import numpy as np
+import pytest
+import torch
+
+import cfftpack_tpu as jt
+import cfftpack_tpu_torch as pt
+
+from torch_parity import bar, complex_input, real_input, rel_err, to_np
+
+torch.set_num_threads(1)
+
+NORMS = ["fftpack", "ortho", "backward", "forward"]
+SHAPE = (6, 60)       # axis -1: n = 60 (radix 4/3/5); axis 0: n = 6
+
+
+def _t(a):
+    return torch.as_tensor(a)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("axis", [-1, 0])
+@pytest.mark.parametrize("norm", NORMS)
+def test_fft_ifft(norm, axis, dtype):
+    x = complex_input(SHAPE, dtype, seed=1)
+    for mine, ref in ((pt.fft, jt.fft), (pt.ifft, jt.ifft)):
+        got = mine(_t(x), axis=axis, norm=norm)
+        want = np.asarray(ref(x, axis=axis, norm=norm))
+        assert got.dtype == getattr(torch, np.dtype(dtype).name)
+        assert rel_err(got, want) < bar(dtype)
+
+
+def test_fft_promotes_real_input():
+    x = real_input(SHAPE, np.float64, seed=2)
+    got = pt.fft(_t(x))
+    assert got.dtype == torch.complex128
+    assert rel_err(got, np.asarray(jt.fft(x))) < 1e-12
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("axis", [-1, 0])
+@pytest.mark.parametrize("norm", NORMS)
+def test_fft_split(norm, axis, dtype):
+    x = complex_input(SHAPE, np.complex128, seed=3)
+    xr, xi = x.real.astype(dtype), x.imag.astype(dtype)
+    for mine, ref in ((pt.fft_split, jt.fft_split),
+                      (pt.ifft_split, jt.ifft_split)):
+        yr, yi = mine(_t(xr), _t(xi), axis=axis, norm=norm)
+        wr, wi = ref(xr, xi, axis=axis, norm=norm)
+        assert yr.dtype == getattr(torch, np.dtype(dtype).name)
+        assert rel_err(to_np(yr) + 1j * to_np(yi),
+                       np.asarray(wr) + 1j * np.asarray(wi)) < bar(dtype)
+
+
+def test_fft_split_promotes_integers():
+    xr = np.arange(64, dtype=np.int32).reshape(2, 32)
+    xi = np.zeros_like(xr)
+    yr, yi = pt.fft_split(_t(xr), _t(xi))
+    wr, wi = jt.fft_split(xr, xi)
+    assert yr.dtype == torch.float32 and np.asarray(wr).dtype == np.float32
+    assert rel_err(to_np(yr) + 1j * to_np(yi),
+                   np.asarray(wr) + 1j * np.asarray(wi)) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("axis", [-1, 0])
+@pytest.mark.parametrize("norm", NORMS)
+def test_rfft_irfft(norm, axis, dtype):
+    x = real_input(SHAPE, dtype, seed=4)
+    n = x.shape[axis]
+    got = pt.rfft(_t(x), axis=axis, norm=norm)
+    want = np.asarray(jt.rfft(x, axis=axis, norm=norm))
+    assert rel_err(got, want) < bar(dtype)
+    back = pt.irfft(got, n, axis=axis, norm=norm)
+    wback = np.asarray(jt.irfft(want, n, axis=axis, norm=norm))
+    assert back.dtype == getattr(torch, np.dtype(dtype).name)
+    assert rel_err(back, wback) < bar(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("axis", [-1, 0])
+@pytest.mark.parametrize("norm", NORMS)
+def test_rfft_irfft_split(norm, axis, dtype):
+    x = real_input(SHAPE, dtype, seed=5)
+    n = x.shape[axis]
+    yr, yi = pt.rfft_split(_t(x), axis=axis, norm=norm)
+    wr, wi = jt.rfft_split(x, axis=axis, norm=norm)
+    assert rel_err(to_np(yr) + 1j * to_np(yi),
+                   np.asarray(wr) + 1j * np.asarray(wi)) < bar(dtype)
+    back = pt.irfft_split(yr, yi, n, axis=axis, norm=norm)
+    wback = jt.irfft_split(wr, wi, n, axis=axis, norm=norm)
+    assert rel_err(back, np.asarray(wback)) < bar(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [60, 15])       # fused even n; odd n
+@pytest.mark.parametrize("norm", NORMS)
+def test_rfilter_split(norm, n, dtype):
+    x = real_input((4, n), dtype, seed=6)
+    f = complex_input((n // 2 + 1,), np.complex128, seed=7)
+    fr, fi = f.real.astype(dtype), f.imag.astype(dtype)
+    fi[0] = 0.0
+    if n % 2 == 0:
+        fi[-1] = 0.0
+    got = pt.rfilter_split(_t(x), _t(fr), _t(fi), norm=norm)
+    want = np.asarray(jt.rfilter_split(x, fr, fi, norm=norm))
+    assert rel_err(got, want) < bar(dtype)
+
+
+def test_rfilter_split_axis0():
+    x = real_input((60, 3), np.float64, seed=8)
+    f = complex_input((31,), np.complex128, seed=9)
+    fr, fi = f.real.copy(), f.imag.copy()
+    fi[0] = fi[-1] = 0.0
+    got = pt.rfilter_split(_t(x), _t(fr), _t(fi), axis=0)
+    want = np.asarray(jt.rfilter_split(x, fr, fi, axis=0))
+    assert rel_err(got, want) < 1e-12
+
+
+def test_errors_match_reference():
+    x = complex_input(SHAPE, np.complex128, seed=10)
+    xr = x.real.copy()
+    for api in (jt, pt):
+        arg = x if api is jt else _t(x)
+        rarg = xr if api is jt else _t(xr)
+        with pytest.raises(ValueError, match="norm"):
+            api.fft(arg, norm="bogus")
+        with pytest.raises(ValueError, match="norm"):
+            api.rfft_split(rarg, norm="bogus")
+        with pytest.raises(TypeError):
+            api.rfft(arg)                             # complex input
+        with pytest.raises(TypeError):
+            api.rfft_split(arg)
+        with pytest.raises(ValueError, match="bins"):
+            api.irfft(arg, 60)                        # 60 bins, not 31
+        with pytest.raises(ValueError, match="bins"):
+            api.irfft_split(rarg, rarg, 60)
+        with pytest.raises(ValueError, match="bins"):
+            api.rfilter_split(rarg, rarg[0], rarg[0])
+        with pytest.raises(ValueError, match="shapes differ"):
+            api.fft_split(rarg, rarg[:3])
+        with pytest.raises(ValueError, match="impl"):
+            api.fft_split(rarg, rarg, impl="bogus")
+
+
+def test_fft_split_rejects_complex_planes():
+    # the JAX package would run the real engine on them silently
+    z = torch.zeros((2, 8), dtype=torch.complex64)
+    with pytest.raises(TypeError, match="real input"):
+        pt.fft_split(z, z)
+
+
+def test_pallas_impl_at_k10_length_raises():
+    x = torch.zeros((2, 4096))
+    with pytest.raises(NotImplementedError, match="K10"):
+        pt.fft_split(x, x, impl="pallas")
+    # other lengths run the default engine
+    y = torch.as_tensor(real_input((2, 60), np.float32, seed=11))
+    a = pt.fft_split(y, y, impl="pallas")
+    b = pt.fft_split(y, y)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

@@ -1,0 +1,88 @@
+"""The slice end to end: the flagship step and the conv pricer against
+the JAX package, that importing the port leaves JAX out, and that CPU
+runs never launch the kernel."""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import jax
+
+import __graft_entry__
+from cfftpack_tpu.models import (bs_cf as j_bs_cf,
+                                 conv_bsvg_option as j_conv_bsvg_option,
+                                 conv_option_price as j_conv_option_price)
+
+from cfftpack_tpu_torch.entry import entry
+from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
+                                       conv_option_price)
+from cfftpack_tpu_torch.ops import fused_fft
+
+from torch_parity import rel_err, to_np
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+STRIKES = np.arange(80.0, 120.0, 0.5)                  # 80 strikes
+# the reference's variance-gamma benchmark (test/vargamma.c:108-121)
+VG = (100.0, 98.0, 0.12, -0.14, 0.2, 1.0, 0.05)
+
+
+def test_flagship_step_matches_reference():
+    jstep, jargs = __graft_entry__.entry()
+    want = np.asarray(jax.jit(jstep)(*jargs))
+    step, args = entry("cpu")
+    for a, b in zip(args, jargs):
+        assert np.array_equal(to_np(a), np.asarray(b))   # same inputs
+    got = step(*args)
+    assert got.shape == (64, 960) and got.dtype == torch.float32
+    assert rel_err(got, want) < 1e-4                   # f32 bar
+
+
+def test_conv_option_price_matches_reference():
+    def phi(u):
+        return bs_cf(u, 0.25, 0.2, 0.03)
+
+    got = conv_option_price(100.0, STRIKES, 0.25, 0.03, phi, n=4096,
+                            grid_sigma=0.2)
+    want = j_conv_option_price(100.0, STRIKES, 0.25, 0.03,
+                               lambda u: j_bs_cf(u, 0.25, 0.2, 0.03),
+                               n=4096, grid_sigma=0.2)
+    assert got.shape == (80,)
+    assert rel_err(got, want) < 1e-12                  # f64 bar
+
+
+@pytest.mark.parametrize("is_call", [True, False])
+def test_conv_bsvg_option_vg_matches_reference(is_call):
+    got = conv_bsvg_option(4096, *VG, is_call=is_call, is_bs=False)
+    want = j_conv_bsvg_option(4096, *VG, is_call=is_call, is_bs=False)
+    assert abs(got - want) < 1e-12 * abs(want)
+
+
+def test_pricer_mesh_waits_for_the_parallel_layer():
+    with pytest.raises(NotImplementedError, match="parallel"):
+        conv_option_price(100.0, 100.0, 0.25, 0.03,
+                          lambda u: bs_cf(u, 0.25, 0.2, 0.03), n=64,
+                          grid_sigma=0.2, mesh=object())
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, cfftpack_tpu_torch, cfftpack_tpu_torch.models, "
+            "cfftpack_tpu_torch.entry; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'cfftpack_tpu.'))] ; "
+            "assert not bad, bad")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_cpu_slice_never_launches_the_kernel():
+    step, args = entry("cpu", batch=4)
+    step(*args)
+    conv_option_price(100.0, STRIKES[:4], 0.25, 0.03,
+                      lambda u: bs_cf(u, 0.25, 0.2, 0.03), n=256,
+                      grid_sigma=0.2)
+    assert fused_fft.launches == 0
