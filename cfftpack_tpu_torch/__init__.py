@@ -4,8 +4,8 @@ The same public names and signatures as ``cfftpack_tpu`` for the part
 ported so far: complex and real 1-D FFTs (tensor and split (re, im)
 forms), the fused real filter, fast-size planning and the conv option
 pricer (``cfftpack_tpu_torch.models``).  Transforms run through the
-hand-written CUDA kernel in ``csrc/`` on CUDA tensors and through its
-plain PyTorch version on CPU tensors.  This package never imports JAX.
+hand-written CUDA kernels in ``csrc/`` on CUDA tensors and through their
+plain PyTorch versions on CPU tensors.  This package never imports JAX.
 """
 from .config import DEFAULT_NORM, VALID_NORMS  # noqa: F401
 from .plan import (fft_next_fast_size, fft_next_fast_even_size,  # noqa: F401

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled with ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds) and
+Each ``csrc/*.cu`` is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds),
 loaded with ``ctypes``.  The library lands in ``build/cfftpack_tpu_torch/``
 at the root of the checkout, named by a hash of the sources and flags,
-so an edited source builds anew and an unchanged one loads at once.
-This runs at the first kernel launch on a CUDA tensor, never at import.
+so an edited source builds anew and an unchanged one loads at once;
+``ptxas`` reports each kernel's registers and spills into a ``.log``
+beside it.  This runs at the first kernel launch on a CUDA tensor,
+never at import.
 """
 from __future__ import annotations
 
@@ -22,13 +25,18 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "cfftpack_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # xr, xi, yr, yi, twr, twi, dr, di, B, n, nstages, factors, tw_offs,
 # dense_offs, inverse, tb, threads, stream
 _K1_ARGTYPES = [_P] * 8 + [_I, _I, _I] + [_P] * 3 + [_I, _I, _I, _P]
+# xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
+# rtwr, rtwi, rstages, rfac, roff, fr, fi, nfilt, b, m, mode, lshift,
+# stream
+_STREAM_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
+                    + [_P] * 2 + [_I] * 5 + [_P])
 
 
 def _nvcc() -> str:
@@ -58,19 +66,30 @@ def build() -> Path:
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = str(Path(tmp) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{err}")
+            log.append(err)
+        lib = str(Path(tmp) / out.name)
+        cmd = [nvcc, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): "
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
                                f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        out.with_suffix(".log").write_text("".join(log))
+        os.replace(lib, out)
     return out
 
 
@@ -78,8 +97,10 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's types."""
     lib = ctypes.CDLL(str(build()))
-    for name in ("cfft_stockham_f32", "cfft_stockham_f64"):
+    for name, types in (("cfft_stockham_f32", _K1_ARGTYPES),
+                        ("cfft_stockham_f64", _K1_ARGTYPES),
+                        ("stream_fft_f32", _STREAM_ARGTYPES)):
         fn = getattr(lib, name)
-        fn.argtypes = _K1_ARGTYPES
+        fn.argtypes = types
         fn.restype = ctypes.c_int
     return lib

@@ -8,10 +8,12 @@ real transforms built on the complex one.  Host tables are float64
 (``plan``), cast to the working dtype once per device plan.
 
 Dispatch depends only on (n, dtype): Bluestein, else K1
-(``fused_fft.sfft_fused``), else the four-step whose row transforms
-recurse here.  The device decides one thing only, inside
-``sfft_fused``: a CPU tensor runs K1's plain version (``_stockham``
-below), a CUDA tensor launches the kernel.
+(``fused_fft.sfft_fused``), else for float32 the stream kernel K3 or,
+past its cap, the s-way split K5 around K2
+(``stream_fft.sfft_stream_split``), else the four-step whose row
+transforms recurse here.  The device decides one thing only, inside
+the kernels' wrappers: a CPU tensor runs the plain version
+(``_stockham`` below for K1), a CUDA tensor launches the kernel.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import plan
-from . import fused_fft
+from . import fused_fft, stream_fft
 
 __all__ = ["sfft", "srfft", "sirfft"]
 
@@ -126,7 +128,8 @@ def _cmul_tab(xr, xi, tr, ti):
 
 # --------------------------------------------- large-n four-step (local)
 #
-# Past K1's shared-memory cap, n = n1*n2 runs as the in-core four-step:
+# Past K1's shared-memory cap, lengths the stream kernels do not take
+# (float64, or m not 5-smooth) run as the in-core four-step:
 # x[j1*n2 + j2] as (n1, n2); DFT over j1 (axis -2, a dense matmul for
 # n1 <= 64), twiddle e^{sgn 2i pi k1 j2/n}, DFT over j2 (rows, through
 # _fft_any and so K1), then one (k1, k2) -> k2-major transpose.
@@ -227,6 +230,9 @@ def _fft_any(xr, xi, n: int, inverse: bool):
         return _bluestein(xr, xi, n, inverse)
     if fused_fft.fused_eligible(n, xr.dtype):
         return fused_fft.sfft_fused(xr, xi, n, inverse)
+    if stream_fft.stream_filter_eligible(n, xr.dtype):
+        # K3, or past its cap (2^20, 2^21) the K5 split around K2
+        return stream_fft.sfft_stream_split(xr, xi, n, inverse)
     return _fourstep_local(xr, xi, n, inverse)
 
 

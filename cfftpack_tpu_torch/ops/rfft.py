@@ -15,7 +15,7 @@ import torch
 from ..config import (DEFAULT_NORM, check_norm, complex_dtype_of, fwd_scale,
                       inv_scale, real_dtype_of)
 from .. import plan
-from . import core
+from . import core, fused_fft, stream_fft
 from .cfft import _apply_axis, _as_real_plane, _check_axis
 
 __all__ = ["rfft", "irfft", "rfft_split", "irfft_split", "rfilter_split"]
@@ -157,13 +157,43 @@ def _rfilter_fused(x, fr, fi, n: int):
     return core._interleave(wr, wi)
 
 
+def _use_stream_filter(x, fr, fi, n: int) -> bool:
+    """The streaming filter's structural conditions: float32, a length
+    the stream kernels take (split or not), one filter for every row,
+    an even flat batch to pair, and a half length K1 does not take.
+
+    The conjugate-symmetric extension assumes real DC and Nyquist bins
+    (fi[0] == fi[n//2] == 0, the rfft of a real filter), the documented
+    contract of ``rfilter_split``."""
+    if not stream_fft.stream_filter_eligible(n, x.dtype):
+        return False
+    if fr.ndim != 1 or fi.ndim != 1:
+        return False
+    B = x.shape[:-1].numel()
+    if B % 2 or B < 2:
+        return False
+    return not fused_fft.fused_eligible(n // 2, x.dtype)
+
+
+def _rfilter_stream(x, fr, fi, n: int):
+    """Large-n filter: rows paired, K2 forward to the permuted spectrum,
+    the multiply fused into K4's inverse; no deinterleave, merge or
+    interleave pass."""
+    h = n // 2
+    ffr = torch.cat([fr, fr[1:h].flip(-1)])
+    ffi = torch.cat([fi, -fi[1:h].flip(-1)])
+    return stream_fft.sfilter_stream(x, ffr, ffi, n)
+
+
 def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
     """Fused real spectral filter: irfft(rfft(x) * (fr + i*fi)).
 
     ``(fr, fi)`` is the packed (n//2+1)-bin filter spectrum.  Equal to
     the composition through ``rfft_split`` and ``irfft_split`` for every
     norm, but even n runs one half-length FFT, one fused FMA and one
-    inverse, with no packed-spectrum merge or un-merge.  The filter's
+    inverse, with no packed-spectrum merge or un-merge; float32 lengths
+    of the stream kernels with an even flat batch and one filter run
+    the streaming filter (K2 and K4) instead.  The filter's
     DC and (even n) Nyquist bins must be real, as for the rfft of a
     real filter.
     """
@@ -185,6 +215,8 @@ def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
         # odd n: plain composition (no half-length packing to fuse)
         yr, yi = core.srfft(x, n)
         out = core.sirfft(yr * fr - yi * fi, yr * fi + yi * fr, n)
+    elif _use_stream_filter(x, fr, fi, n):
+        out = _rfilter_stream(x, fr, fi, n)
     else:
         out = _rfilter_fused(x, fr, fi, n)
     # the unscaled pipeline is sirfft(srfft(x)*F); the public

@@ -1,0 +1,372 @@
+"""K2, K3, K4 and K5: the streaming four-step FFT for n = 128*m.
+
+Counterpart of ``cfftpack_tpu/ops/pallas_stream.py`` (the Pallas kernel
+``_make_kernel`` in its five modes, and the wrappers around it).  For
+n = 128*m with m a 5-smooth multiple of 16 and m <= 4096, the natural
+tile x[q, r] (flat j = 128*q + r) transforms as
+
+    X[k2 + m*k1] = sum_r W_128^{r k1} * W_n^{r k2} * sum_q x[q, r] W_m^{q k2}
+
+K2 runs it natural -> permuted (X[k2 + m*k1] at [k2, k1] of an
+(m, 128) tile) and back; K3 natural -> natural, with the transpose done
+on chip; K4 is the inverse with a spectral multiply fused into its
+load.  K5 (:func:`sfft_stream_split`) splits lengths past m = 4096
+s = 2 or 4 ways around K2.  The CUDA kernels live in
+``csrc/stream_fft.cu``; each direction is two passes there (an m-point
+column pass and a 128-point row pass through scratch planes).
+
+On a CPU tensor every wrapper runs the plain PyTorch version
+(:func:`stream_plain`, built from ``core._stockham`` and a float32
+matmul); on a CUDA tensor it launches the kernel or raises.
+``launches`` counts kernel launches per kernel.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import plan
+from . import _build, core
+
+__all__ = ["stream_eligible", "stream_filter_eligible", "stream_plain",
+           "sfft_stream", "sfft_stream_permuted", "sfilter_stream",
+           "sfft_stream_split"]
+
+_N1 = 128          # lanes: the outer DFT length
+_TAIL = 16
+_MAX_M = 4096      # the reference's whole-transform cap, kept so the
+                   # eligible lengths, split factors and layouts agree
+
+# Shared memory one block may use on sm_90 (227 KB).  A column-pass
+# block takes the widest lane group (up to 32 floats, one 128-byte
+# segment per row) whose buffers fit 64 KB, so three blocks share an SM
+# (measured faster than one wide block at m = 512 and 1024, PERF.md),
+# and at least 2 lanes (128 KB at m = 4096, faster there than 1).
+_SMEM_BUDGET = 232448
+_SMEM_TARGET = 64 * 1024
+_MIN_LANES = 2
+_MAX_LANES = 32
+
+_MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
+_KERNEL = {"fwd": "K2", "inv": "K2", "fwd_nat": "K3", "inv_nat": "K3",
+           "filter": "K4"}
+launches = {"K2": 0, "K3": 0, "K4": 0}
+
+
+def _stage_ok(m: int) -> bool:
+    """m = 16 * 2^a * 3^b * 5^c: the row counts the reference's
+    ``_stage_plan`` accepts."""
+    return m % _TAIL == 0 and plan.is_smooth(m // _TAIL)
+
+
+def stream_eligible(n: int, dtype) -> bool:
+    if dtype != torch.float32:
+        return False
+    return n % _N1 == 0 and n // _N1 <= _MAX_M and _stage_ok(n // _N1)
+
+
+def _filter_split_factor(n: int):
+    """Smallest split s (1, 2, 4) putting the inner transform within the
+    kernel's cap, or None."""
+    if n % _N1:
+        return None
+    for s in (1, 2, 4):
+        if n % (s * _N1) == 0:
+            m = n // (s * _N1)
+            if m <= _MAX_M and _stage_ok(m):
+                return s
+    return None
+
+
+def stream_filter_eligible(n: int, dtype) -> bool:
+    if dtype != torch.float32:
+        return False
+    return _filter_split_factor(n) is not None
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(n: int, inverse: bool):
+    """Outer twiddle W_n^{r k2} (conjugate for the inverse) as (m, 128)
+    float32 planes, built in float64."""
+    m = n // _N1
+    sgn = 2j * np.pi if inverse else -2j * np.pi
+    k2 = np.arange(m)[:, None]
+    r = np.arange(_N1)[None, :]
+    t1 = np.exp(sgn * k2 * r / n)
+    return t1.real.astype(np.float32), t1.imag.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _split_twiddle(n: int, s: int):
+    """Split twiddle W_n^{k1 j2} as (s, m, 128) float32 planes (j2 natural
+    rows: j2 = 128 q + r)."""
+    n_in = n // s
+    k1 = np.arange(s)[:, None]
+    j2 = np.arange(n_in)[None, :]
+    t = np.exp(-2j * np.pi * k1 * j2 / n).reshape(s, n_in // _N1, _N1)
+    return t.real.astype(np.float32), t.imag.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_outer(n: int, inverse: bool, device):
+    return tuple(torch.from_numpy(t).to(device) for t in _tables(n, inverse))
+
+
+@functools.lru_cache(maxsize=16)
+def _device_split(n: int, s: int, device):
+    return tuple(torch.from_numpy(t).to(device) for t in _split_twiddle(n, s))
+
+
+def _col_lanes(m: int) -> int:
+    """Lanes L of one column-pass block (a power of two): two buffers of
+    both planes take 16*m*L bytes."""
+    lanes = _MAX_LANES
+    while lanes > _MIN_LANES and 16 * m * lanes > _SMEM_TARGET:
+        lanes //= 2
+    return lanes
+
+
+# ------------------------------------------------------ plain version
+
+def _dft128(yr, yi, inverse: bool):
+    """128-point DFT over the last axis as a float32 matmul (the
+    reference's outer DFT; D is symmetric)."""
+    Dr, Di = core._dense_dft(_N1, inverse, yr.dtype, yr.device)
+    return (torch.matmul(yr, Dr) - torch.matmul(yi, Di),
+            torch.matmul(yr, Di) + torch.matmul(yi, Dr))
+
+
+def _dft_rows(xr, xi, m: int, inverse: bool):
+    """m-point DFT over axis 1 of (b, m, 128) planes."""
+    yr, yi = core._stockham(xr.transpose(1, 2).contiguous(),
+                            xi.transpose(1, 2).contiguous(), m, inverse)
+    return yr.transpose(1, 2), yi.transpose(1, 2)
+
+
+def stream_plain(xr, xi, n: int, mode: str, fr=None, fi=None):
+    """The plain PyTorch version of every mode, on any device.
+
+    Planes are (b, m, 128), except the natural spectrum of fwd_nat's
+    output and inv_nat's input, (b, 128, m).  ``(fr, fi)`` is the
+    (s, m, 128) permuted filter of mode "filter"; batch row i takes
+    slice i % s.
+    """
+    m = n // _N1
+    if mode in ("fwd", "fwd_nat"):
+        t1r, t1i = _device_outer(n, False, xr.device)
+        sr, si = _dft_rows(xr, xi, m, False)
+        zr, zi = _dft128(*core._cmul_tab(sr, si, t1r, t1i), False)
+        if mode == "fwd_nat":
+            zr, zi = zr.transpose(1, 2), zi.transpose(1, 2)
+        return zr.contiguous(), zi.contiguous()
+    if mode == "inv_nat":
+        xr, xi = xr.transpose(1, 2), xi.transpose(1, 2)
+    elif mode == "filter":
+        rows = torch.arange(xr.shape[0], device=xr.device) % fr.shape[0]
+        xr, xi = core._cmul_tab(xr, xi, fr[rows], fi[rows])
+    t1r, t1i = _device_outer(n, True, xr.device)
+    yr, yi = _dft128(xr, xi, True)
+    sr, si = _dft_rows(*core._cmul_tab(yr, yi, t1r, t1i), m, True)
+    return sr.contiguous(), si.contiguous()
+
+
+# ------------------------------------------------------------ launch
+
+def _launch(xr, xi, n: int, mode: str, fr=None, fi=None):
+    """One mode through the CUDA kernels (both passes)."""
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
+        raise TypeError(f"the stream kernel takes float32 planes, got "
+                        f"{xr.dtype} and {xi.dtype}")
+    if not stream_eligible(n, xr.dtype):
+        raise ValueError(f"the stream kernel does not take n={n}")
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+    if not (xr.is_cuda and xi.is_cuda) or xr.device != xi.device:
+        raise ValueError(f"the stream kernel needs both planes on one CUDA "
+                         f"device, got {xr.device} and {xi.device}")
+    m = n // _N1
+    b = xr.shape[0]
+    shape_in = (b, _N1, m) if mode == "inv_nat" else (b, m, _N1)
+    if tuple(xr.shape) != shape_in or tuple(xi.shape) != shape_in:
+        raise ValueError(f"mode {mode} takes planes of shape {shape_in}, "
+                         f"got {tuple(xr.shape)}")
+    nfilt = 1
+    if mode == "filter":
+        if (fr is None or fi is None or fr.dim() != 3
+                or tuple(fr.shape[1:]) != (m, _N1) or fi.shape != fr.shape
+                or fr.dtype != torch.float32 or fi.dtype != torch.float32
+                or fr.device != xr.device or fi.device != xr.device):
+            raise ValueError(f"mode filter takes float32 (s, {m}, {_N1}) "
+                             f"filter planes on {xr.device}")
+        fr = fr.contiguous()
+        fi = fi.contiguous()
+        nfilt = fr.shape[0]
+    xr = xr.contiguous()
+    xi = xi.contiguous()
+    shape_out = (b, _N1, m) if mode == "fwd_nat" else (b, m, _N1)
+    yr = torch.empty(shape_out, dtype=xr.dtype, device=xr.device)
+    yi = torch.empty_like(yr)
+    if b == 0:
+        return yr, yi
+    sr = torch.empty((b, m, _N1), dtype=xr.dtype, device=xr.device)
+    si = torch.empty_like(sr)
+    inverse = mode not in ("fwd", "fwd_nat")
+    t1r, t1i = _device_outer(n, inverse, xr.device)
+    ct = plan.device_tables(m, xr.dtype, xr.device)
+    rt = plan.device_tables(_N1, xr.dtype, xr.device)
+    cfac = np.asarray(ct.factors, dtype=np.int32)
+    coff = np.asarray(ct.offs[:-1], dtype=np.int32)
+    rfac = np.asarray(rt.factors, dtype=np.int32)
+    roff = np.asarray(rt.offs[:-1], dtype=np.int32)
+    lshift = _col_lanes(m).bit_length() - 1
+    fptr = (fr.data_ptr(), fi.data_ptr()) if mode == "filter" else (None,
+                                                                    None)
+    lib = _build.load()
+    with torch.cuda.device(xr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.stream_fft_f32(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            sr.data_ptr(), si.data_ptr(), t1r.data_ptr(), t1i.data_ptr(),
+            ct.twr.data_ptr(), ct.twi.data_ptr(), len(cfac),
+            cfac.ctypes.data, coff.ctypes.data, rt.twr.data_ptr(),
+            rt.twi.data_ptr(), len(rfac), rfac.ctypes.data,
+            roff.ctypes.data, *fptr, nfilt, b, m, _MODES.index(mode),
+            lshift, stream)
+    if err != 0:
+        raise RuntimeError(f"stream kernel launch failed at n={n}, b={b}, "
+                           f"mode={mode}: CUDA error {err}")
+    launches[_KERNEL[mode]] += 1
+    return yr, yi
+
+
+def _run(xr, xi, n: int, mode: str, fr=None, fi=None):
+    if xr.device.type == "cpu":
+        return stream_plain(xr, xi, n, mode, fr, fi)
+    return _launch(xr, xi, n, mode, fr, fi)
+
+
+# ---------------------------------------------------------- wrappers
+
+def sfft_stream_permuted(xr, xi, n: int, inverse: bool):
+    """Permuted-layout FFT over the last axis (K2): forward natural ->
+    permuted, X[k2 + m*k1] at flat [k2*128 + k1]; inverse permuted ->
+    natural (unscaled)."""
+    shape = xr.shape
+    m = n // _N1
+    yr, yi = _run(xr.reshape(-1, m, _N1), xi.reshape(-1, m, _N1), n,
+                  "inv" if inverse else "fwd")
+    return yr.reshape(shape), yi.reshape(shape)
+
+
+def sfft_stream(xr, xi, n: int, inverse: bool):
+    """Natural-order FFT over the last axis (K3): the ``core.sfft``
+    contract, the permuted <-> natural transpose done in the kernel."""
+    shape = xr.shape
+    m = n // _N1
+    if inverse:
+        yr, yi = _run(xr.reshape(-1, _N1, m), xi.reshape(-1, _N1, m), n,
+                      "inv_nat")
+    else:
+        yr, yi = _run(xr.reshape(-1, m, _N1), xi.reshape(-1, m, _N1), n,
+                      "fwd_nat")
+    return yr.reshape(shape), yi.reshape(shape)
+
+
+def _stream_filter_inv(xr, xi, fpr, fpi, n: int):
+    """Inverse with the filter multiply fused (K4): permuted (b, m, 128)
+    spectrum and permuted (s, m, 128) filter -> natural (b, m, 128); batch
+    row i takes filter slice i % s."""
+    return _run(xr, xi, n, "filter", fpr, fpi)
+
+
+def _split_pre(zr, zi, n: int, s: int):
+    """s-point DFT over axis 1 of (b, s, n/s) planes, then the split
+    twiddle W_n^{k1 j2}."""
+    zr, zi = core._butterfly(zr, zi, s, inverse=False)
+    twr, twi = _device_split(n, s, zr.device)
+    return core._cmul_tab(zr, zi, twr.reshape(s, -1), twi.reshape(s, -1))
+
+
+def _split_post(wr, wi, n: int, s: int):
+    """The conjugate split twiddle, then the inverse s-point DFT over
+    axis 1 of (b, s, n/s) planes."""
+    twr, twi = _device_split(n, s, wr.device)
+    ur, ui = core._cmul_tab(wr, wi, twr.reshape(s, -1), -twi.reshape(s, -1))
+    return core._butterfly(ur, ui, s, inverse=True)
+
+
+def sfilter_stream(x, ffr, ffi, n: int):
+    """``sirfft(srfft(x) * F)`` (n times the filtered x, unscaled) for real
+    x with an even flat batch, through K2 and K4.
+
+    ``(ffr, ffi)`` is the full n-bin conjugate-symmetric extension of the
+    filter.  Adjacent rows pack as z = x[2p] + i*x[2p+1]; since the
+    extension is conjugate-symmetric, the filtered pair decodes to the
+    filtered rows exactly.  Past the kernel's cap (m > 4096, e.g. the
+    2^20 pricer grid) the transform splits s ways: an s-point DFT and
+    the split twiddle before K2 at batch P*s, filter slice k1 = row % s
+    in K4, and the mirror after.
+    """
+    lead = x.shape[:-1]
+    B = lead.numel()
+    if B % 2:
+        raise ValueError("sfilter_stream: flat batch must be even")
+    s = _filter_split_factor(n)
+    if s is None:
+        raise ValueError(f"sfilter_stream: n={n} not eligible")
+    n_in = n // s
+    m = n_in // _N1
+    P = B // 2
+    xp = x.reshape(P, 2, s, n_in)
+    zr, zi = xp[:, 0], xp[:, 1]
+    if s > 1:
+        zr, zi = _split_pre(zr, zi, n, s)
+    Zr, Zi = _run(zr.reshape(P * s, m, _N1), zi.reshape(P * s, m, _N1),
+                  n_in, "fwd")
+    # filter slices: k = k1 + s*(k2 + m*lane) -> (s, m, 128)
+    fpr = ffr.reshape(_N1, m, s).permute(2, 1, 0).contiguous()
+    fpi = ffi.reshape(_N1, m, s).permute(2, 1, 0).contiguous()
+    wr, wi = _stream_filter_inv(Zr, Zi, fpr, fpi, n_in)
+    wr = wr.reshape(P, s, n_in)
+    wi = wi.reshape(P, s, n_in)
+    if s > 1:
+        wr, wi = _split_post(wr, wi, n, s)
+    out = torch.stack([wr.reshape(P, n), wi.reshape(P, n)], dim=1)
+    return out.reshape(lead + (n,))
+
+
+def sfft_stream_split(xr, xi, n: int, inverse: bool):
+    """Natural-order FFT for n past the kernel's cap (K5): n = s * n_in
+    with s = ``_filter_split_factor(n)``, an s-point butterfly and the
+    split twiddle around K2 at s-fold batch, and one digit-riffle
+    transpose on the spectrum side.  The ``core.sfft`` contract; s = 1
+    is K3."""
+    s = _filter_split_factor(n)
+    if s is None:
+        raise ValueError(
+            f"sfft_stream_split: n={n} is not stream-split eligible (needs "
+            f"n = s*128*m with s in {{1,2,4}}, m <= {_MAX_M} a 5-smooth "
+            f"multiple of {_TAIL})")
+    if s == 1:
+        return sfft_stream(xr, xi, n, inverse)
+    n_in = n // s
+    m = n_in // _N1
+    shape = xr.shape
+    b = shape[:-1].numel()
+    if not inverse:
+        zr, zi = _split_pre(xr.reshape(b, s, n_in), xi.reshape(b, s, n_in),
+                            n, s)
+        Cr, Ci = _run(zr.reshape(b * s, m, _N1), zi.reshape(b * s, m, _N1),
+                      n_in, "fwd")
+        # natural assembly: X[k1 + s*k2 + s*m*lane] -> (b, lane, k2, k1)
+        yr = Cr.reshape(b, s, m, _N1).permute(0, 3, 2, 1).reshape(shape)
+        yi = Ci.reshape(b, s, m, _N1).permute(0, 3, 2, 1).reshape(shape)
+        return yr, yi
+    # inverse: decode the natural spectrum into (k1, permuted k2) tiles
+    Cr = xr.reshape(b, _N1, m, s).permute(0, 3, 2, 1).reshape(b * s, m, _N1)
+    Ci = xi.reshape(b, _N1, m, s).permute(0, 3, 2, 1).reshape(b * s, m, _N1)
+    wr, wi = _run(Cr, Ci, n_in, "inv")
+    zr, zi = _split_post(wr.reshape(b, s, n_in), wi.reshape(b, s, n_in), n, s)
+    return zr.reshape(shape), zi.reshape(shape)

@@ -109,8 +109,8 @@ def fft_next_fast_size_2np1(n: int) -> int:
 
 def next_stream_size(x: int, max_m: int = 4096) -> int | None:
     """Smallest N = 128*m >= x with m a 5-smooth multiple of 16 and
-    m <= max_m: the shape the streaming four-step kernel (K2, not yet
-    ported) takes.  None when x exceeds that cap."""
+    m <= max_m: the shape the streaming four-step kernels (K2, K3, K4 in
+    ``ops/stream_fft.py``) take.  None when x exceeds that cap."""
     if x > 128 * max_m:
         return None
     m = max(16, -(-x // 128))

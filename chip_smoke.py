@@ -2,21 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel (K1, ``cfftpack_tpu_torch/csrc/stockham_fft.cu``)
-from the checkout, holds it against its plain PyTorch version and
-``torch.fft`` at the main path's shapes, then drives the main path
+Builds the CUDA kernels from the checkout (K1,
+``cfftpack_tpu_torch/csrc/stockham_fft.cu``; K2, K3 and K4,
+``csrc/stream_fft.cu``), holds each against its plain PyTorch version
+and ``torch.fft`` at the main path's shapes, then drives the main path
 through the public entry points (the bench headline ``fft_split`` at
 n = 1024 x 4096, the flagship rfft -> multiply -> irfft step, the conv
-option pricer in float64, Bluestein and four-step lengths) and checks
-each result.  Prints CUDA-event times of K1 and its plain version, one
-JSON line describing the kernels, and as its last line
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
-exits non-zero; without a CUDA card it exits non-zero before printing
-a result.
+option pricer in float64 and in float32 at the 2^20 grid, Bluestein and
+four-step lengths, ``fft_split`` through the stream kernel at 65536 and
+its split at 2^20 and 2^21, and the streaming filter) and checks each
+result.  Each path runs with the launch counts set to 0 just before it
+and read just after.  Prints CUDA-event times of the kernels and their
+plain versions, one JSON line describing the kernels, and as its last
+line ``{"ok": true, "device": {...}}``.  Any failed check raises, so
+the run exits non-zero; without a CUDA card it exits non-zero before
+printing a result.
 """
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import subprocess
 import sys
@@ -29,7 +34,10 @@ import cfftpack_tpu_torch as ct
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
-from cfftpack_tpu_torch.ops import _build, fused_fft
+from cfftpack_tpu_torch.ops import _build, fused_fft, stream_fft
+
+# the module, not the function of the same name that ops exports
+rfft_ops = importlib.import_module("cfftpack_tpu_torch.ops.rfft")
 
 DEV = "cuda"
 # the reference's variance-gamma benchmark (test/vargamma.c:108-121) and
@@ -39,6 +47,10 @@ VG_CONV = 9.342473370823516
 # phase 2: the CPU test's lengths plus 4096, ragged and full batches
 K1_SIZES = (4, 8, 60, 64, 243, 899, 960, 1024, 4096)
 K1_BATCHES = (37, 4096)
+# phase 3: m = 16, 32, 48 (radix 3), 80 (radix 5), 512, 768, 4096 (the cap)
+STREAM_SIZES = (2048, 4096, 6144, 10240, 65536, 98304, 524288)
+STREAM_MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
+KERNELS = ("K1", "K2", "K3", "K4")
 
 
 def check(ok: bool, what: str) -> None:
@@ -61,9 +73,9 @@ def pair(shape, dtype, seed):
 
 @contextlib.contextmanager
 def plain_engine():
-    """Run the transform path with K1's plain version in place of the
-    kernel, on the same card, for comparison and timing only."""
-    kernel = fused_fft.sfft_fused
+    """Run the transform path with the kernels' plain versions in place
+    of the kernels, on the same card, for comparison and timing only."""
+    kernel, stream_launch = fused_fft.sfft_fused, stream_fft._launch
 
     def plain(xr, xi, n, inverse):
         shape = xr.shape
@@ -72,10 +84,64 @@ def plain_engine():
         return yr.reshape(shape), yi.reshape(shape)
 
     fused_fft.sfft_fused = plain
+    stream_fft._launch = stream_fft.stream_plain
     try:
         yield
     finally:
         fused_fft.sfft_fused = kernel
+        stream_fft._launch = stream_launch
+
+
+@contextlib.contextmanager
+def no_stream():
+    """Take the stream kernels out of the dispatch (the routes before
+    them: the four-step with K1 on its rows), for timing only."""
+    cap = stream_fft._MAX_M
+    stream_fft._MAX_M = 0
+    try:
+        yield
+    finally:
+        stream_fft._MAX_M = cap
+
+
+def counts() -> dict:
+    return {"K1": fused_fft.launches, **stream_fft.launches}
+
+
+def zero_counts() -> None:
+    fused_fft.launches = 0
+    for k in stream_fft.launches:
+        stream_fft.launches[k] = 0
+
+
+def drive(fn, total: dict):
+    """Run one main path with the counts set to 0 just before it; return
+    its result and its launches, which are added to ``total``."""
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = counts()
+    for k in KERNELS:
+        total[k] += got[k]
+    return out, got
+
+
+def stream_reference(x, n: int, mode: str, f=None):
+    """torch.fft (complex128) of what a stream mode computes, in the
+    mode's output layout."""
+    b, m = x.shape[0], n // 128
+    xc = x.to(torch.complex128)
+    if mode == "fwd":
+        X = torch.fft.fft(xc.reshape(b, n)).reshape(b, 128, m)
+        return X.transpose(1, 2)
+    if mode == "fwd_nat":
+        return torch.fft.fft(xc.reshape(b, n)).reshape(b, 128, m)
+    if mode == "filter":
+        xc = xc * f.to(torch.complex128)[torch.arange(b, device=x.device)
+                                         % f.shape[0]]
+    if mode in ("inv", "filter"):
+        xc = xc.transpose(1, 2)
+    return (torch.fft.ifft(xc.reshape(b, n)) * n).reshape(b, m, 128)
 
 
 def median_ms(fn, reps: int = 30, warm: int = 3) -> float:
@@ -122,8 +188,12 @@ def main() -> None:
           f"cudnn {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
     _build.load()
-    print(f"  K1 built and loaded in {time.perf_counter() - t0:.2f} s "
+    print(f"  K1-K4 built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
+    for line in _build.library_path().with_suffix(".log").read_text(
+            ).splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            print(f"  {line.strip()}")
 
     # ---- phase 2: K1 against its plain version and torch.fft
     print("phase 2: K1 vs plain version and torch.fft")
@@ -149,17 +219,47 @@ def main() -> None:
         print(f"  {dt}: worst vs plain {worst_p:.3e}, vs torch.fft "
               f"{worst_o:.3e}")
 
-    # ---- main path: count K1 launches from here on
-    fused_fft.launches = 0
+    # ---- phase 3: K2, K3, K4 against their plain versions and torch.fft
+    print("phase 3: K2/K3/K4 vs plain version and torch.fft")
+    stream_err = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+    worst_p = worst_o = 0.0
+    for n in STREAM_SIZES:
+        m = n // 128
+        for b in (3, (1 << 22) // n):
+            for mode, s in [(md, 1) for md in STREAM_MODES] + [("filter", 2)]:
+                shape = (b, 128, m) if mode == "inv_nat" else (b, m, 128)
+                xr, xi = pair(shape, torch.float32, seed=n + b + s)
+                fr = fi = None
+                if mode == "filter":
+                    fr, fi = pair((s, m, 128), torch.float32, seed=n + s)
+                yr, yi = stream_fft._launch(xr, xi, n, mode, fr, fi)
+                pr, pi = stream_fft.stream_plain(xr, xi, n, mode, fr, fi)
+                torch.cuda.synchronize()
+                got = torch.complex(yr, yi)
+                want = stream_reference(
+                    torch.complex(xr, xi), n, mode,
+                    None if fr is None else torch.complex(fr, fi))
+                ep = rel_err(got, torch.complex(pr, pi))
+                eo = rel_err(got, want)
+                k = stream_fft._KERNEL[mode]
+                check(ep < 1e-5 and eo < 1e-5,
+                      f"{k} {mode} s={s} n={n} b={b}: vs plain {ep:.2e}, "
+                      f"vs torch.fft {eo:.2e} < 1e-5")
+                stream_err[k] = max(stream_err[k], float(max(
+                    (yr - pr).abs().max(), (yi - pi).abs().max())))
+                worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
+    print(f"  worst vs plain {worst_p:.3e}, vs torch.fft {worst_o:.3e}")
+
+    # ---- the main path: each path runs with the counts zeroed just
+    # before it and read just after; `total` sums them
+    total = dict.fromkeys(KERNELS, 0)
     kern_err = 0.0
 
-    # ---- phase 3: bench headline fft_split at (4096, 1024), ortho
-    print("phase 3: fft_split n=1024 batch=4096 f32 norm=ortho")
-    before = fused_fft.launches
+    # ---- phase 4: bench headline fft_split at (4096, 1024), ortho
+    print("phase 4: fft_split n=1024 batch=4096 f32 norm=ortho")
     xr, xi = pair((4096, 1024), torch.float32, seed=3)
-    yr, yi = ct.fft_split(xr, xi, norm="ortho")
-    torch.cuda.synchronize()
-    check(fused_fft.launches > before, "K1 launched by fft_split")
+    (yr, yi), got = drive(lambda: ct.fft_split(xr, xi, norm="ortho"), total)
+    check(got["K1"] > 0, f"K1 launched by fft_split ({got})")
     with plain_engine():
         pr, pi = ct.fft_split(xr, xi, norm="ortho")
     kern_err = max(kern_err, float(max((yr - pr).abs().max(),
@@ -172,14 +272,12 @@ def main() -> None:
     check(e_p < 1e-5, f"fft_split vs plain {e_p:.2e} < 1e-5")
     check(e_o < 1e-5, f"fft_split vs torch.fft {e_o:.2e} < 1e-5")
 
-    # ---- phase 4: flagship step at n=960, batch 64 and batch 4096
+    # ---- phase 5: flagship step at n=960, batch 64 and batch 4096
     for batch in (64, 4096):
-        print(f"phase 4: flagship step n=960 batch={batch} f32")
-        before = fused_fft.launches
+        print(f"phase 5: flagship step n=960 batch={batch} f32")
         step, args = entry(DEV, batch=batch)
-        out = step(*args)
-        torch.cuda.synchronize()
-        check(fused_fft.launches > before, "K1 launched by the step")
+        out, got = drive(lambda: step(*args), total)
+        check(got["K1"] > 0, f"K1 launched by the step ({got})")
         with plain_engine():
             want = step(*args)
         e_p = rel_err(out, want)
@@ -197,50 +295,52 @@ def main() -> None:
         e_r = rel_err(ct.irfft_split(sr, si, 960), v)
         check(e_r < 1e-4, f"irfft_split(rfft_split(v)) vs v {e_r:.2e} < 1e-4")
 
-    # ---- phase 5: the pricer in float64
+    # ---- phase 6: the pricer in float64
     strikes = np.arange(80.0, 120.0, 0.5)
     bs = bs_closed_form(100.0, strikes, 0.2, 0.25, 0.03)
-    for n in (4096, 1 << 14):
-        print(f"phase 5: conv_option_price 80 strikes n={n} f64")
-        before = fused_fft.launches
 
-        def price():
-            return conv_option_price(100.0, strikes, 0.25, 0.03,
-                                     lambda u: bs_cf(u, 0.25, 0.2, 0.03),
-                                     n=n, grid_sigma=0.2, device=DEV)
-        got = price()
-        check(fused_fft.launches > before, "K1 launched by the pricer")
+    def price(n, dtype=torch.float64):
+        return conv_option_price(100.0, strikes, 0.25, 0.03,
+                                 lambda u: bs_cf(u, 0.25, 0.2, 0.03),
+                                 n=n, grid_sigma=0.2, device=DEV,
+                                 dtype=dtype)
+
+    for n in (4096, 1 << 14):
+        print(f"phase 6: conv_option_price 80 strikes n={n} f64")
+        got_p, got = drive(lambda: price(n), total)
+        check(got["K1"] > 0, f"K1 launched by the pricer ({got})")
         with plain_engine():
-            want = price()
-        e_bs = float(np.abs(got - bs).max())
-        e_p = float(np.abs(got - want).max() / np.abs(want).max())
-        check(got.shape == (80,) and bool(np.isfinite(got).all()),
+            want = price(n)
+        e_bs = float(np.abs(got_p - bs).max())
+        e_p = float(np.abs(got_p - want).max() / np.abs(want).max())
+        check(got_p.shape == (80,) and bool(np.isfinite(got_p).all()),
               "prices shape and finite")
         check(e_bs < 5e-3, f"vs Black-Scholes {e_bs:.2e} < 5e-3")
         check(e_p < 1e-12, f"vs plain {e_p:.2e} < 1e-12")
-    print("phase 5: conv_bsvg_option VG n=2^16 f64")
-    before = fused_fft.launches
-    vg = conv_bsvg_option(1 << 16, VG["S"], VG["K"], VG["sigma"], VG["theta"],
-                          VG["kappa"], VG["t"], VG["r"], is_bs=False,
-                          device=DEV)
-    check(fused_fft.launches > before, "K1 launched by the VG pricer")
+    print("phase 6: conv_bsvg_option VG n=2^16 f64")
+
+    def vg_price():
+        return conv_bsvg_option(1 << 16, VG["S"], VG["K"], VG["sigma"],
+                                VG["theta"], VG["kappa"], VG["t"], VG["r"],
+                                is_bs=False, device=DEV)
+    vg, got = drive(vg_price, total)
+    check(got["K1"] > 0, f"K1 launched by the VG pricer ({got})")
     with plain_engine():
-        vg_plain = conv_bsvg_option(1 << 16, VG["S"], VG["K"], VG["sigma"],
-                                    VG["theta"], VG["kappa"], VG["t"],
-                                    VG["r"], is_bs=False, device=DEV)
+        vg_plain = vg_price()
     check(abs(vg - vg_plain) < 1e-12 * abs(vg_plain),
           f"VG {vg!r} vs plain {vg_plain!r}")
     check(abs(vg - VG_CONV) < 1e-7,
           f"VG vs the reference conv price {abs(vg - VG_CONV):.2e} < 1e-7")
 
-    # ---- phase 6: Bluestein and four-step routes
-    for n, b in ((1009, 1024), (65536, 64)):
-        print(f"phase 6: fft_split n={n} batch={b} f32")
-        before = fused_fft.launches
+    # ---- phase 7: Bluestein and four-step routes (57344 = 7 * 2^13 has
+    # no stream length: the four-step with K1 at 896 on its rows)
+    for n, b in ((1009, 1024), (57344, 64)):
+        print(f"phase 7: fft_split n={n} batch={b} f32")
         xr, xi = pair((b, n), torch.float32, seed=n)
-        yr, yi = ct.fft_split(xr, xi, norm="backward")
-        torch.cuda.synchronize()
-        check(fused_fft.launches > before, "K1 launched")
+        (yr, yi), got = drive(lambda: ct.fft_split(xr, xi, norm="backward"),
+                              total)
+        check(got["K1"] > 0 and got["K2"] + got["K3"] == 0,
+              f"K1 launched, no stream kernel ({got})")
         with plain_engine():
             pr, pi = ct.fft_split(xr, xi, norm="backward")
         e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
@@ -248,11 +348,90 @@ def main() -> None:
                       torch.fft.fft(torch.complex(xr.double(), xi.double())))
         check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
         check(e_o < 1e-4, f"vs torch.fft {e_o:.2e} < 1e-4")
-    launches = fused_fft.launches
-    check(launches > 0, f"main path launched K1 {launches} times")
 
-    # ---- phase 7: times (CUDA-event medians)
-    print("phase 7: times")
+    # ---- phase 8: fft_split (64, 65536) through K3, and back
+    print("phase 8: fft_split n=65536 batch=64 f32 norm=ortho")
+    xr, xi = pair((64, 65536), torch.float32, seed=8)
+    (yr, yi), got = drive(lambda: ct.fft_split(xr, xi, norm="ortho"), total)
+    check(got["K3"] > 0, f"K3 launched by fft_split ({got})")
+    with plain_engine():
+        pr, pi = ct.fft_split(xr, xi, norm="ortho")
+    e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+    e_o = rel_err(torch.complex(yr, yi), torch.fft.fft(
+        torch.complex(xr.double(), xi.double()), norm="ortho"))
+    check(tuple(yr.shape) == (64, 65536) and bool(torch.isfinite(yr).all()),
+          "output shape and finite")
+    check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
+    check(e_o < 1e-5, f"vs torch.fft {e_o:.2e} < 1e-5")
+    (zr, zi), got = drive(lambda: ct.ifft_split(yr, yi, norm="ortho"), total)
+    check(got["K3"] > 0, f"K3 launched by ifft_split ({got})")
+    e_r = rel_err(torch.complex(zr, zi), torch.complex(xr, xi))
+    check(e_r < 1e-5, f"ifft_split(fft_split(x)) vs x {e_r:.2e} < 1e-5")
+
+    # ---- phase 9: fft_split past the cap: K5 splits s = 2 and 4 ways
+    for n, b in ((1 << 20, 8), (1 << 21, 4)):
+        s = stream_fft._filter_split_factor(n)
+        print(f"phase 9: fft_split n={n} batch={b} f32 (split s={s})")
+        xr, xi = pair((b, n), torch.float32, seed=9 + s)
+        (yr, yi), got = drive(lambda: ct.fft_split(xr, xi, norm="backward"),
+                              total)
+        check(got["K2"] > 0, f"K2 launched through K5 ({got})")
+        x64 = torch.complex(xr.double(), xi.double())
+        e_o = rel_err(torch.complex(yr, yi), torch.fft.fft(x64))
+        check(bool(torch.isfinite(yr).all()), "output finite")
+        check(e_o < 1e-4, f"vs torch.fft f64 {e_o:.2e} < 1e-4")
+        with plain_engine():
+            pr, pi = ct.fft_split(xr, xi, norm="backward")
+        e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+        check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
+        (zr, zi), got = drive(lambda: ct.ifft_split(xr, xi, norm="forward"),
+                              total)
+        check(got["K2"] > 0, f"K2 launched by the inverse ({got})")
+        e_i = rel_err(torch.complex(zr, zi),
+                      torch.fft.ifft(x64, norm="forward"))
+        check(e_i < 1e-4, f"ifft_split vs torch.fft f64 {e_i:.2e} < 1e-4")
+
+    # ---- phase 10: the streaming filter at (64, 65536)
+    print("phase 10: rfilter_split n=65536 batch=64 f32")
+    g = torch.Generator(device=DEV).manual_seed(10)
+    x = torch.randn((64, 65536), generator=g, device=DEV)
+    fr, fi = pair((32769,), torch.float32, seed=11)
+    fi[0] = 0.0
+    fi[-1] = 0.0
+    out, got = drive(lambda: ct.rfilter_split(x, fr, fi), total)
+    check(got["K2"] > 0 and got["K4"] > 0,
+          f"K2 and K4 launched by rfilter_split ({got})")
+    with plain_engine():
+        want = ct.rfilter_split(x, fr, fi)
+    e_p = rel_err(out, want)
+    yr, yi = ct.rfft_split(x)
+    comp = ct.irfft_split(yr * fr - yi * fi, yr * fi + yi * fr, 65536)
+    e_c = rel_err(out, comp)
+    check(tuple(out.shape) == (64, 65536) and bool(torch.isfinite(out).all()),
+          "output shape and finite")
+    check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
+    check(e_c < 1e-4, f"vs rfft_split -> multiply -> irfft_split {e_c:.2e} "
+          f"< 1e-4")
+
+    # ---- phase 11: the pricer in float32 at the 2^20 grid (K4, s = 2)
+    print("phase 11: conv_option_price 80 strikes n=2^20 f32")
+    p32, got = drive(lambda: price(1 << 20, torch.float32), total)
+    check(got["K2"] > 0 and got["K4"] > 0,
+          f"K2 and K4 launched by the pricer ({got})")
+    e_bs = float(np.abs(p32 - bs).max())
+    check(p32.shape == (80,) and bool(np.isfinite(p32).all()),
+          "prices shape and finite")
+    check(e_bs < 5e-3, f"vs Black-Scholes {e_bs:.2e} < 5e-3")
+    p64 = price(1 << 20)
+    print(f"  f32 vs the f64 pricer at n=2^20: max |diff| "
+          f"{float(np.abs(p32 - p64).max()):.3e}; f64 vs Black-Scholes "
+          f"{float(np.abs(p64 - bs).max()):.3e}")
+
+    for k in KERNELS:
+        check(total[k] > 0, f"main path launched {k} {total[k]} times")
+
+    # ---- phase 12: times (CUDA-event medians)
+    print("phase 12: times")
     xr, xi = pair((4096, 1024), torch.float32, seed=7)
     k1_ms = median_ms(lambda: fused_fft.sfft_fused(xr, xi, 1024, False))
     plain_ms = median_ms(lambda: fused_fft.sfft_plain(xr, xi, 1024, False))
@@ -263,12 +442,46 @@ def main() -> None:
     cufft_ms = median_ms(lambda: torch.fft.fft(xc))
     g = torch.Generator(device=DEV).manual_seed(8)
     pay = torch.rand((80, 16384), generator=g, device=DEV, dtype=torch.float64)
-    fr, fi = pair((8193,), torch.float64, seed=9)
-    fi[0] = 0.0
-    fi[-1] = 0.0
-    pr_ms = median_ms(lambda: ct.rfilter_split(pay, fr, fi))
+    fr64, fi64 = pair((8193,), torch.float64, seed=9)
+    fi64[0] = 0.0
+    fi64[-1] = 0.0
+    pr_ms = median_ms(lambda: ct.rfilter_split(pay, fr64, fi64))
     with plain_engine():
-        pr_plain_ms = median_ms(lambda: ct.rfilter_split(pay, fr, fi))
+        pr_plain_ms = median_ms(lambda: ct.rfilter_split(pay, fr64, fi64))
+    # the stream kernels at (64, 65536) f32
+    n, m = 65536, 512
+    sr_, si_ = pair((64, m, 128), torch.float32, seed=12)
+    fpr, fpi = pair((1, m, 128), torch.float32, seed=13)
+    st_ms, st_plain_ms = {}, {}
+    for k, mode in (("K2", "fwd"), ("K3", "fwd_nat"), ("K4", "filter")):
+        f = (fpr, fpi) if mode == "filter" else (None, None)
+        st_ms[k] = median_ms(lambda: stream_fft._launch(sr_, si_, n, mode, *f))
+        st_plain_ms[k] = median_ms(
+            lambda: stream_fft.stream_plain(sr_, si_, n, mode, *f))
+    xr, xi = pair((64, n), torch.float32, seed=14)
+    fs_ms = median_ms(lambda: ct.fft_split(xr, xi, norm="ortho"))
+    with no_stream():
+        fs_four_ms = median_ms(lambda: ct.fft_split(xr, xi, norm="ortho"))
+    xc = torch.complex(xr, xi)
+    fs_cufft_ms = median_ms(lambda: torch.fft.fft(xc, norm="ortho"))
+    xs, ys = pair((8, 1 << 20), torch.float32, seed=15)
+    split_ms = median_ms(lambda: ct.fft_split(xs, ys), reps=10)
+    xs, ys = pair((4, 1 << 21), torch.float32, seed=16)
+    split4_ms = median_ms(lambda: ct.fft_split(xs, ys), reps=10)
+    rf_ms = median_ms(lambda: ct.rfilter_split(x, fr, fi))
+    use = rfft_ops._use_stream_filter
+    rfft_ops._use_stream_filter = lambda *a: False
+    try:
+        rf_half_ms = median_ms(lambda: ct.rfilter_split(x, fr, fi))
+    finally:
+        rfft_ops._use_stream_filter = use
+    pay32 = torch.rand((80, 1 << 20), generator=g, device=DEV)
+    fr32, fi32 = pair(((1 << 19) + 1,), torch.float32, seed=17)
+    fi32[0] = 0.0
+    fi32[-1] = 0.0
+    rf_pricer_ms = median_ms(lambda: ct.rfilter_split(pay32, fr32, fi32))
+    pricer_ms = median_ms(lambda: price(1 << 20, torch.float32), reps=5,
+                          warm=1)
     rows = [
         ("K1 sfft_fused (4096, 1024) f32", k1_ms),
         ("plain sfft_plain (4096, 1024) f32", plain_ms),
@@ -277,20 +490,43 @@ def main() -> None:
         ("cuFFT torch.fft.fft (4096, 1024) complex64", cufft_ms),
         ("rfilter_split K1 path (80, 16384) f64", pr_ms),
         ("rfilter_split plain path (80, 16384) f64", pr_plain_ms),
+        ("K2 fwd (64, 65536) f32", st_ms["K2"]),
+        ("plain K2 fwd (64, 65536) f32", st_plain_ms["K2"]),
+        ("K3 fwd_nat (64, 65536) f32", st_ms["K3"]),
+        ("plain K3 fwd_nat (64, 65536) f32", st_plain_ms["K3"]),
+        ("K4 filter (64, 65536) f32", st_ms["K4"]),
+        ("plain K4 filter (64, 65536) f32", st_plain_ms["K4"]),
+        ("fft_split stream path K3 (64, 65536) f32 ortho", fs_ms),
+        ("fft_split four-step path (64, 65536) f32 ortho", fs_four_ms),
+        ("cuFFT torch.fft.fft (64, 65536) complex64 ortho", fs_cufft_ms),
+        ("fft_split K5 split s=2 (8, 2^20) f32", split_ms),
+        ("fft_split K5 split s=4 (4, 2^21) f32", split4_ms),
+        ("rfilter_split stream path K2+K4 (64, 65536) f32", rf_ms),
+        ("rfilter_split half-length path (64, 65536) f32", rf_half_ms),
+        ("rfilter_split stream path s=2 (80, 2^20) f32", rf_pricer_ms),
+        ("conv_option_price 80 strikes n=2^20 f32 (whole call)", pricer_ms),
     ]
     for name, ms in rows:
         print(f"  time {name}: {ms:.4f} ms  [{card}]")
 
-    print(json.dumps({"kernels": [{
-        "name": "stockham_fft (K1)",
-        "route": "cuda",
+    src = "cfftpack_tpu_torch/csrc/stream_fft.cu"
+    kernels = [{
+        "name": "stockham_fft (K1)", "route": "cuda",
         "source": "cfftpack_tpu_torch/csrc/stockham_fft.cu",
         "replaces": "cfftpack_tpu/ops/pallas_fft.py:90",
-        "launches": launches,
-        "max_abs_err": kern_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "launches": total["K1"], "max_abs_err": kern_err,
+        "ms": k1_ms, "plain_ms": plain_ms,
+    }]
+    for k, name, line in (("K2", "stream_fft fwd/inv (K2)", 352),
+                          ("K3", "stream_fft fwd_nat/inv_nat (K3)", 386),
+                          ("K4", "stream_fft filter (K4)", 444)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"cfftpack_tpu/ops/pallas_stream.py:{line}",
+            "launches": total[k], "max_abs_err": stream_err[k],
+            "ms": st_ms[k], "plain_ms": st_plain_ms[k],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,7 @@
 package's, in float32 and float64, over every engine the dispatch
 picks: K1 (its plain version here), Bluestein, row pairing for odd
 real lengths, and the four-step forced by a small shared-memory
-budget."""
+budget with the stream kernels off."""
 import numpy as np
 import pytest
 import torch
@@ -11,7 +11,7 @@ import jax.numpy as jnp
 
 from cfftpack_tpu.ops import core as jcore
 
-from cfftpack_tpu_torch.ops import core, fused_fft
+from cfftpack_tpu_torch.ops import core, fused_fft, stream_fft
 
 from torch_parity import bar, complex_input, real_input, rel_err, to_np
 
@@ -74,9 +74,12 @@ def test_pair_path_is_taken_for_odd_n_even_batch():
 
 @pytest.fixture
 def small_budget(monkeypatch):
-    """A 8 KiB budget: K1 takes n <= 512 (f32) / 256 (f64), so longer
-    lengths run the four-step with K1 (plain) on its rows."""
+    """A 8 KiB budget: K1 takes n <= 512 (f32) / 256 (f64), and no
+    stream length: longer lengths run the four-step with K1 (plain) on
+    its rows."""
     monkeypatch.setattr(fused_fft, "_SMEM_BUDGET", 8192)
+    monkeypatch.setattr(stream_fft, "_MAX_M", 0)
+    assert not stream_fft.stream_eligible(2048, torch.float32)
     assert not fused_fft.fused_eligible(2048, torch.float32)
     assert fused_fft.fused_eligible(128, torch.float64)
 

@@ -18,7 +18,7 @@ from cfftpack_tpu.models import (bs_cf as j_bs_cf,
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
-from cfftpack_tpu_torch.ops import fused_fft
+from cfftpack_tpu_torch.ops import fused_fft, stream_fft
 
 from torch_parity import rel_err, to_np
 
@@ -70,7 +70,7 @@ def test_pricer_mesh_waits_for_the_parallel_layer():
 
 def test_import_leaves_jax_out():
     code = ("import sys, cfftpack_tpu_torch, cfftpack_tpu_torch.models, "
-            "cfftpack_tpu_torch.entry; "
+            "cfftpack_tpu_torch.entry, cfftpack_tpu_torch.ops.stream_fft; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'cfftpack_tpu.'))] ; "
             "assert not bad, bad")
@@ -86,3 +86,4 @@ def test_cpu_slice_never_launches_the_kernel():
                       lambda u: bs_cf(u, 0.25, 0.2, 0.03), n=256,
                       grid_sigma=0.2)
     assert fused_fft.launches == 0
+    assert stream_fft.launches == {"K2": 0, "K3": 0, "K4": 0}

@@ -1,0 +1,292 @@
+"""The stream kernels' plain versions (K2, K3, K4 and the K5 split)
+against the Pallas functions they replace.
+
+``cfftpack_tpu.ops.pallas_stream`` runs in interpret mode on the CPU,
+as tests/test_pallas.py runs it; the port's wrappers take their plain
+PyTorch versions on CPU tensors.  The bar is the reference's own in
+test_pallas.py: 5e-6 of max |X|.  The CUDA kernels themselves are
+checked on the card (``-m cuda`` here, and chip_smoke.py).
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import cfftpack_tpu as jt
+import cfftpack_tpu.ops.pallas_stream as ps
+
+import cfftpack_tpu_torch as pt
+from cfftpack_tpu_torch.ops import fused_fft
+from cfftpack_tpu_torch.ops import stream_fft as sf
+
+from torch_parity import complex_input, real_input, to_np
+
+torch.set_num_threads(1)
+
+TOL = 5e-6
+
+
+def _err(got, want) -> float:
+    got = np.asarray(got, dtype=np.complex128)
+    want = np.asarray(want, dtype=np.complex128)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _pair(shape, seed):
+    x = complex_input(shape, np.complex64, seed=seed)
+    return x.real.copy(), x.imag.copy()
+
+
+def _both(fn_port, fn_ref, xr, xi, *args):
+    """Run the port on torch tensors and the reference on jax arrays;
+    return both results as complex numpy arrays."""
+    yr, yi = fn_port(torch.as_tensor(xr), torch.as_tensor(xi), *args)
+    wr, wi = fn_ref(jnp.asarray(xr), jnp.asarray(xi), *args)
+    return (to_np(yr) + 1j * to_np(yi),
+            np.asarray(wr) + 1j * np.asarray(wi))
+
+
+def _filter(n: int, seed: int):
+    """A packed filter with real DC and Nyquist bins (the rfft of a real
+    filter) and its full conjugate-symmetric extension, float32."""
+    h = n // 2
+    F = complex_input((h + 1,), np.complex128, seed=seed)
+    F[0] = F[0].real
+    F[-1] = F[-1].real
+    fr = F.real.astype(np.float32)
+    fi = F.imag.astype(np.float32)
+    ffr = np.concatenate([fr, fr[1:h][::-1]])
+    ffi = np.concatenate([fi, -fi[1:h][::-1]])
+    return fr, fi, ffr, ffi
+
+
+@pytest.fixture
+def small_cap(monkeypatch):
+    """_MAX_M = 16 in both packages, so the split engages at test sizes."""
+    monkeypatch.setattr(ps, "_MAX_M", 16)
+    monkeypatch.setattr(sf, "_MAX_M", 16)
+
+
+# ------------------------------------------------- eligibility, tables
+
+def test_eligibility_matches_reference():
+    lengths = list(range(128, (1 << 22) + 1, 128))
+    lengths += [1, 2, 64, 100, 960, 1000, 2047, (1 << 22) + 128, 1 << 23]
+    for n in lengths:
+        assert (sf.stream_eligible(n, torch.float32)
+                == ps.stream_pallas_eligible(n, np.float32)), n
+        assert sf._filter_split_factor(n) == ps._filter_split_factor(n), n
+    for m in range(0, 4200):
+        assert sf._stage_ok(m) == (ps._stage_plan(m) is not None), m
+    for n in (2048, 65536):
+        assert not sf.stream_eligible(n, torch.float64)
+        assert not sf.stream_filter_eligible(n, torch.float64)
+        assert sf.stream_filter_eligible(n, torch.float32)
+    assert sf._filter_split_factor(1 << 20) == 2
+    assert sf._filter_split_factor(1 << 21) == 4
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [2048, 6144, 10240, 65536])
+def test_outer_twiddle_matches_reference(n, inverse):
+    mine = sf._tables(n, inverse)
+    ref = ps._tables(n, inverse)[2:4]
+    for a, b in zip(mine, ref):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n,s", [(4096, 2), (8192, 4), (1 << 20, 2)])
+def test_split_twiddle_matches_reference(n, s):
+    for a, b in zip(sf._split_twiddle(n, s), ps._split_twiddle(n, s)):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+
+
+def test_column_lanes_fit_shared_memory():
+    for m in (16, 32, 128, 512, 768, 1024, 2048, 4096):
+        lanes = sf._col_lanes(m)
+        assert lanes & (lanes - 1) == 0 and 128 % lanes == 0
+        assert 16 * m * lanes <= sf._SMEM_BUDGET
+    assert sf._col_lanes(4096) == 2 and sf._col_lanes(128) == 32
+    assert sf._col_lanes(512) == 8
+
+
+# ------------------------------------------------- K2, K3: the transforms
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("batch", [3, 5])
+@pytest.mark.parametrize("n", [2048, 4096, 6144, 10240])   # m=16,32,48,80
+def test_stream_matches_pallas(n, batch, inverse):
+    xr, xi = _pair((batch, n), seed=n + batch + inverse)
+    got, want = _both(sf.sfft_stream_permuted, ps.sfft_stream_pallas_permuted,
+                      xr, xi, n, inverse)
+    assert _err(got, want) < TOL                       # K2
+    got, want = _both(sf.sfft_stream, ps.sfft_stream_pallas, xr, xi, n,
+                      inverse)
+    assert _err(got, want) < TOL                       # K3
+
+
+def test_permuted_layout():
+    """perm[.., k2, k1] == X[k2 + m*k1], as the reference pins it."""
+    n, m = 2048, 16
+    xr, xi = _pair((3, n), seed=1)
+    pr, pi = sf.sfft_stream_permuted(torch.as_tensor(xr), torch.as_tensor(xi),
+                                     n, False)
+    X = np.fft.fft(xr.astype(np.float64) + 1j * xi)
+    perm = (to_np(pr) + 1j * to_np(pi)).reshape(3, m, 128)
+    assert _err(perm, X.reshape(3, 128, m).transpose(0, 2, 1)) < TOL
+
+
+# ------------------------------------------------- K4: the filter
+
+def test_filter_matches_pallas():
+    n = 2048
+    x = real_input((4, n), np.float32, seed=21)
+    _, _, ffr, ffi = _filter(n, seed=22)
+    got = sf.sfilter_stream(torch.as_tensor(x), torch.as_tensor(ffr),
+                            torch.as_tensor(ffi), n)
+    want = ps.sfilter_stream_pallas(jnp.asarray(x), jnp.asarray(ffr),
+                                    jnp.asarray(ffi), n)
+    assert _err(to_np(got), np.asarray(want)) < TOL
+
+
+def test_filter_odd_batch_rejected():
+    f = torch.zeros(2048)
+    with pytest.raises(ValueError, match="even"):
+        sf.sfilter_stream(torch.zeros((3, 2048)), f, f, 2048)
+
+
+# ------------------------------------------------- K5: the split
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,s", [(4096, 2), (8192, 4)])
+def test_split_matches_pallas(small_cap, n, s, inverse):
+    assert sf._filter_split_factor(n) == ps._filter_split_factor(n) == s
+    xr, xi = _pair((3, n), seed=n + inverse)
+    got, want = _both(sf.sfft_stream_split, ps.sfft_stream_split, xr, xi, n,
+                      inverse)
+    assert _err(got, want) < TOL
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_split_filter_matches_pallas(small_cap, n):
+    x = real_input((4, n), np.float32, seed=n + 31)
+    _, _, ffr, ffi = _filter(n, seed=n + 32)
+    got = sf.sfilter_stream(torch.as_tensor(x), torch.as_tensor(ffr),
+                            torch.as_tensor(ffi), n)
+    want = ps.sfilter_stream_pallas(jnp.asarray(x), jnp.asarray(ffr),
+                                    jnp.asarray(ffi), n)
+    assert _err(to_np(got), np.asarray(want)) < TOL
+
+
+# ------------------------------------------------- the public routes
+
+def _spy(monkeypatch, name, n_at=2):
+    """Record the length (positional argument ``n_at``) of each call of
+    ``stream_fft.<name>``."""
+    calls = []
+    real = getattr(sf, name)
+
+    def spy(*args, **kwargs):
+        calls.append(args[n_at])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(sf, name, spy)
+    return calls
+
+
+def test_fft_split_takes_the_stream_route(monkeypatch):
+    calls = _spy(monkeypatch, "sfft_stream")
+    n = 32768
+    xr, xi = _pair((2, n), seed=41)
+    for mine, ref in ((pt.fft_split, jt.fft_split),
+                      (pt.ifft_split, jt.ifft_split)):
+        yr, yi = mine(torch.as_tensor(xr), torch.as_tensor(xi), norm="ortho")
+        wr, wi = ref(xr, xi, norm="ortho")
+        assert _err(to_np(yr) + 1j * to_np(yi),
+                    np.asarray(wr) + 1j * np.asarray(wi)) < TOL
+    assert calls == [n, n]
+
+
+def test_fft_split_takes_the_split_route(monkeypatch):
+    """With the cap at 16 rows and K1 held to n <= 512, n = 8192 has no
+    unsplit stream length and splits 4 ways."""
+    monkeypatch.setattr(sf, "_MAX_M", 16)
+    monkeypatch.setattr(fused_fft, "_SMEM_BUDGET", 8192)
+    calls = _spy(monkeypatch, "sfft_stream_split")
+    n = 8192
+    xr, xi = _pair((2, n), seed=43)
+    for mine, ref in ((pt.fft_split, jt.fft_split),
+                      (pt.ifft_split, jt.ifft_split)):
+        yr, yi = mine(torch.as_tensor(xr), torch.as_tensor(xi))
+        wr, wi = ref(xr, xi)
+        assert _err(to_np(yr) + 1j * to_np(yi),
+                    np.asarray(wr) + 1j * np.asarray(wi)) < TOL
+    assert calls == [n, n]
+
+
+def test_rfilter_split_takes_the_stream_route(monkeypatch):
+    calls = _spy(monkeypatch, "sfilter_stream", n_at=3)
+    n = 65536
+    x = real_input((2, n), np.float32, seed=51)
+    fr, fi, _, _ = _filter(n, seed=52)
+    got = pt.rfilter_split(torch.as_tensor(x), torch.as_tensor(fr),
+                           torch.as_tensor(fi), norm="ortho")
+    want = jt.rfilter_split(x, fr, fi, norm="ortho")
+    assert _err(to_np(got), np.asarray(want)) < TOL
+    assert calls == [n]
+
+
+def test_rfilter_split_keeps_other_shapes_off_the_stream_route(monkeypatch):
+    calls = _spy(monkeypatch, "sfilter_stream", n_at=3)
+    f = torch.zeros(32769)
+    pt.rfilter_split(torch.zeros((3, 65536)), f, f)          # odd batch
+    pt.rfilter_split(torch.zeros((2, 65536), dtype=torch.float64),
+                     f.double(), f.double())                 # float64
+    pt.rfilter_split(torch.zeros((2, 65536)), torch.zeros((2, 32769)),
+                     torch.zeros((2, 32769)))                # one per row
+    g = torch.zeros(8193)
+    pt.rfilter_split(torch.zeros((2, 16384)), g, g)          # K1 at 8192
+    assert calls == []
+
+
+# ------------------------------------------------- the wrapper's contract
+
+def test_launch_refuses_what_the_kernel_does_not_take():
+    m = 16
+    x = torch.zeros((2, m, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        sf._launch(x, x, 2048, "fwd")                         # CPU tensor
+    with pytest.raises(TypeError, match="float32"):
+        sf._launch(x.double(), x.double(), 2048, "fwd")       # float64
+    with pytest.raises(ValueError, match="n=1920"):
+        sf._launch(x, x, 1920, "fwd")                         # m = 15
+    with pytest.raises(ValueError, match="mode"):
+        sf._launch(x, x, 2048, "bogus")
+    meta = torch.empty((2, m, 128), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        sf.sfft_stream_permuted(meta, meta, 2048, False)      # no fallback
+    assert sf.launches == {"K2": 0, "K3": 0, "K4": 0}
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    for n, b in ((2048, 3), (6144, 5), (65536, 4), (524288, 2)):
+        m = n // 128
+        for mode in ("fwd", "inv", "fwd_nat", "inv_nat", "filter"):
+            shape = (b, 128, m) if mode == "inv_nat" else (b, m, 128)
+            x = complex_input(shape, np.complex64, seed=n + b)
+            xr = torch.as_tensor(x.real.copy(), device="cuda")
+            xi = torch.as_tensor(x.imag.copy(), device="cuda")
+            f = (None, None)
+            if mode == "filter":
+                fc = complex_input((2, m, 128), np.complex64, seed=n)
+                f = (torch.as_tensor(fc.real.copy(), device="cuda"),
+                     torch.as_tensor(fc.imag.copy(), device="cuda"))
+            yr, yi = sf._launch(xr, xi, n, mode, *f)
+            pr, pi = sf.stream_plain(xr, xi, n, mode, *f)
+            torch.cuda.synchronize()
+            assert _err(to_np(yr) + 1j * to_np(yi),
+                        to_np(pr) + 1j * to_np(pi)) < 1e-5, (n, mode)
