@@ -42,180 +42,88 @@
 // of radix 2/3/4/5 in full float32 (no tensor cores); stage twiddles
 // and the outer twiddle are float64-built tables cast to float32.  The
 // ragged batch needs no mask and no pad: every block owns whole rows.
-// Offsets into the planes are 64-bit.
+// Offsets into the planes are 64-bit.  The pass bodies live in
+// stream_pass.cuh, shared with K7 and K8 (rstream_fft.cu); this file
+// gives them the IO of the five modes.
 #include <cuda_runtime.h>
 
-#include "butterfly.cuh"
+#include "stream_pass.cuh"
 
-#define SF_MAX_STAGES 16
-#define SF_COL_THREADS 512
-#define SF_ROW_THREADS 256
-#define SF_N1 128
-// rows k2 per row-pass block, and their padded stride in shared memory
-// (130 words keeps the transposed loads and stores free of bank
-// conflicts)
-#define SF_ROWS 16
-#define SF_RS 130
-#define SF_SMEM_MAX 232448
-
-struct SFPlan {
-  int nstages;
-  int p[SF_MAX_STAGES];
-  int off[SF_MAX_STAGES];
+// Column-pass IO: (b, m, 128) planes in and out.
+struct SFColIO {
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  float* __restrict__ yr;
+  float* __restrict__ yi;
+  long long n;
+  __device__ __forceinline__ void load(long long row, int j, float& vr,
+                                       float& vi) const {
+    vr = xr[row * n + j];
+    vi = xi[row * n + j];
+  }
+  __device__ __forceinline__ void store(long long row, int j, float vr,
+                                        float vi) const {
+    yr[row * n + j] = vr;
+    yi[row * n + j] = vi;
+  }
 };
 
-// (vr, vi) *= (wr, wi)
-__device__ __forceinline__ void sf_cmul(float& vr, float& vi, float wr,
-                                        float wi) {
-  const float ur = vr * wr - vi * wi;
-  vi = vr * wi + vi * wr;
-  vr = ur;
-}
-
-// One Stockham stage of radix P over `ntr` transforms of length N held in
-// shared memory, element e of transform t at t*rs + e*es.  The stage
-// reads index (l*P + k)*mn + j, runs the butterfly over k, multiplies
-// output k by tw[off + k*mn + j] (conjugated for the inverse) and writes
-// index (k*Lst + l)*mn + j, as cfftpack_tpu/ops/core.py:_stockham does.
-// LANES_FAST maps consecutive threads to consecutive transforms (the
-// column pass, es = lanes) instead of consecutive j (the row pass).
-template <int P, bool LANES_FAST>
-__device__ __forceinline__ void sf_stage(
-    const float* __restrict__ ir, const float* __restrict__ ii,
-    float* __restrict__ orr, float* __restrict__ oi, int ntr, int N, int Lst,
-    int mn, int rs, int es, const float* __restrict__ twr,
-    const float* __restrict__ twi, int off, bool inv) {
-  const int per = N / P;
-  const int total = ntr * per;
-  const float sgn = inv ? 1.0f : -1.0f;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    int tr, bf;
-    if (LANES_FAST) {
-      tr = t % ntr;
-      bf = t / ntr;
-    } else {
-      bf = t % per;
-      tr = t / per;
-    }
-    const int l = bf / mn;
-    const int j = bf - l * mn;
-    const int base = tr * rs;
-    const int in0 = l * P * mn + j;
-    const int out0 = l * mn + j;
-    float R[P], I[P];
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      R[k] = ir[base + (in0 + k * mn) * es];
-      I[k] = ii[base + (in0 + k * mn) * es];
-    }
-    radix_butterfly<float, P>(R, I, sgn);
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      float vr = R[k], vi = I[k];
-      if (k > 0 && mn > 1) {
-        const float wi = twi[off + k * mn + j];
-        sf_cmul(vr, vi, twr[off + k * mn + j], inv ? -wi : wi);
-      }
-      orr[base + (out0 + k * Lst * mn) * es] = vr;
-      oi[base + (out0 + k * Lst * mn) * es] = vi;
+// Row-pass IO: slot s is row k2 = k20 + s of transform `row`.  The input
+// is (b, m, 128), or (b, 128, m) with load_t; the output (b, m, 128), or
+// (b, 128, m) with store_t.  With a filter (fr != nullptr, nfilt slices
+// of (m, 128)) the load multiplies by slice (row % nfilt).
+struct SFRowIO {
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  float* __restrict__ yr;
+  float* __restrict__ yi;
+  const float* __restrict__ fr;
+  const float* __restrict__ fi;
+  int nfilt;
+  long long row;
+  int k20, m;
+  bool load_t, store_t;
+  __device__ __forceinline__ long long at(int s, int c, bool nat) const {
+    const long long base = row * (long long)m * SF_N1;
+    return nat ? base + (long long)c * m + k20 + s
+               : base + (long long)(k20 + s) * SF_N1 + c;
+  }
+  __device__ __forceinline__ void load(int s, int c, float& vr,
+                                       float& vi) const {
+    const long long g = at(s, c, load_t);
+    vr = xr[g];
+    vi = xi[g];
+    if (fr != nullptr) {
+      const long long f = (row % nfilt) * (long long)m * SF_N1 +
+                          (long long)(k20 + s) * SF_N1 + c;
+      sf_cmul(vr, vi, fr[f], fi[f]);
     }
   }
-}
-
-// Every stage of `plan` between the ping-pong buffers (a, b); returns
-// the buffer that holds the result in *outr, *outi.
-template <bool LANES_FAST>
-__device__ void sf_stages(float* ar, float* ai, float* br, float* bi,
-                          int ntr, int N, int rs, int es, const SFPlan& plan,
-                          const float* __restrict__ twr,
-                          const float* __restrict__ twi, bool inv,
-                          float** outr, float** outi) {
-  int Lst = 1, rem = N;
-  for (int st = 0; st < plan.nstages; ++st) {
-    const int p = plan.p[st];
-    const int mn = rem / p;
-    const int off = plan.off[st];
-    switch (p) {
-      case 2:
-        sf_stage<2, LANES_FAST>(ar, ai, br, bi, ntr, N, Lst, mn, rs, es, twr,
-                                twi, off, inv);
-        break;
-      case 3:
-        sf_stage<3, LANES_FAST>(ar, ai, br, bi, ntr, N, Lst, mn, rs, es, twr,
-                                twi, off, inv);
-        break;
-      case 4:
-        sf_stage<4, LANES_FAST>(ar, ai, br, bi, ntr, N, Lst, mn, rs, es, twr,
-                                twi, off, inv);
-        break;
-      default:
-        sf_stage<5, LANES_FAST>(ar, ai, br, bi, ntr, N, Lst, mn, rs, es, twr,
-                                twi, off, inv);
-        break;
+  __device__ __forceinline__ void store(const float* sr,
+                                        const float* si) const {
+    for (int e = threadIdx.x; e < SF_ROWS * SF_N1; e += blockDim.x) {
+      int s, c;
+      sf_row_slot(e, store_t, s, c);
+      const long long g = at(s, c, store_t);
+      yr[g] = sr[s * SF_RS + c];
+      yi[g] = si[s * SF_RS + c];
     }
-    __syncthreads();
-    float* tr = ar;
-    ar = br;
-    br = tr;
-    float* ti = ai;
-    ai = bi;
-    bi = ti;
-    Lst *= p;
-    rem = mn;
   }
-  *outr = ar;
-  *outi = ai;
-}
+};
 
-// Column pass: block (row, g) takes lanes [g*L, g*L + L) of one row of the
-// batch; x and y are (b, m, 128).  The outer twiddle table t1 is (m, 128)
-// in the transform's sign, read at the same in-row index as the data.
 __global__ void __launch_bounds__(SF_COL_THREADS)
     sf_col_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   float* __restrict__ yr, float* __restrict__ yi,
                   const float* __restrict__ t1r, const float* __restrict__ t1i,
                   const float* __restrict__ twr, const float* __restrict__ twi,
-                  int m, int lshift, int tw_at_load, int inverse,
-                  SFPlan plan) {
+                  int m, int lshift, int inverse, SFPlan plan) {
   extern __shared__ __align__(16) float sf_col_smem[];
-  const int L = 1 << lshift;
-  const int G = SF_N1 >> lshift;
-  const long long row = blockIdx.x / G;
-  const int r0 = (int)(blockIdx.x % G) * L;
-  const long long base = row * (long long)m * SF_N1;
-  const int cnt = m * L;
-  float* ar = sf_col_smem;
-  float* ai = ar + cnt;
-  float* br = ai + cnt;
-  float* bi = br + cnt;
-
-  for (int e = threadIdx.x; e < cnt; e += blockDim.x) {
-    const int g = (e >> lshift) * SF_N1 + r0 + (e & (L - 1));
-    float vr = xr[base + g], vi = xi[base + g];
-    if (tw_at_load) sf_cmul(vr, vi, t1r[g], t1i[g]);
-    ar[e] = vr;
-    ai[e] = vi;
-  }
-  __syncthreads();
-
-  float *sr, *si;
-  sf_stages<true>(ar, ai, br, bi, L, m, 1, L, plan, twr, twi, inverse != 0,
-                  &sr, &si);
-
-  for (int e = threadIdx.x; e < cnt; e += blockDim.x) {
-    const int g = (e >> lshift) * SF_N1 + r0 + (e & (L - 1));
-    float vr = sr[e], vi = si[e];
-    if (!tw_at_load) sf_cmul(vr, vi, t1r[g], t1i[g]);
-    yr[base + g] = vr;
-    yi[base + g] = vi;
-  }
+  const SFColIO io{xr, xi, yr, yi, (long long)m * SF_N1};
+  sf_col_pass(io, sf_col_smem, t1r, t1i, twr, twi, m, lshift, inverse != 0,
+              plan);
 }
 
-// Row pass: block (row, g) takes rows k2 in [16g, 16g + 16) of one row of
-// the batch.  The input is (b, m, 128), or (b, 128, m) with load_nat; the
-// output (b, m, 128), or (b, 128, m) with store_nat.  With a filter
-// (fr != nullptr, nfilt slices of (m, 128)) the load multiplies by slice
-// (row % nfilt).
+// Row pass: block (row, g) takes rows k2 in [16g, 16g + 16).
 __global__ void __launch_bounds__(SF_ROW_THREADS)
     sf_row_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   float* __restrict__ yr, float* __restrict__ yi,
@@ -225,73 +133,11 @@ __global__ void __launch_bounds__(SF_ROW_THREADS)
                   int store_nat, int inverse, SFPlan plan) {
   __shared__ __align__(16) float sf_row_smem[4 * SF_ROWS * SF_RS];
   const int G = m / SF_ROWS;
-  const long long row = blockIdx.x / G;
-  const int k20 = (int)(blockIdx.x % G) * SF_ROWS;
-  const long long n = (long long)m * SF_N1;
-  const long long base = row * n;
-  const int cnt = SF_ROWS * SF_N1;
-  float* ar = sf_row_smem;
-  float* ai = ar + SF_ROWS * SF_RS;
-  float* br = ai + SF_ROWS * SF_RS;
-  float* bi = br + SF_ROWS * SF_RS;
-
-  for (int e = threadIdx.x; e < cnt; e += blockDim.x) {
-    int rr, c;
-    long long g;
-    if (load_nat) {
-      rr = e % SF_ROWS;
-      c = e / SF_ROWS;
-      g = base + (long long)c * m + k20 + rr;
-    } else {
-      rr = e >> 7;
-      c = e & (SF_N1 - 1);
-      g = base + (long long)k20 * SF_N1 + e;
-    }
-    float vr = xr[g], vi = xi[g];
-    if (fr != nullptr) {
-      const long long f =
-          (row % nfilt) * n + (long long)(k20 + rr) * SF_N1 + c;
-      sf_cmul(vr, vi, fr[f], fi[f]);
-    }
-    ar[rr * SF_RS + c] = vr;
-    ai[rr * SF_RS + c] = vi;
-  }
-  __syncthreads();
-
-  float *sr, *si;
-  sf_stages<false>(ar, ai, br, bi, SF_ROWS, SF_N1, SF_RS, 1, plan, twr, twi,
-                   inverse != 0, &sr, &si);
-
-  for (int e = threadIdx.x; e < cnt; e += blockDim.x) {
-    int rr, c;
-    long long g;
-    if (store_nat) {
-      rr = e % SF_ROWS;
-      c = e / SF_ROWS;
-      g = base + (long long)c * m + k20 + rr;
-    } else {
-      rr = e >> 7;
-      c = e & (SF_N1 - 1);
-      g = base + (long long)k20 * SF_N1 + e;
-    }
-    yr[g] = sr[rr * SF_RS + c];
-    yi[g] = si[rr * SF_RS + c];
-  }
-}
-
-static bool sf_make_plan(SFPlan* plan, int N, int nstages, const int* factors,
-                         const int* offs) {
-  if (nstages < 1 || nstages > SF_MAX_STAGES) return false;
-  long long prod = 1;
-  plan->nstages = nstages;
-  for (int s = 0; s < nstages; ++s) {
-    const int p = factors[s];
-    if (p < 2 || p > 5) return false;
-    plan->p[s] = p;
-    plan->off[s] = offs[s];
-    prod *= p;
-  }
-  return prod == N;
+  const SFRowIO io{xr, xi, yr, yi, fr, fi, nfilt,
+                   (long long)(blockIdx.x / G),
+                   (int)(blockIdx.x % G) * SF_ROWS, m, load_nat != 0,
+                   store_nat != 0};
+  sf_row_pass(io, sf_row_smem, twr, twi, inverse != 0, plan);
 }
 
 enum { SF_FWD = 0, SF_INV = 1, SF_FWD_NAT = 2, SF_INV_NAT = 3, SF_FILTER = 4 };
@@ -334,7 +180,7 @@ extern "C" int stream_fft_f32(
     sf_col_kernel<<<(unsigned)cgrid, SF_COL_THREADS, csmem, st>>>(
         (const float*)xr, (const float*)xi, (float*)sr, (float*)si,
         (const float*)t1r, (const float*)t1i, (const float*)ctwr,
-        (const float*)ctwi, m, lshift, 0, 0, cplan);
+        (const float*)ctwi, m, lshift, 0, cplan);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     sf_row_kernel<<<(unsigned)rgrid, SF_ROW_THREADS, 0, st>>>(
@@ -352,6 +198,6 @@ extern "C" int stream_fft_f32(
   sf_col_kernel<<<(unsigned)cgrid, SF_COL_THREADS, csmem, st>>>(
       (const float*)sr, (const float*)si, (float*)yr, (float*)yi,
       (const float*)t1r, (const float*)t1i, (const float*)ctwr,
-      (const float*)ctwi, m, lshift, 1, 1, cplan);
+      (const float*)ctwi, m, lshift, 1, cplan);
   return (int)cudaGetLastError();
 }

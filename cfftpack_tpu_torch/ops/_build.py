@@ -37,6 +37,12 @@ _K1_ARGTYPES = [_P] * 8 + [_I, _I, _I] + [_P] * 3 + [_I, _I, _I, _P]
 # stream
 _STREAM_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
                     + [_P] * 2 + [_I] * 5 + [_P])
+# xr, xi, xs, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
+# rtwr, rtwi, rstages, rfac, roff, par, pai, pbr, pbi, b, m, mode, lshift,
+# stream
+_RSTREAM_ARGTYPES = ([_P] * 2 + [ctypes.c_longlong] + [_P] * 8
+                     + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P] + [_P] * 4
+                     + [_I] * 4 + [_P])
 
 
 def _nvcc() -> str:
@@ -99,7 +105,8 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, types in (("cfft_stockham_f32", _K1_ARGTYPES),
                         ("cfft_stockham_f64", _K1_ARGTYPES),
-                        ("stream_fft_f32", _STREAM_ARGTYPES)):
+                        ("stream_fft_f32", _STREAM_ARGTYPES),
+                        ("rstream_fft_f32", _RSTREAM_ARGTYPES)):
         fn = getattr(lib, name)
         fn.argtypes = types
         fn.restype = ctypes.c_int

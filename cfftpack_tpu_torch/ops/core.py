@@ -11,7 +11,9 @@ Dispatch depends only on (n, dtype): Bluestein, else K1
 (``fused_fft.sfft_fused``), else for float32 the stream kernel K3 or,
 past its cap, the s-way split K5 around K2
 (``stream_fft.sfft_stream_split``), else the four-step whose row
-transforms recurse here.  The device decides one thing only, inside
+transforms recurse here.  Real transforms of float32 stream lengths
+with an even batch past K1's half length take the real-stream kernel
+(K7, ``rstream``).  The device decides one thing only, inside
 the kernels' wrappers: a CPU tensor runs the plain version
 (``_stockham`` below for K1), a CUDA tensor launches the kernel.
 """
@@ -24,9 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import plan
-from . import fused_fft, stream_fft
+from . import fused_fft, rstream, stream_fft
 
-__all__ = ["sfft", "srfft", "sirfft"]
+__all__ = ["sfft", "srfft", "sirfft", "s_shifted_dft_real"]
 
 _SQ3_2 = float(np.sqrt(3.0) / 2.0)
 _C5_1, _S5_1 = float(np.cos(2 * np.pi / 5)), float(np.sin(2 * np.pi / 5))
@@ -332,17 +334,30 @@ def _use_pair(n: int, B: int) -> bool:
     return B % 2 == 0 and B >= 2 and n > 1 and n % 2 == 1
 
 
+def _use_rstream(n: int, B: int, dtype) -> bool:
+    """The real-stream route (K7) for r2c, c2r and DCT-II/III: float32,
+    an even flat batch and a stream length (``rstream_eligible``) whose
+    half length K1 does not take (n >= 30720), where the half-length
+    route would run K3 at n/2 between deinterleave and merge passes.
+    Structural conditions only, as ``rfft._use_stream_filter``."""
+    return (rstream.rstream_eligible(n, dtype, B)
+            and not fused_fft.fused_eligible(n // 2, dtype))
+
+
 def srfft(x, n: int):
     """Unscaled r2c DFT of real x -> (re, im) pair of n//2+1 bins.
 
-    Even n: half-length complex trick with the fused merge stage; odd
-    n: row pairing, or the complex FFT of (x, 0), truncated.  imag(DC)
-    and (even n) imag(Nyquist) are exact zeros.
+    Even n: the real-stream route (K7) where ``_use_rstream``, else the
+    half-length complex trick with the fused merge stage; odd n: row
+    pairing, or the complex FFT of (x, 0), truncated.  imag(DC) and
+    (even n) imag(Nyquist) are exact zeros.
     """
     if n == 1:
         return x, torch.zeros_like(x)
     if _use_pair(n, x.shape[:-1].numel()):
         return _srfft_batchpair(x, n)
+    if _use_rstream(n, x.shape[:-1].numel(), x.dtype):
+        return rstream.srfft_stream(x, n)
     if n % 2 == 0:
         Zr, Zi = sfft(x[..., 0::2], x[..., 1::2], n // 2, inverse=False)
         a1, a2, a3, a4, b1, b2, b3, b4 = (
@@ -373,6 +388,8 @@ def sirfft(yr, yi, n: int):
         return yr[..., 0:1]
     if _use_pair(n, yr.shape[:-1].numel()):
         return _sirfft_batchpair(yr, yi, n)
+    if _use_rstream(n, yr.shape[:-1].numel(), yr.dtype):
+        return rstream.sirfft_stream(yr, yi, n)
     if n % 2 == 0:
         h = n // 2
         ya = yr[..., :h]
@@ -390,3 +407,32 @@ def sirfft(yr, yi, n: int):
     zr, _ = sfft(torch.cat([yr, tr], dim=-1), torch.cat([yi, ti], dim=-1),
                  n, inverse=True)
     return zr
+
+
+# ----------------------------------------------- shifted DFT (split)
+
+@functools.lru_cache(maxsize=64)
+def _shifted_phases(n: int, m: int, a: float, b: float, nout: int, dtype,
+                    device):
+    """Pre-phase e^{-2i pi (j+a) b/m} (j < n, the nonzero part of the
+    pad) and post-phase e^{-2i pi k a/m} (k < nout), built in float64."""
+    j = np.arange(m)
+    pre = np.exp(-2j * np.pi * (j + a) * b / m)[:n]
+    k = np.arange(nout)
+    post = np.exp(-2j * np.pi * k * a / m)
+    return tuple(plan.to_device(t, dtype, device)
+                 for t in (pre.real, pre.imag, post.real, post.imag))
+
+
+def s_shifted_dft_real(x, n: int, m: int, a: float, b: float, nout: int):
+    """U[k] = sum_{j<n} x[j] e^{-2i pi (j+a)(k+b)/m} for real x,
+    zero-padded to m, as an (re, im) pair of nout bins: a pre-phase, the
+    pad, one ``sfft`` of length m and a post-phase (the odd-n DCT-IV)."""
+    prer, prei, pr, pi_ = _shifted_phases(n, m, float(a), float(b), nout,
+                                          x.dtype, x.device)
+    ar = F.pad(x * prer, (0, m - n))
+    ai = F.pad(x * prei, (0, m - n))
+    Ar, Ai = sfft(ar, ai, m, inverse=False)
+    Ar = Ar[..., :nout]
+    Ai = Ai[..., :nout]
+    return Ar * pr - Ai * pi_, Ar * pi_ + Ai * pr

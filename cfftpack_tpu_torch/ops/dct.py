@@ -1,0 +1,584 @@
+"""DCT/DST types I-IV over one axis, FFT-based, any length (PyTorch port).
+
+Counterpart of ``cfftpack_tpu/ops/dct.py``, with the same algorithms,
+tables, norms and signatures:
+
+* DCT-II/III: Makhoul's N-point algorithm, an even/odd interleave, one
+  half-length complex FFT (even n) and a phase rotation, composed into
+  single table FMAs (``_dct2_tables``, ``_dct3_tables``).  Float32 stream
+  lengths with an even batch past K1's half length run K7 instead
+  (``rstream.sdct2_stream``/``sdct3_stream``).
+* DST-II/III from DCT-II/III by flips and alternating signs.
+* DCT-I and DST-I through one real FFT of the even or odd extension.
+* DCT-IV: for even n the half-length algorithm (pairs
+  c[p] = x[2p] + i*x[n-1-2p], pre- and post-rotations around one
+  n/2-point FFT); past K1 in float32 the whole of it runs as K8
+  (``_dct4_stream``).  Odd n: the half-shift DFT of length 2n
+  (``core.s_shifted_dft_real``).  DST-IV is a flip and sign of DCT-IV.
+
+Norms: ``"fftpack"`` (and its alias ``"forward"``) puts FFTPACK's full
+scale on the forward transform, ``"ortho"`` is orthonormal both ways,
+``"backward"`` scales the inverse.  Types V-VIII are not ported yet.
+Float64 runs natively (the JAX package's double-float route for TPUs
+has no counterpart here).  Host tables are built in float64 and cached
+per (n, dtype, device).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_NORM, check_norm
+from .. import plan
+from . import core, fused_fft, rstream, stream_fft
+from .cfft import _apply_axis, _check_axis
+
+__all__ = ["dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn"]
+
+_SQRT2 = float(np.sqrt(2.0))
+
+
+def _cexp_half(n: int, sign: float) -> np.ndarray:
+    """exp(sign * 1j*pi*k/(2n)) for k=0..n-1 (host f64 table)."""
+    k = np.arange(n)
+    return np.exp(sign * 1j * np.pi / (2 * n) * k)
+
+
+@functools.lru_cache(maxsize=256)
+def _dev(key, n: int, dtype, device):
+    """The host table ``key`` of length n as tensors of ``dtype`` on
+    ``device``, cached."""
+    return tuple(plan.to_device(t, dtype, device) for t in _HOST[key](n))
+
+
+def _tab(key, n: int, x):
+    return _dev(key, n, x.dtype, x.device)
+
+
+# ---------------------------------------------------------------- cores
+# All cores are unscaled: plain trig sums with FFTPACK's half-term
+# conventions.
+
+def _dct2_tables(n: int):
+    """Even n.  Coefficients of (Zr, Zi, Zmr, Zmi) at output bin k,
+    shaped (2, n/2) so the (B, h) operands broadcast straight to the
+    (B, 2, h) output (k = c*h + j).
+
+    y_k = Re(ph_k V_k), V_k = Ze_{k%h} + w_k Zo_{k%h}, ph = e^{-i pi
+    k/(2n)}; substituting Ze/Zo in (Z, conj(Zm)) gives, with q = ph*w =
+    e^{-5i pi k/(2n)}:  y = T1*Zr + T2*Zi + T3*Zmr + T4*Zmi.
+    """
+    h = n // 2
+    k = np.arange(n)
+    ph = np.exp(-1j * np.pi * k / (2 * n))
+    q = np.exp(-5j * np.pi * k / (2 * n))
+    T1 = (ph.real + q.imag) / 2
+    T2 = (q.real - ph.imag) / 2
+    T3 = (ph.real - q.imag) / 2
+    T4 = (ph.imag + q.real) / 2
+    return tuple(t.reshape(2, h) for t in (T1, T2, T3, T4))
+
+
+def _dct2_core_tables(n: int):
+    """``_dct2_tables`` as ``_dct2_core`` reads them: the interior
+    columns, then the bin-0 column's (T1 + T3, T2 + T4)."""
+    T1, T2, T3, T4 = _dct2_tables(n)
+    return (T1[:, 1:], T2[:, 1:], T3[:, 1:], T4[:, 1:],
+            (T1 + T3)[:, :1], (T2 + T4)[:, :1])
+
+
+def _dct2_core(x, n: int):
+    """y[k] = sum_j x[j] cos(pi*k*(2j+1)/(2n))  (Makhoul N-point)."""
+    if n == 1:
+        return x
+    if core._use_rstream(n, x.shape[:-1].numel(), x.dtype):
+        return rstream.sdct2_stream(x, n)
+    if n % 2:
+        # odd n: Makhoul permutation + full-length real DFT
+        v = torch.cat([x[..., 0::2], x[..., 1::2].flip(-1)], dim=-1)
+        Vr, Vi = core.srfft(v, n)                  # bins 0..n//2
+        phr, phi = _tab("cexp_fwd", n, x)
+        h = n // 2
+        y_low = phr[: h + 1] * Vr - phi[: h + 1] * Vi
+        Vr_u = Vr[..., 1:].flip(-1)
+        Vi_u = Vi[..., 1:].flip(-1)
+        y_high = phr[h + 1:] * Vr_u + phi[h + 1:] * Vi_u
+        return torch.cat([y_low, y_high], dim=-1)
+    h = n // 2
+    if n % 4 == 0:
+        # z_p = v[2p] + i v[2p+1] with v = [x_even, rev(x_odd)] composes
+        # to stride-4 gathers of x
+        zr = torch.cat([x[..., 0::4], x[..., 3::4].flip(-1)], dim=-1)
+        zi = torch.cat([x[..., 2::4], x[..., 1::4].flip(-1)], dim=-1)
+    else:
+        v = torch.cat([x[..., 0::2], x[..., 1::2].flip(-1)], dim=-1)
+        zr = v[..., 0::2]
+        zi = v[..., 1::2]
+    Zr, Zi = core.sfft(zr, zi, h, inverse=False)
+    t1, t2, t3, t4, c0r, c0i = _tab("dct2", n, x)
+    # interior bins from slice+flip mirror operands, the bin-0 column
+    # from Z_0, its own mirror
+    Zrc = Zr[..., None, 1:]
+    Zic = Zi[..., None, 1:]
+    y_c = t1 * Zrc + t2 * Zic + t3 * Zrc.flip(-1) + t4 * Zic.flip(-1)
+    y_0 = c0r * Zr[..., None, :1] + c0i * Zi[..., None, :1]
+    y2 = torch.cat([y_0, y_c], dim=-1)
+    return y2.reshape(x.shape[:-1] + (n,))
+
+
+def _dct3_tables(n: int):
+    """Even n.  Coefficients of the gathered quadruple
+    (x_k, x_{n-k}, x_{h-k}, x_{h+k}) for (Zr, Zi) at bins k = 0..h-1:
+    the DCT-III phase stage V_k = ph_k (x_k - i x_{n-k}) composed with
+    the c2r merge, so the pre-FFT pipeline is one table FMA."""
+    h = n // 2
+    k = np.arange(h)
+    ph = np.exp(1j * np.pi * k / (2 * n))
+    phr, phi = ph.real, ph.imag
+    phF = np.exp(1j * np.pi * (h - k) / (2 * n))
+    phrF, phiF = phF.real, phF.imag
+    w = np.exp(-2j * np.pi * k / n)
+    wr, wi = w.real, w.imag
+    A = (phr * (1 + wi) - wr * phi, phi * (1 + wi) + wr * phr,
+         phrF * (1 - wi) - wr * phiF, phiF * (1 - wi) + wr * phrF)
+    B = (phi * (1 + wi) + wr * phr, -phr * (1 + wi) + wr * phi,
+         -phiF * (1 - wi) - wr * phrF, phrF * (1 - wi) - wr * phiF)
+    return A, B
+
+
+def _dct3_core(x, n: int):
+    """y[k] = x[0]/2 + sum_{j>=1} x[j] cos(pi*j*(2k+1)/(2n)).
+
+    Even n: four slice/flip gathers of x, one table FMA building the
+    half-length spectrum, one inverse complex FFT and a 4-way riffle of
+    all n outputs (for n % 4 == 2 the streams are ragged; equal-length
+    (n+2)//4 streams stay in range and a tail slice drops the 2
+    extras).  Odd n: phase + c2r.
+    """
+    if n == 1:
+        return 0.5 * x
+    if core._use_rstream(n, x.shape[:-1].numel(), x.dtype):
+        return rstream.sdct3_stream(x, n)
+    h = n // 2
+    if n % 2 == 0:
+        m = (n + 2) // 4 if n % 4 else n // 4
+        xa = x[..., :h]                                   # x_k
+        xb = torch.cat([torch.zeros_like(x[..., :1]),
+                        x[..., h + 1:].flip(-1)], dim=-1)  # x_{n-k}
+        xc = x[..., 1: h + 1].flip(-1)                    # x_{h-k}
+        xd = x[..., h:]                                   # x_{h+k}
+        a1, a2, a3, a4, b1, b2, b3, b4 = _tab("dct3", n, x)
+        Zr = xa * a1 + xb * a2 + xc * a3 + xd * a4
+        Zi = xa * b1 + xb * b2 + xc * b3 + xd * b4
+        zr, zi = core.sfft(Zr, Zi, h, inverse=True)
+        zr = 0.5 * zr
+        zi = 0.5 * zi
+        # y[4u..4u+3] = [zr_u, zi_{h-1-u}, zi_u, zr_{h-1-u}]
+        y4 = core._interleave(zr[..., :m], zi[..., h - m:].flip(-1),
+                              zi[..., :m], zr[..., h - m:].flip(-1))
+        return y4[..., :n] if 4 * m != n else y4
+    xnk = torch.cat([torch.zeros_like(x[..., :1]), x[..., 1:].flip(-1)],
+                    dim=-1)                               # x[n-k], x[n]=0
+    phr, phi = _tab("cexp_inv", n, x)
+    # V = ph * (x - i*xnk) is conjugate-symmetric: bins 0..n//2 and one
+    # c2r inverse
+    Vr = (phr * x + phi * xnk)[..., : h + 1]
+    Vi = (phi * x - phr * xnk)[..., : h + 1]
+    v = 0.5 * core.sirfft(Vr, Vi, n)
+    # y[2j] = v[j], y[2j+1] = v[n-1-j] (n odd: half evens, half-1 odds)
+    half = (n + 1) // 2
+    out = torch.empty_like(v)
+    out[..., 0::2] = v[..., :half]
+    out[..., 1::2] = v[..., half:].flip(-1)
+    return out
+
+
+def _alt_sign(n: int) -> np.ndarray:
+    return (-1.0) ** np.arange(n)
+
+
+def _dst2_core(x, n: int):
+    """y[k] = sum_j x[j] sin(pi*(k+1)*(2j+1)/(2n)) = flip(dct2((-1)^j x))."""
+    (s,) = _tab("alt", n, x)
+    return _dct2_core(x * s, n).flip(-1)
+
+
+def _dst3_core(x, n: int):
+    """y[k] = (-1)^k x[n-1]/2 + sum_{j<n-1} x[j] sin(pi*(j+1)*(2k+1)/(2n))."""
+    (s,) = _tab("alt", n, x)
+    return s * _dct3_core(x.flip(-1), n)
+
+
+def _dct1_re(x, n: int):
+    """Re(DFT of the even extension): x0 + (-1)^k x_{n-1} + 2*sum_mid."""
+    ext = torch.cat([x, x[..., 1:-1].flip(-1)], dim=-1)
+    yr, _ = core.srfft(ext, 2 * (n - 1))  # bins 0..n-1
+    return yr
+
+
+def _dst1_core(x, n: int):
+    """y[k] = sum_j x[j] sin(pi*(j+1)*(k+1)/(n+1)) via odd extension."""
+    z = torch.zeros_like(x[..., :1])
+    ext = torch.cat([z, x, z, -x.flip(-1)], dim=-1)
+    _, yi = core.srfft(ext, 2 * (n + 1))  # bins 0..n+1
+    return (-0.5) * yi[..., 1: n + 1]
+
+
+def _dct4_phases(n: int):
+    """Even n: the pre-rotation e^{-i pi p/n} and post-phase
+    e^{-i pi (2p + 1/2)/(2n)}, p < n/2, as complex f64."""
+    p = np.arange(n // 2)
+    return (np.exp(-1j * np.pi * p / n),
+            np.exp(-1j * np.pi * (2 * p + 0.5) / (2 * n)))
+
+
+def _dct4_post_perm(n: int):
+    """K8's post-phase in the permuted (m, 128) layout (post[k2 + m*k1]
+    at [k2, k1]), f64."""
+    _, post = _dct4_phases(n)
+    m = n // 2 // 128
+    k2 = np.arange(m)[:, None]
+    k1 = np.arange(128)[None, :]
+    return _reim(post[(k2 + m * k1).reshape(-1)].reshape(m, 128))
+
+
+def _dct4_pack(x, n: int):
+    """Even n: the pairs c[p] = x[2p] + i*x[n-1-2p] times the
+    pre-rotation e^{-i pi p/n}."""
+    prer, prei = _tab("dct4", n, x)[:2]
+    return core._cmul_tab(x[..., 0::2], x.flip(-1)[..., 0::2], prer, prei)
+
+
+def _dct4_stream_ok(n: int, dtype) -> bool:
+    """K8's gate: float32, even n whose half length is a stream length
+    that K1 does not take (n >= 32768)."""
+    if n % 2:
+        return False
+    h = n // 2
+    return (stream_fft.stream_eligible(h, dtype)
+            and not fused_fft.fused_eligible(h, dtype))
+
+
+def _dct4_stream_tail(wr, wi, n: int, post):
+    """The reference's permuted-stream tail (``dct._dct4_stream_tail``):
+    the half-length FFT with permuted output through the stream passes'
+    plain version, the post-phase in that layout, then un-permute, flip
+    and riffle:
+
+        y[2t]   =  Re z[t]        t = k2 + m*k1  at perm [k2, k1]
+        y[2t+1] = -Im z[h-1-t]    (h-1-t lives at perm [m-1-k2, 127-k1])
+
+    ``post`` is the (m, 128) permuted post-phase pair.
+    """
+    h = n // 2
+    m = h // 128
+    lead = wr.shape[:-1]
+    Zr, Zi = stream_fft.stream_plain(wr.reshape(-1, m, 128),
+                                     wi.reshape(-1, m, 128), h, "fwd")
+    zr, zi = core._cmul_tab(Zr, Zi, *post)
+    A = zr.transpose(-1, -2).reshape(lead + (h,))
+    Bm = zi.flip((-2, -1)).transpose(-1, -2).reshape(lead + (h,))
+    return core._interleave(A, -Bm)
+
+
+def _dct4_stream_plain(x, n: int):
+    """K8's plain version on any device: the pair packing and
+    pre-rotation, then :func:`_dct4_stream_tail`."""
+    wr, wi = _dct4_pack(x, n)
+    return _dct4_stream_tail(wr, wi, n, _tab("dct4_post_perm", n, x))
+
+
+def _dct4_stream(x, n: int):
+    """Unscaled even-n DCT-IV through K8 on a CUDA tensor (or raises),
+    its plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return _dct4_stream_plain(x, n)
+    out = rstream.launch("dct4", n, x, pre=_tab("dct4", n, x)[:2],
+                         post=_tab("dct4_post_perm", n, x))
+    return out.reshape(x.shape)
+
+
+def _dct4_core(x, n: int):
+    """y[k] = sum_j x[j] cos(pi*(k+.5)*(j+.5)/n).
+
+    Even n: pack c[p] = x[2p] + i*x[n-1-2p], pre-/post-rotations around
+    one n/2-point FFT; y[2t] = Re z[t], y[2t+1] = -Im z[h-1-t] (K8 past
+    K1 in float32).  Odd n: the half-shift DFT of length 2n.
+    """
+    if n % 2 == 0 and n >= 4:
+        if _dct4_stream_ok(n, x.dtype):
+            return _dct4_stream(x, n)
+        Wr, Wi = core.sfft(*_dct4_pack(x, n), n // 2, inverse=False)
+        zr, zi = core._cmul_tab(Wr, Wi, *_tab("dct4", n, x)[2:])
+        return core._interleave(zr, -zi.flip(-1))
+    # U[k] = sum_{j<2n} xpad[j] e^{-2i pi (j+.5)(k+.5)/(2n)}
+    ur, _ = core.s_shifted_dft_real(x, n, 2 * n, 0.5, 0.5, n)
+    return ur
+
+
+def _dst4_core(x, n: int):
+    """y[k] = sum_j x[j] sin(pi*(k+.5)*(j+.5)/n) = (-1)^k dct4(flip(x))."""
+    (s,) = _tab("alt", n, x)
+    return s * _dct4_core(x.flip(-1), n)
+
+
+def _ends_weight(n: int, w: float) -> np.ndarray:
+    v = np.ones(n)
+    v[0] = w
+    v[-1] = w
+    return v
+
+
+def _weights(n: int):
+    """Scale vectors of the ortho norms: the DCT-II output and DCT-III
+    input weights, the DST-II output and DST-III input weights, and the
+    DCT-I end weights (1/2 and 1/sqrt 2)."""
+    c2 = np.full(n, np.sqrt(2.0 / n))
+    c2[0] = np.sqrt(1.0 / n)
+    c3 = np.full(n, np.sqrt(2.0 / n))
+    c3[0] = 2.0 / np.sqrt(n)
+    s2 = np.full(n, np.sqrt(2.0 / n))
+    s2[-1] = np.sqrt(1.0 / n)
+    s3 = np.full(n, np.sqrt(2.0 / n))
+    s3[-1] = 2.0 / np.sqrt(n)
+    return (c2, c3, s2, s3, _ends_weight(n, 0.5),
+            _ends_weight(n, 1.0 / _SQRT2))
+
+
+def _reim(*cs):
+    return tuple(p for c in cs for p in (c.real, c.imag))
+
+
+_HOST = {
+    "cexp_fwd": lambda n: _reim(_cexp_half(n, -1.0)),
+    "cexp_inv": lambda n: _reim(_cexp_half(n, +1.0)),
+    "dct2": _dct2_core_tables,
+    "dct3": lambda n: sum(_dct3_tables(n), ()),
+    "dct4": lambda n: _reim(*_dct4_phases(n)),
+    "dct4_post_perm": _dct4_post_perm,
+    "alt": lambda n: (_alt_sign(n),),
+    "weights": _weights,
+}
+
+
+# ------------------------------------------------------ scaling wrappers
+# mode: +1 fftpack forward scale, -1 unscaled, 0 ortho
+
+def _dct1_apply(x, n: int, mode: int):
+    """DCT-I; ortho reproduces the reference's hand-built orthonormal
+    DCT-I (cfftpack.c:249-279) in closed form."""
+    if n < 2:
+        raise ValueError("dct type 1 requires n >= 2")
+    M = n - 1.0
+    re = _dct1_re(x, n)
+    (sgn,) = _tab("alt", n, x)
+    x0 = x[..., :1]
+    xN = x[..., -1:]
+    half_ends, rt_ends = _tab("weights", n, x)[4:]
+    if mode > 0:  # fftpack forward: (x0/2 + sum + (-1)^k xN/2)*(2/M)
+        return re * (1.0 / M) * half_ends
+    if mode < 0:  # unscaled: x0 + (-1)^k xN + sum
+        return 0.5 * re + 0.5 * (x0 + sgn * xN)
+    # ortho: sqrt(2/M)*(x0/sqrt2 + sum + (-1)^k xN/sqrt2), ends /sqrt2
+    c = 1.0 / _SQRT2 - 0.5
+    y = 0.5 * re + c * (x0 + sgn * xN)
+    return y * float(np.sqrt(2.0 / M)) * rt_ends
+
+
+def _dst1_apply(x, n: int, mode: int):
+    y = _dst1_core(x, n)
+    if mode > 0:
+        return y * (2.0 / (n + 1))
+    if mode < 0:
+        return y
+    return y * float(np.sqrt(2.0 / (n + 1)))
+
+
+def _dct2_apply(x, n: int, mode: int):
+    y = _dct2_core(x, n)
+    if mode < 0:  # unscaled: the reference's DCT-II side (cosq1b_)
+        return y
+    if mode > 0:
+        return y * (2.0 / n)
+    return y * _tab("weights", n, x)[0]      # y0*sqrt(1/n), yk*sqrt(2/n)
+
+
+def _dct3_apply(x, n: int, mode: int):
+    if mode < 0:
+        return _dct3_core(x, n)
+    if mode > 0:  # fftpack forward (cosq1f_): 2/n overall
+        return _dct3_core(x, n) * (2.0 / n)
+    # ortho (transpose of orthonormal DCT-II): input scales sqrt(2/n),
+    # except 2/sqrt(n) on x0, whose 1/2 the core applies
+    return _dct3_core(x * _tab("weights", n, x)[1], n)
+
+
+def _dst2_apply(x, n: int, mode: int):
+    y = _dst2_core(x, n)
+    if mode < 0:
+        return y
+    if mode > 0:
+        return y * (2.0 / n)
+    return y * _tab("weights", n, x)[2]
+
+
+def _dst3_apply(x, n: int, mode: int):
+    if mode < 0:
+        return _dst3_core(x, n)
+    if mode > 0:
+        return _dst3_core(x, n) * (2.0 / n)
+    # ortho (transpose of orthonormal DST-II): the core halves x[n-1]
+    return _dst3_core(x * _tab("weights", n, x)[3], n)
+
+
+def _dct4_apply(x, n: int, mode: int):
+    y = _dct4_core(x, n)
+    if mode > 0:
+        return y * (2.0 / n)
+    if mode < 0:
+        return y
+    return y * float(np.sqrt(2.0 / n))
+
+
+def _dst4_apply(x, n: int, mode: int):
+    y = _dst4_core(x, n)
+    if mode > 0:
+        return y * (2.0 / n)
+    if mode < 0:
+        return y
+    return y * float(np.sqrt(2.0 / n))
+
+
+_FWD = {1: _dct1_apply, 2: _dct2_apply, 3: _dct3_apply, 4: _dct4_apply}
+_FWD_S = {1: _dst1_apply, 2: _dst2_apply, 3: _dst3_apply, 4: _dst4_apply}
+# operator inverse of each type (I/IV/V/VIII are involutions up to scale;
+# VI and VII are transposes of each other, Martucci 1994)
+_INV_TYPE = {1: 1, 2: 3, 3: 2, 4: 4, 5: 5, 6: 7, 7: 6, 8: 8}
+
+
+def _norm_modes(norm: str) -> tuple[int, int]:
+    """(forward mode, inverse mode) per norm: fftpack/forward scale the
+    forward fully and leave the inverse unscaled; ortho is orthonormal
+    both ways; backward puts the full scale on the inverse."""
+    if norm in ("fftpack", "forward"):
+        return 1, -1
+    if norm == "ortho":
+        return 0, 0
+    return -1, 1  # backward
+
+
+def _check_type(t) -> int:
+    t = int(t)
+    if t not in (1, 2, 3, 4, 5, 6, 7, 8):
+        raise ValueError(f"transform type must be 1..8, got {t}")
+    if t > 4:
+        raise NotImplementedError(
+            f"DCT/DST type {t} is not ported yet: types V-VIII wait for "
+            "oddtypes.py and gdft.py (ROADMAP.md queue 1, item 8)")
+    return t
+
+
+def _prep_real(x):
+    """A real floating tensor: complex input raises, integers become
+    float64, floats narrower than 32 bits widen to float32."""
+    x = torch.as_tensor(x)
+    if x.is_complex():
+        raise TypeError("DCT/DST require real input")
+    if not x.dtype.is_floating_point:
+        return x.to(torch.float64)
+    if torch.finfo(x.dtype).bits < 32:
+        return x.to(torch.float32)
+    return x
+
+
+def _run(table, t: int, x, axis: int, mode: int):
+    _check_axis(x, axis)
+    n = x.shape[axis]
+    return _apply_axis(x, axis, lambda v: table[t](v, n, mode))
+
+
+def _dct_impl(x, t: int, axis: int, norm: str, inverse: bool):
+    fm, im = _norm_modes(norm)
+    if inverse:
+        return _run(_FWD, _INV_TYPE[t], x, axis, im)
+    return _run(_FWD, t, x, axis, fm)
+
+
+def _dst_impl(x, t: int, axis: int, norm: str, inverse: bool):
+    fm, im = _norm_modes(norm)
+    if inverse:
+        return _run(_FWD_S, _INV_TYPE[t], x, axis, im)
+    return _run(_FWD_S, t, x, axis, fm)
+
+
+def dct(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
+    """Forward DCT of the given type along ``axis`` (types 1-4; 5-8
+    raise ``NotImplementedError`` until ported).
+
+    norm="fftpack" follows the reference pairing: the type-3 transform
+    carries the full 2/N scaling (FFTPACK's "forward" DCT) and type 2 is
+    unscaled; ``idct`` undoes ``dct`` for every norm.
+    """
+    return _dct_impl(_prep_real(x), _check_type(type), axis,
+                     check_norm(norm), False)
+
+
+def idct(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
+    """Inverse DCT: idct(dct(x, type=t), type=t) == x for every norm."""
+    return _dct_impl(_prep_real(x), _check_type(type), axis,
+                     check_norm(norm), True)
+
+
+def dst(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
+    """Forward DST of the given type along ``axis``."""
+    return _dst_impl(_prep_real(x), _check_type(type), axis,
+                     check_norm(norm), False)
+
+
+def idst(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
+    """Inverse DST: idst(dst(x, type=t), type=t) == x for every norm."""
+    return _dst_impl(_prep_real(x), _check_type(type), axis,
+                     check_norm(norm), True)
+
+
+# ------------------------------------------------------------- N-D forms
+# Separable 1-D passes per axis.  Along axis -2 each pass moves the axis
+# last (``cfft._apply_axis``) until the column kernels (K6, K9) are
+# ported.
+
+def _norm_axes(x, axes):
+    if axes is None:
+        return tuple(range(x.ndim))
+    if isinstance(axes, int):
+        return (axes,)
+    return tuple(int(a) for a in axes)
+
+
+def _nd(impl, x, type, axes, norm, inverse: bool):
+    x = _prep_real(x)
+    t = _check_type(type)
+    norm = check_norm(norm)
+    for ax in _norm_axes(x, axes):
+        x = impl(x, t, ax, norm, inverse)
+    return x
+
+
+def dctn(x, type: int = 2, axes=None, norm: str = DEFAULT_NORM):
+    """N-D DCT: separable 1-D passes per axis.  ``dctn(x, 3, axes=(-2,
+    -1))`` is the reference's ``dct_2d_forward``; ``idctn`` its
+    inverse."""
+    return _nd(_dct_impl, x, type, axes, norm, False)
+
+
+def idctn(x, type: int = 2, axes=None, norm: str = DEFAULT_NORM):
+    return _nd(_dct_impl, x, type, axes, norm, True)
+
+
+def dstn(x, type: int = 2, axes=None, norm: str = DEFAULT_NORM):
+    return _nd(_dst_impl, x, type, axes, norm, False)
+
+
+def idstn(x, type: int = 2, axes=None, norm: str = DEFAULT_NORM):
+    return _nd(_dst_impl, x, type, axes, norm, True)

@@ -1,0 +1,325 @@
+"""K7: the real-stream transforms (r2c, c2r, DCT-II, DCT-III) for
+n = 128*m, and the launch of K8 (the DCT-IV stream tail).
+
+Counterpart of ``cfftpack_tpu/ops/pallas_rstream.py``.  Two adjacent
+real rows of a (B, n) batch, B even, run as one complex row
+z = x[2p] + i*x[2p+1] through the stream passes (K2's, natural ->
+permuted, X[k2 + m*k1] at [k2, k1]); the conjugate-mirror merge
+U = (Z + conj(Zm))/2, V = -i(Z - conj(Zm))/2 separates the two real
+rows' spectra.  DCT-II rides the same pair through the Makhoul
+permutation v = [x_even, reversed x_odd] and the phase Re(ph*U);
+DCT-III runs the mirror image of it through the inverse.
+
+The CUDA kernel (``csrc/rstream_fft.cu``) fuses the merge, the
+gathers and scatters and the phase into the passes' loads and stores.
+The plain versions below keep the reference's separate passes, built on
+``stream_fft.stream_plain``.  On a CPU tensor each wrapper runs its
+plain version; on a CUDA tensor it launches the kernel or raises.
+``launches`` counts kernel launches (K8 is launched from ``dct.py``
+through :func:`launch`).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import plan
+from . import _build, stream_fft
+
+__all__ = ["rstream_eligible", "srfft_stream", "sirfft_stream",
+           "sdct2_stream", "sdct3_stream"]
+
+_N1 = stream_fft._N1
+_H = _N1 // 2            # lanes below 64 hold every bin below Nyquist
+
+_MODES = ("rfft", "irfft", "dct2", "dct3", "dct4")
+_KERNEL = {"rfft": "K7", "irfft": "K7", "dct2": "K7", "dct3": "K7",
+           "dct4": "K8"}
+launches = {"K7": 0, "K8": 0}
+
+
+def rstream_eligible(n: int, dtype, flat_batch: int) -> bool:
+    """A pairable batch and a stream length: float32, an even flat batch
+    of at least 2, n = 128*m with m a 5-smooth multiple of 16 up to the
+    cap."""
+    if flat_batch % 2 or flat_batch < 2:
+        return False
+    return stream_fft.stream_eligible(n, dtype)
+
+
+# ------------------------------------------------------ plain versions
+
+def _mirror_perm(t):
+    """Conjugate-mirror index map on a permuted (P, m, 128) plane:
+    out[k2, k1] = t[(m - k2) % m, lane], lane = (128 - k1) % 128 on row
+    0 and 127 - k1 elsewhere."""
+    R = t.flip((1, 2))                          # rows m-1..0, lanes flipped
+    r0 = torch.roll(R[:, -1:], 1, dims=2)       # row 0: lane (128-k1)%128
+    return torch.cat([r0, R[:, :-1]], dim=1)
+
+
+def _merge_uv(Zr, Zi):
+    """Permuted pair spectrum -> (U, V), the full permuted spectra of the
+    two real rows."""
+    Zmr = _mirror_perm(Zr)
+    Zmi = _mirror_perm(Zi)
+    return (0.5 * (Zr + Zmr), 0.5 * (Zi - Zmi),
+            0.5 * (Zi + Zmi), 0.5 * (Zmr - Zr))
+
+
+def _nat_low(t, m: int):
+    """Permuted plane -> natural bins 0..n/2-1 (lanes < 64)."""
+    return t[:, :, :_H].transpose(1, 2).reshape(t.shape[0], _H * m)
+
+
+def _rfft_plain(x, n: int):
+    """(B, n) real, B even -> natural packed (B, n/2 + 1) pair."""
+    m = n // _N1
+    x3 = x.reshape(-1, 2, m, _N1)
+    Zr, Zi = stream_fft.stream_plain(x3[:, 0], x3[:, 1], n, "fwd")
+    Ur, Ui, Vr, Vi = _merge_uv(Zr, Zi)
+    nyq_r = torch.stack([Ur[:, 0, _H], Vr[:, 0, _H]], dim=1)[..., None]
+    lows = [_nat_low(t, m) for t in (Ur, Vr, Ui, Vi)]
+    yr = torch.cat([torch.stack(lows[:2], dim=1), nyq_r], dim=-1)
+    yi = torch.cat([torch.stack(lows[2:], dim=1), torch.zeros_like(nyq_r)],
+                   dim=-1)
+    # imag(DC) is (Zi - Zmi)/2 at the self-mirror bin 0, an exact zero
+    B = x.shape[0]
+    return yr.reshape(B, -1), yi.reshape(B, -1)
+
+
+def _irfft_plain(yr, yi, n: int):
+    """Natural packed (B, n/2 + 1) pair -> (B, n) real times n."""
+    m = n // _N1
+    h = n // 2
+    ar = yr.reshape(-1, 2, h + 1)
+    ai = yi.reshape(-1, 2, h + 1)
+    Ur, Vr = ar[:, 0], ar[:, 1]
+    Ui, Vi = ai[:, 0], ai[:, 1]
+    # natural Z: bins 0..h, then the conjugate tail from bin n - k
+    Zr = torch.cat([Ur - Vi, (Ur[:, 1:h] + Vi[:, 1:h]).flip(-1)], dim=-1)
+    Zi = torch.cat([Ui + Vr, (Vr[:, 1:h] - Ui[:, 1:h]).flip(-1)], dim=-1)
+    # natural -> permuted: flat k = k2 + m*k1 is the (128, m) view
+    # transposed
+    Zr = Zr.reshape(-1, _N1, m).transpose(1, 2)
+    Zi = Zi.reshape(-1, _N1, m).transpose(1, 2)
+    zr, zi = stream_fft.stream_plain(Zr, Zi, n, "inv")
+    return torch.stack([zr, zi], dim=1).reshape(-1, n)
+
+
+@functools.lru_cache(maxsize=32)
+def _dct_phase_perm(n: int):
+    """ph_k = exp(-i pi k / (2n)) laid out in the permuted (k2, k1) tile,
+    built in float64, as float32 planes."""
+    m = n // _N1
+    k2 = np.arange(m)[:, None]
+    k1 = np.arange(_N1)[None, :]
+    ph = np.exp(-1j * np.pi * (k2 + m * k1) / (2 * n))
+    return ph.real.astype(np.float32), ph.imag.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _device_phase(n: int, device):
+    return tuple(torch.from_numpy(t).to(device) for t in _dct_phase_perm(n))
+
+
+def _dct2_plain(x, n: int):
+    """(B, n) real, B even -> unscaled DCT-II in natural order."""
+    m = n // _N1
+    B = x.shape[0]
+    v = torch.cat([x[:, 0::2], x[:, 1::2].flip(-1)], dim=-1)
+    v3 = v.reshape(-1, 2, m, _N1)
+    Zr, Zi = stream_fft.stream_plain(v3[:, 0], v3[:, 1], n, "fwd")
+    Ur, Ui, Vr, Vi = _merge_uv(Zr, Zi)
+    phr, phi = _device_phase(n, x.device)
+    yU = Ur * phr - Ui * phi                 # Re(ph * U), all n bins
+    yV = Vr * phr - Vi * phi
+    out = torch.stack([yU.transpose(1, 2), yV.transpose(1, 2)], dim=1)
+    return out.reshape(B, n)
+
+
+def _dct3_plain(y, n: int):
+    """(B, n), B even -> unscaled DCT-III (``dct._dct3_core``) in natural
+    order."""
+    m = n // _N1
+    B = y.shape[0]
+    y3 = y.reshape(-1, 2, _N1, m)
+    phr, phi = _device_phase(n, y.device)
+    k2 = torch.arange(m, device=y.device)[:, None]
+    k1 = torch.arange(_N1, device=y.device)[None, :]
+    dc = (k2 == 0) & (k1 == 0)
+    ny = (k2 == 0) & (k1 == _H)
+
+    def spectrum(t):
+        # w_k = ph_k U_k has y_k = Re(w_k), y_{n-k} = -Im(w_k), so
+        # U_k = conj(ph_k)(y_k - i y_{(n-k)%n}); self-mirror fix-ups
+        # U_0 = y_0, U_{n/2} = sqrt(2) y_{n/2}
+        tm = _mirror_perm(t)
+        Ur = t * phr - tm * phi
+        Ui = -(t * phi + tm * phr)
+        Ur = torch.where(dc, t, torch.where(ny, float(np.sqrt(2.0)) * t, Ur))
+        Ui = torch.where(dc | ny, torch.zeros_like(Ui), Ui)
+        return Ur, Ui
+
+    Ur, Ui = spectrum(y3[:, 0].transpose(1, 2))
+    Vr, Vi = spectrum(y3[:, 1].transpose(1, 2))
+    zr, zi = stream_fft.stream_plain(Ur - Vi, Ui + Vr, n, "inv")
+    # the inverse returns n*v; dct3(dct2(x)) = (n/2) x, so halve, then
+    # undo the Makhoul permutation
+    v = torch.stack([zr, zi], dim=1).reshape(B, n) * 0.5
+    h = n // 2
+    out = torch.empty_like(v)
+    out[:, 0::2] = v[:, :h]
+    out[:, 1::2] = v[:, h:].flip(-1)
+    return out
+
+
+# ------------------------------------------------------------ launch
+
+def _rows(x, width: int):
+    """x as (rows, width) with unit lane stride and rows at least
+    `width` apart (a view where the layout allows; else one copy)."""
+    x2 = x.reshape(-1, width)
+    if x2.stride(-1) != 1 or (x2.shape[0] > 1 and x2.stride(0) < width):
+        x2 = x2.contiguous()
+    return x2
+
+
+def launch(mode: str, n: int, x, xi=None, pre=None, post=None):
+    """One mode of K7 (rfft, irfft, dct2, dct3) or K8 (dct4) through the
+    CUDA kernel, both passes.
+
+    ``x`` is (..., n) real rows; for irfft ``(x, xi)`` is the packed
+    (..., n/2 + 1) pair.  Rows are read in place through their stride.
+    K7's modes take an even row count; K8 (n = 2*128*m) takes the
+    pre-rotation ``pre`` ((n/2,) planes) and the permuted post-phase
+    ``post`` ((m, 128) planes, ``dct._dct4_post_perm``).  Returns
+    the (re, im) packed pair for rfft, else the (rows, n) output.
+    """
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+    if (xi is not None) != (mode == "irfft"):
+        raise ValueError("mode irfft, and only it, takes an im plane xi")
+    ins = [x] if xi is None else [x, xi]
+    if any(t.dtype != torch.float32 for t in ins):
+        raise TypeError(f"the real-stream kernel takes float32 rows, got "
+                        f"{[t.dtype for t in ins]}")
+    if not all(t.is_cuda and t.device == x.device for t in ins):
+        raise ValueError(f"the real-stream kernel needs its input on one "
+                         f"CUDA device, got {[t.device for t in ins]}")
+    N = n // 2 if mode == "dct4" else n
+    if n % 2 or not stream_fft.stream_eligible(N, torch.float32):
+        raise ValueError(f"the real-stream kernel does not take n={n} in "
+                         f"mode {mode}")
+    width = n // 2 + 1 if mode == "irfft" else n
+    if x.shape[-1] != width or (xi is not None and xi.shape != x.shape):
+        raise ValueError(f"mode {mode} takes rows of {width}, got "
+                         f"{tuple(x.shape)}")
+    x2 = _rows(x, width)
+    rows = x2.shape[0]
+    if mode == "irfft":
+        xi2 = _rows(xi, width)
+        if xi2.stride(0) != x2.stride(0):
+            x2, xi2 = x2.contiguous(), xi2.contiguous()
+    if mode != "dct4" and rows % 2:
+        raise ValueError(f"mode {mode} pairs rows: the row count must be "
+                         f"even, got {rows}")
+    dev = x.device
+    f32 = torch.float32
+    if mode == "rfft":
+        yr = torch.empty((rows, n // 2 + 1), dtype=f32, device=dev)
+        yi = torch.empty_like(yr)
+    else:
+        yr = torch.empty((rows, n), dtype=f32, device=dev)
+        yi = None
+    if rows == 0:
+        return (yr, yi) if mode == "rfft" else yr
+    m = N // _N1
+    b = rows if mode == "dct4" else rows // 2
+    sr = torch.empty((b, m, _N1), dtype=f32, device=dev)
+    si = torch.empty_like(sr)
+    t1r, t1i = stream_fft._device_outer(N, mode in ("irfft", "dct3"), dev)
+    ct = plan.device_tables(m, f32, dev)
+    rt = plan.device_tables(_N1, f32, dev)
+    cfac = np.asarray(ct.factors, dtype=np.int32)
+    coff = np.asarray(ct.offs[:-1], dtype=np.int32)
+    rfac = np.asarray(rt.factors, dtype=np.int32)
+    roff = np.asarray(rt.offs[:-1], dtype=np.int32)
+    lshift = stream_fft._col_lanes(m).bit_length() - 1
+    pa = pb = (None, None)
+    if mode in ("dct2", "dct3"):
+        pa = tuple(t.data_ptr() for t in _device_phase(n, dev))
+    elif mode == "dct4":
+        if (pre is None or post is None
+                or tuple(pre[0].shape) != (N,)
+                or tuple(post[0].shape) != (m, _N1)):
+            raise ValueError("mode dct4 takes the pre-rotation (n/2,) and "
+                             "the permuted post-phase (m, 128) planes")
+        pa = tuple(t.data_ptr() for t in pre)
+        pb = tuple(t.data_ptr() for t in post)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rstream_fft_f32(
+            x2.data_ptr(), None if xi is None else xi2.data_ptr(),
+            x2.stride(0) if rows > 1 else width, yr.data_ptr(),
+            None if yi is None else yi.data_ptr(), sr.data_ptr(),
+            si.data_ptr(), t1r.data_ptr(), t1i.data_ptr(), ct.twr.data_ptr(),
+            ct.twi.data_ptr(), len(cfac), cfac.ctypes.data, coff.ctypes.data,
+            rt.twr.data_ptr(), rt.twi.data_ptr(), len(rfac),
+            rfac.ctypes.data, roff.ctypes.data, *pa, *pb, b, m,
+            _MODES.index(mode), lshift, stream)
+    if err != 0:
+        raise RuntimeError(f"real-stream kernel launch failed at n={n}, "
+                           f"rows={rows}, mode={mode}: CUDA error {err}")
+    launches[_KERNEL[mode]] += 1
+    return (yr, yi) if mode == "rfft" else yr
+
+
+# ---------------------------------------------------------- wrappers
+
+def srfft_stream(x, n: int):
+    """``core.srfft`` contract (unscaled r2c, natural packed n/2 + 1
+    bins) through K7.  Needs ``rstream_eligible``."""
+    lead = x.shape[:-1]
+    if x.device.type == "cpu":
+        yr, yi = _rfft_plain(x.reshape(-1, n), n)
+    else:
+        yr, yi = launch("rfft", n, x)
+    h1 = n // 2 + 1
+    return yr.reshape(lead + (h1,)), yi.reshape(lead + (h1,))
+
+
+def sirfft_stream(yr, yi, n: int):
+    """``core.sirfft`` contract (unscaled c2r: returns n*x) through K7."""
+    lead = yr.shape[:-1]
+    if yr.device.type == "cpu":
+        h1 = n // 2 + 1
+        out = _irfft_plain(yr.reshape(-1, h1), yi.reshape(-1, h1), n)
+    else:
+        out = launch("irfft", n, yr, yi)
+    return out.reshape(lead + (n,))
+
+
+def sdct2_stream(x, n: int):
+    """``dct._dct2_core`` contract (unscaled DCT-II, natural order)
+    through K7."""
+    lead = x.shape[:-1]
+    if x.device.type == "cpu":
+        out = _dct2_plain(x.reshape(-1, n), n)
+    else:
+        out = launch("dct2", n, x)
+    return out.reshape(lead + (n,))
+
+
+def sdct3_stream(y, n: int):
+    """``dct._dct3_core`` contract (unscaled DCT-III, natural order)
+    through K7."""
+    lead = y.shape[:-1]
+    if y.device.type == "cpu":
+        out = _dct3_plain(y.reshape(-1, n), n)
+    else:
+        out = launch("dct3", n, y)
+    return out.reshape(lead + (n,))

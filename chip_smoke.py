@@ -4,14 +4,17 @@
 
 Builds the CUDA kernels from the checkout (K1,
 ``cfftpack_tpu_torch/csrc/stockham_fft.cu``; K2, K3 and K4,
-``csrc/stream_fft.cu``), holds each against its plain PyTorch version
-and ``torch.fft`` at the main path's shapes, then drives the main path
-through the public entry points (the bench headline ``fft_split`` at
-n = 1024 x 4096, the flagship rfft -> multiply -> irfft step, the conv
-option pricer in float64 and in float32 at the 2^20 grid, Bluestein and
-four-step lengths, ``fft_split`` through the stream kernel at 65536 and
-its split at 2^20 and 2^21, and the streaming filter) and checks each
-result.  Each path runs with the launch counts set to 0 just before it
+``csrc/stream_fft.cu``; K7 and K8, ``csrc/rstream_fft.cu``), holds each
+against its plain PyTorch version and ``torch.fft`` or scipy at the
+main path's shapes, then drives the main path through the public entry
+points (the bench headline ``fft_split`` at n = 1024 x 4096, the
+flagship rfft -> multiply -> irfft step, the conv option pricer in
+float64 and in float32 at the 2^20 grid, Bluestein and four-step
+lengths, ``fft_split`` through the stream kernel at 65536 and its split
+at 2^20 and 2^21, the streaming filter, ``rfft_split``/``irfft_split``
+and the DCT/DST types 2-4 at (64, 65536), ``dct`` at (4096, 1024),
+``dctn`` at (4, 1024, 1024) and a float64 DCT round trip) and checks
+each result.  Each path runs with the launch counts set to 0 just before it
 and read just after.  Prints CUDA-event times of the kernels and their
 plain versions, one JSON line describing the kernels, and as its last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -28,16 +31,19 @@ import sys
 import time
 
 import numpy as np
+import scipy.fft
 import torch
 
 import cfftpack_tpu_torch as ct
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
-from cfftpack_tpu_torch.ops import _build, fused_fft, stream_fft
+from cfftpack_tpu_torch.ops import _build, core, fused_fft, stream_fft
+from cfftpack_tpu_torch.ops import rstream
 
-# the module, not the function of the same name that ops exports
+# the modules, not the functions of the same names that ops exports
 rfft_ops = importlib.import_module("cfftpack_tpu_torch.ops.rfft")
+dct_ops = importlib.import_module("cfftpack_tpu_torch.ops.dct")
 
 DEV = "cuda"
 # the reference's variance-gamma benchmark (test/vargamma.c:108-121) and
@@ -50,7 +56,10 @@ K1_BATCHES = (37, 4096)
 # phase 3: m = 16, 32, 48 (radix 3), 80 (radix 5), 512, 768, 4096 (the cap)
 STREAM_SIZES = (2048, 4096, 6144, 10240, 65536, 98304, 524288)
 STREAM_MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
-KERNELS = ("K1", "K2", "K3", "K4")
+# phase 3b: K7 at n = 128*m and K8 at n = 2*128*m, m = 16, 48 (radix 3),
+# 80 (radix 5), 512, 4096
+RSTREAM_M = (16, 48, 80, 512, 4096)
+KERNELS = ("K1", "K2", "K3", "K4", "K7", "K8")
 
 
 def check(ok: bool, what: str) -> None:
@@ -65,10 +74,27 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-300))
 
 
+def real(shape, dtype, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=DEV, dtype=dtype)
+
+
 def pair(shape, dtype, seed):
     g = torch.Generator(device=DEV).manual_seed(seed)
     return (torch.randn(shape, generator=g, device=DEV, dtype=dtype),
             torch.randn(shape, generator=g, device=DEV, dtype=dtype))
+
+
+def rstream_plain(mode, n, x, xi=None, pre=None, post=None):
+    """The plain version of each K7/K8 mode, in ``rstream.launch``'s
+    contract."""
+    if mode == "irfft":
+        h1 = n // 2 + 1
+        return rstream._irfft_plain(x.reshape(-1, h1), xi.reshape(-1, h1), n)
+    fn = {"rfft": rstream._rfft_plain, "dct2": rstream._dct2_plain,
+          "dct3": rstream._dct3_plain,
+          "dct4": dct_ops._dct4_stream_plain}[mode]
+    return fn(x.reshape(-1, n), n)
 
 
 @contextlib.contextmanager
@@ -76,6 +102,7 @@ def plain_engine():
     """Run the transform path with the kernels' plain versions in place
     of the kernels, on the same card, for comparison and timing only."""
     kernel, stream_launch = fused_fft.sfft_fused, stream_fft._launch
+    rstream_launch = rstream.launch
 
     def plain(xr, xi, n, inverse):
         shape = xr.shape
@@ -85,11 +112,13 @@ def plain_engine():
 
     fused_fft.sfft_fused = plain
     stream_fft._launch = stream_fft.stream_plain
+    rstream.launch = rstream_plain
     try:
         yield
     finally:
         fused_fft.sfft_fused = kernel
         stream_fft._launch = stream_launch
+        rstream.launch = rstream_launch
 
 
 @contextlib.contextmanager
@@ -104,14 +133,30 @@ def no_stream():
         stream_fft._MAX_M = cap
 
 
+@contextlib.contextmanager
+def no_rstream():
+    """Take K7 and K8 out of the dispatch (the half-length routes before
+    them: K3 at n/2 between deinterleave and merge passes), for timing
+    only."""
+    use, ok = core._use_rstream, dct_ops._dct4_stream_ok
+    core._use_rstream = lambda *a: False
+    dct_ops._dct4_stream_ok = lambda *a: False
+    try:
+        yield
+    finally:
+        core._use_rstream, dct_ops._dct4_stream_ok = use, ok
+
+
 def counts() -> dict:
-    return {"K1": fused_fft.launches, **stream_fft.launches}
+    return {"K1": fused_fft.launches, **stream_fft.launches,
+            **rstream.launches}
 
 
 def zero_counts() -> None:
     fused_fft.launches = 0
-    for k in stream_fft.launches:
-        stream_fft.launches[k] = 0
+    for d in (stream_fft.launches, rstream.launches):
+        for k in d:
+            d[k] = 0
 
 
 def drive(fn, total: dict):
@@ -188,7 +233,7 @@ def main() -> None:
           f"cudnn {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
     _build.load()
-    print(f"  K1-K4 built and loaded in {time.perf_counter() - t0:.2f} s "
+    print(f"  K1-K4, K7, K8 built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
     for line in _build.library_path().with_suffix(".log").read_text(
             ).splitlines():
@@ -249,6 +294,55 @@ def main() -> None:
                     (yr - pr).abs().max(), (yi - pi).abs().max())))
                 worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
     print(f"  worst vs plain {worst_p:.3e}, vs torch.fft {worst_o:.3e}")
+
+    # ---- phase 3b: K7 and K8 against their plain versions and torch.fft
+    # or scipy (float64 on the host; its unnormalised DCT types 2-4 are
+    # twice the cores' sums)
+    print("phase 3b: K7/K8 vs plain version, torch.fft and scipy")
+    rs_err = {"K7": 0.0, "K8": 0.0}
+    worst = {"plain": 0.0, "oracle": 0.0}
+
+    def hold(k, what, got, plain, want, scale=1.0):
+        """Kernel output against its plain version and an oracle; the
+        absolute error is taken on got / scale (irfft's output is n*x)."""
+        ep, eo = rel_err(got, plain), rel_err(got, want)
+        check(ep < 1e-5 and eo < 1e-5,
+              f"{k} {what}: vs plain {ep:.2e}, vs oracle {eo:.2e} < 1e-5")
+        rs_err[k] = max(rs_err[k], float((got - plain).abs().max()) / scale)
+        worst["plain"] = max(worst["plain"], ep)
+        worst["oracle"] = max(worst["oracle"], eo)
+
+    def host(a):
+        return torch.as_tensor(a, device=DEV)
+
+    for mm in RSTREAM_M:
+        n = 128 * mm
+        for b in (4, max(2, (1 << 22) // n // 2 * 2)):
+            x = real((b, n), torch.float32, seed=n + b)
+            xh = x.double().cpu().numpy()
+            yr, yi = rstream.launch("rfft", n, x)
+            hold("K7", f"rfft n={n} B={b}", torch.complex(yr, yi),
+                 torch.complex(*rstream_plain("rfft", n, x)),
+                 torch.fft.rfft(x.double()))
+            check(not bool(yi[:, 0].any()) and not bool(yi[:, -1].any()),
+                  "K7 rfft: imag(DC) and imag(Nyquist) exactly 0")
+            hold("K7", f"irfft n={n} B={b}", rstream.launch("irfft", n, yr, yi),
+                 rstream_plain("irfft", n, yr, yi), x.double() * n, scale=n)
+            for t in (2, 3):
+                mode = f"dct{t}"
+                hold("K7", f"{mode} n={n} B={b}", rstream.launch(mode, n, x),
+                     rstream_plain(mode, n, x),
+                     host(scipy.fft.dct(xh, t) / 2))
+            n4, b4 = 2 * n, max(1, b // 2)
+            x4 = real((b4, n4), torch.float32, seed=n4 + b4)
+            hold("K8", f"dct4 n={n4} B={b4}",
+                 rstream.launch("dct4", n4, x4,
+                                pre=dct_ops._tab("dct4", n4, x4)[:2],
+                                post=dct_ops._tab("dct4_post_perm", n4, x4)),
+                 rstream_plain("dct4", n4, x4),
+                 host(scipy.fft.dct(x4.double().cpu().numpy(), 4) / 2))
+    print(f"  worst vs plain {worst['plain']:.3e}, vs torch.fft/scipy "
+          f"{worst['oracle']:.3e}")
 
     # ---- the main path: each path runs with the counts zeroed just
     # before it and read just after; `total` sums them
@@ -427,11 +521,100 @@ def main() -> None:
           f"{float(np.abs(p32 - p64).max()):.3e}; f64 vs Black-Scholes "
           f"{float(np.abs(p64 - bs).max()):.3e}")
 
+    # ---- phase 12: rfft_split -> irfft_split at (64, 65536) through K7
+    print("phase 12: rfft_split -> irfft_split n=65536 batch=64 f32")
+    x = real((64, 65536), torch.float32, seed=20)
+    xh = x.double().cpu().numpy()
+    (yr, yi), got = drive(lambda: ct.rfft_split(x), total)
+    check(got["K7"] > 0 and got["K3"] == 0,
+          f"K7 launched by rfft_split, no K3 ({got})")
+    with plain_engine():
+        pr, pi = ct.rfft_split(x)
+    e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+    e_o = rel_err(torch.complex(yr, yi),
+                  torch.fft.rfft(x.double(), norm="forward"))
+    check(tuple(yr.shape) == (64, 32769) and bool(torch.isfinite(yr).all())
+          and bool(torch.isfinite(yi).all()), "output shape and finite")
+    check(not bool(yi[:, 0].any()) and not bool(yi[:, -1].any()),
+          "imag(DC) and imag(Nyquist) exactly 0")
+    check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
+    check(e_o < 1e-5, f"vs torch.fft {e_o:.2e} < 1e-5")
+    z, got = drive(lambda: ct.irfft_split(yr, yi, 65536), total)
+    check(got["K7"] > 0, f"K7 launched by irfft_split ({got})")
+    e_r = rel_err(z, x)
+    check(e_r < 1e-5, f"irfft_split(rfft_split(x)) vs x {e_r:.2e} < 1e-5")
+
+    def trig(name, fn, t, k, x, xh, bar=1e-5):
+        """fn(x, t, norm="ortho") through kernel k against the plain
+        engine and scipy (orthonormal, so no factor); returns it."""
+        y, got = drive(lambda: fn(x, t, norm="ortho"), total)
+        check(got[k] > 0, f"{k} launched by {name} type {t} ({got})")
+        with plain_engine():
+            want = fn(x, t, norm="ortho")
+        sp = getattr(scipy.fft, name)(xh, t, axis=-1, norm="ortho")
+        e_p, e_o = rel_err(y, want), rel_err(y, host(sp))
+        check(tuple(y.shape) == tuple(x.shape)
+              and bool(torch.isfinite(y).all()), "output shape and finite")
+        check(e_p < bar and e_o < bar,
+              f"{name} type {t}: vs plain {e_p:.2e}, vs scipy {e_o:.2e} "
+              f"< {bar:g}")
+        return y, got
+
+    # ---- phase 13: dct/idct types 2 and 3 at (64, 65536) through K7
+    for t in (2, 3):
+        print(f"phase 13: dct/idct type {t} n=65536 batch=64 f32 ortho")
+        y, got = trig("dct", ct.dct, t, "K7", x, xh)
+        check(got["K3"] == 0, f"no K3 ({got})")
+        z, _ = trig("idct", ct.idct, t, "K7", y, y.double().cpu().numpy())
+        e_r = rel_err(z, x)
+        check(e_r < 1e-5, f"idct(dct(x)) vs x {e_r:.2e} < 1e-5")
+
+    # ---- phase 14: dct and dst type 4 at (64, 65536) through K8
+    for name, fn in (("dct", ct.dct), ("dst", ct.dst)):
+        print(f"phase 14: {name} type 4 n=65536 batch=64 f32 ortho")
+        _, got = trig(name, fn, 4, "K8", x, xh)
+        check(got["K3"] == 0, f"no K3 ({got})")
+
+    # ---- phase 15: dst types 2 and 3 at (64, 65536) (K7 under the flips)
+    for t in (2, 3):
+        print(f"phase 15: dst type {t} n=65536 batch=64 f32 ortho")
+        trig("dst", ct.dst, t, "K7", x, xh)
+
+    # ---- phase 16: dct type 2 at (4096, 1024), K1 at 512
+    print("phase 16: dct type 2 n=1024 batch=4096 f32 ortho")
+    xb = real((4096, 1024), torch.float32, seed=21)
+    _, got = trig("dct", ct.dct, 2, "K1", xb, xb.double().cpu().numpy())
+    check(got["K7"] == 0, f"no K7 ({got})")
+
+    # ---- phase 17: dctn type 2 over (-2, -1) at (4, 1024, 1024)
+    print("phase 17: dctn type 2 axes=(-2, -1) shape (4, 1024, 1024) f32")
+    xn = real((4, 1024, 1024), torch.float32, seed=22)
+    y, got = drive(lambda: ct.dctn(xn, 2, axes=(-2, -1), norm="ortho"),
+                   total)
+    check(got["K1"] > 0, f"K1 launched by dctn ({got})")
+    with plain_engine():
+        want = ct.dctn(xn, 2, axes=(-2, -1), norm="ortho")
+    e_p = rel_err(y, want)
+    e_o = rel_err(y, host(scipy.fft.dctn(xn.double().cpu().numpy(), 2,
+                                         axes=(-2, -1), norm="ortho")))
+    check(tuple(y.shape) == (4, 1024, 1024) and bool(torch.isfinite(y).all()),
+          "output shape and finite")
+    check(e_p < 1e-5 and e_o < 1e-5,
+          f"vs plain {e_p:.2e}, vs scipy {e_o:.2e} < 1e-5")
+
+    # ---- phase 18: a float64 dct/idct type 2 round trip at (80, 16384)
+    print("phase 18: dct/idct type 2 n=16384 batch=80 f64 ortho")
+    x64 = real((80, 16384), torch.float64, seed=23)
+    y, _ = trig("dct", ct.dct, 2, "K1", x64, x64.cpu().numpy(), bar=1e-12)
+    z, _ = trig("idct", ct.idct, 2, "K1", y, y.cpu().numpy(), bar=1e-12)
+    e_r = rel_err(z, x64)
+    check(e_r < 1e-12, f"idct(dct(x)) vs x {e_r:.2e} < 1e-12")
+
     for k in KERNELS:
         check(total[k] > 0, f"main path launched {k} {total[k]} times")
 
-    # ---- phase 12: times (CUDA-event medians)
-    print("phase 12: times")
+    # ---- phase 19: times (CUDA-event medians)
+    print("phase 19: times")
     xr, xi = pair((4096, 1024), torch.float32, seed=7)
     k1_ms = median_ms(lambda: fused_fft.sfft_fused(xr, xi, 1024, False))
     plain_ms = median_ms(lambda: fused_fft.sfft_plain(xr, xi, 1024, False))
@@ -482,6 +665,28 @@ def main() -> None:
     rf_pricer_ms = median_ms(lambda: ct.rfilter_split(pay32, fr32, fi32))
     pricer_ms = median_ms(lambda: price(1 << 20, torch.float32), reps=5,
                           warm=1)
+    # K7 and K8 at (64, 65536) f32, and the routes they replace
+    n = 65536
+    yr, yi = rstream.launch("rfft", n, x)
+    rs_args = {"rfft": (x,), "irfft": (yr, yi), "dct2": (x,), "dct3": (x,)}
+    rs_ms, rs_plain_ms = {}, {}
+    for mode, args in rs_args.items():
+        rs_ms[mode] = median_ms(lambda: rstream.launch(mode, n, *args))
+        rs_plain_ms[mode] = median_ms(lambda: rstream_plain(mode, n, *args))
+    pre = dct_ops._tab("dct4", n, x)[:2]
+    post = dct_ops._tab("dct4_post_perm", n, x)
+    rs_ms["dct4"] = median_ms(lambda: rstream.launch("dct4", n, x, pre=pre,
+                                                     post=post))
+    rs_plain_ms["dct4"] = median_ms(lambda: rstream_plain("dct4", n, x))
+    route_ms = {}
+    for name, fn in (("rfft_split", lambda: ct.rfft_split(x)),
+                     ("dct type 2", lambda: ct.dct(x, 2)),
+                     ("dct type 4", lambda: ct.dct(x, 4))):
+        route_ms[name] = median_ms(fn)
+        with no_rstream():
+            route_ms[name + " half"] = median_ms(fn)
+    rfft_cufft_ms = median_ms(lambda: torch.fft.rfft(x, norm="forward"))
+    dct_bench_ms = median_ms(lambda: ct.dct(xb, 2))
     rows = [
         ("K1 sfft_fused (4096, 1024) f32", k1_ms),
         ("plain sfft_plain (4096, 1024) f32", plain_ms),
@@ -505,6 +710,21 @@ def main() -> None:
         ("rfilter_split half-length path (64, 65536) f32", rf_half_ms),
         ("rfilter_split stream path s=2 (80, 2^20) f32", rf_pricer_ms),
         ("conv_option_price 80 strikes n=2^20 f32 (whole call)", pricer_ms),
+        *[(f"K7 {md} (64, 65536) f32", rs_ms[md]) for md in rs_args],
+        *[(f"plain K7 {md} (64, 65536) f32", rs_plain_ms[md])
+          for md in rs_args],
+        ("K8 dct4 (64, 65536) f32", rs_ms["dct4"]),
+        ("plain K8 dct4 (64, 65536) f32", rs_plain_ms["dct4"]),
+        ("rfft_split K7 route (64, 65536) f32", route_ms["rfft_split"]),
+        ("rfft_split half-length route K3 (64, 65536) f32",
+         route_ms["rfft_split half"]),
+        ("cuFFT torch.fft.rfft (64, 65536) f32", rfft_cufft_ms),
+        ("dct type 2 K7 route (64, 65536) f32", route_ms["dct type 2"]),
+        ("dct type 2 half-length route K3 (64, 65536) f32",
+         route_ms["dct type 2 half"]),
+        ("dct type 4 K8 route (64, 65536) f32", route_ms["dct type 4"]),
+        ("dct type 4 K3 route (64, 65536) f32", route_ms["dct type 4 half"]),
+        ("dct type 2 K1 route (4096, 1024) f32", dct_bench_ms),
     ]
     for name, ms in rows:
         print(f"  time {name}: {ms:.4f} ms  [{card}]")
@@ -525,6 +745,18 @@ def main() -> None:
             "replaces": f"cfftpack_tpu/ops/pallas_stream.py:{line}",
             "launches": total[k], "max_abs_err": stream_err[k],
             "ms": st_ms[k], "plain_ms": st_plain_ms[k],
+        })
+    src = "cfftpack_tpu_torch/csrc/rstream_fft.cu"
+    for k, name, replaces, mode in (
+            ("K7", "rstream_fft rfft/irfft/dct2/dct3 (K7), times of rfft",
+             "cfftpack_tpu/ops/pallas_rstream.py:157", "rfft"),
+            ("K8", "rstream_fft dct4 (K8)", "cfftpack_tpu/ops/dct.py:285",
+             "dct4")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": total[k],
+            "max_abs_err": rs_err[k], "ms": rs_ms[mode],
+            "plain_ms": rs_plain_ms[mode],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
