@@ -15,6 +15,10 @@ norm           forward scale         inverse scale
 
 The JAX package's f64 routing policy exists because TPUs lack native
 f64; the card has it, so float64 runs natively here.
+
+Devices: the port runs on the card unless the caller asks for the CPU.
+:func:`resolve_device` is the one place that rule lives; a tensor the
+caller hands in keeps its own device.
 """
 from __future__ import annotations
 
@@ -67,3 +71,27 @@ def complex_dtype_of(dtype: torch.dtype) -> torch.dtype:
     if dtype in (torch.float64, torch.complex128):
         return torch.complex128
     return torch.complex64
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else
+    the card.  With no ``device`` and no card it raises; it never picks
+    the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False): "
+            "cfftpack_tpu_torch runs on the card by default; pass "
+            "device=\"cpu\" or CPU tensors to run on the CPU")
+    return torch.device("cuda")
+
+
+def as_tensor(x, like=None) -> torch.Tensor:
+    """``x`` as a tensor.  A tensor keeps its device; any other
+    array-like goes where ``like`` (a tensor) lives or, without one, to
+    the default device of :func:`resolve_device`."""
+    if isinstance(x, torch.Tensor):
+        return x
+    device = like.device if like is not None else resolve_device()
+    return torch.as_tensor(x, device=device)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .ops.rfft import irfft_split, rfft_split
 
 N = 960
@@ -24,13 +25,15 @@ def step(v, phi_r, phi_i):
     return irfft_split(tr, ti, v.shape[-1])  # back to payoff space
 
 
-def entry(device="cpu", batch: int = BATCH):
-    """(step, args): the step and its float32 inputs on ``device``.
+def entry(device=None, batch: int = BATCH):
+    """(step, args): the step and its float32 inputs on ``device`` (the
+    card unless the caller names another, ``config.resolve_device``).
 
     At the default batch the inputs are those of the JAX entry: v from
     ``np.random.default_rng(0).standard_normal((batch, 960))``, then
     the phases of phi from the same generator.
     """
+    device = resolve_device(device)
     r = np.random.default_rng(0)
     v = r.standard_normal((batch, N))
     ph = np.exp(1j * r.standard_normal(N // 2 + 1))

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..ops.rfft import rfilter_split
 from ..plan import fft_next_fast_even_size
 from .chfun import bs_cf, vg_cf
@@ -22,7 +23,7 @@ __all__ = ["conv_option_price", "conv_bsvg_option"]
 
 def conv_option_price(S, K, t, r, phi_fn, n: int = 1 << 14,
                       grid_sigma=None, is_call=True, mesh=None,
-                      batch_axis_name: str = "data", device="cpu",
+                      batch_axis_name: str = "data", device=None,
                       dtype: torch.dtype = torch.float64):
     """Price European options by FFT convolution.
 
@@ -31,13 +32,15 @@ def conv_option_price(S, K, t, r, phi_fn, n: int = 1 << 14,
     log-price increment over [0, t] including drift.
     ``grid_sigma`` sets the log-price grid width L = 20*sigma*sqrt(t)
     (the reference's rule of thumb, vargamma.c:52).  The transform runs
-    on ``device`` in ``dtype``.  ``mesh`` (a sharded strike ladder)
+    on ``device`` (the card unless the caller names another,
+    ``config.resolve_device``) in ``dtype``.  ``mesh`` (a sharded strike ladder)
     waits for the parallel layer's port.
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh: the parallel layer is not ported yet (ROADMAP.md "
             "queue 1, item 13)")
+    device = resolve_device(device)
     K = np.atleast_1d(np.asarray(K, dtype=np.float64))
     N = fft_next_fast_even_size(n)
     N2 = N // 2
@@ -64,7 +67,7 @@ def conv_option_price(S, K, t, r, phi_fn, n: int = 1 << 14,
 
 
 def conv_bsvg_option(n, S, K, sigma, theta, kappa, t, r,
-                     is_call=True, is_bs=True, device="cpu",
+                     is_call=True, is_bs=True, device=None,
                      dtype: torch.dtype = torch.float64):
     """Signature-compatible analog of the reference's conv_bsvg_option
     (vargamma.c:42): Black-Scholes or Variance-Gamma by flag."""

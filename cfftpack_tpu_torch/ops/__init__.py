@@ -1,4 +1,5 @@
-from .cfft import fft, ifft, fft_split, ifft_split  # noqa: F401
-from .rfft import (rfft, irfft, rfft_split, irfft_split,  # noqa: F401
-                   rfilter_split)
+from .cfft import (fft, ifft, fft2, ifft2, fftn, ifftn,  # noqa: F401
+                   fft_split, ifft_split, fft2_split, ifft2_split)
+from .rfft import (rfft, irfft, rfft2, irfft2, rfft_split,  # noqa: F401
+                   irfft_split, rfft2_split, irfft2_split, rfilter_split)
 from .dct import dct, idct, dst, idst, dctn, idctn, dstn, idstn  # noqa: F401

@@ -43,6 +43,10 @@ _STREAM_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
 _RSTREAM_ARGTYPES = ([_P] * 2 + [ctypes.c_longlong] + [_P] * 8
                      + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P] + [_P] * 4
                      + [_I] * 4 + [_P])
+# xr, xi, yr, yi, twr, twi, nstages, fac, off, phr, phi, w, b, n0, n1, mode,
+# lshift, scale, stream
+_COL_ARGTYPES = ([_P] * 6 + [_I, _P, _P] + [_P] * 3 + [_I] * 5
+                 + [ctypes.c_float, _P])
 
 
 def _nvcc() -> str:
@@ -106,7 +110,8 @@ def load() -> ctypes.CDLL:
     for name, types in (("cfft_stockham_f32", _K1_ARGTYPES),
                         ("cfft_stockham_f64", _K1_ARGTYPES),
                         ("stream_fft_f32", _STREAM_ARGTYPES),
-                        ("rstream_fft_f32", _RSTREAM_ARGTYPES)):
+                        ("rstream_fft_f32", _RSTREAM_ARGTYPES),
+                        ("col_fft_f32", _COL_ARGTYPES)):
         fn = getattr(lib, name)
         fn.argtypes = types
         fn.restype = ctypes.c_int

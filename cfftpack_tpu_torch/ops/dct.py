@@ -30,9 +30,9 @@ import functools
 import numpy as np
 import torch
 
-from ..config import DEFAULT_NORM, check_norm
+from ..config import DEFAULT_NORM, as_tensor, check_norm
 from .. import plan
-from . import core, fused_fft, rstream, stream_fft
+from . import colfft, core, fused_fft, rstream, stream_fft
 from .cfft import _apply_axis, _check_axis
 
 __all__ = ["dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn"]
@@ -483,7 +483,7 @@ def _check_type(t) -> int:
 def _prep_real(x):
     """A real floating tensor: complex input raises, integers become
     float64, floats narrower than 32 bits widen to float32."""
-    x = torch.as_tensor(x)
+    x = as_tensor(x)
     if x.is_complex():
         raise TypeError("DCT/DST require real input")
     if not x.dtype.is_floating_point:
@@ -493,9 +493,36 @@ def _prep_real(x):
     return x
 
 
+def _coldct_ok(x, n0: int) -> bool:
+    """K9's gate: float32 images, a leading axis whose flat image count
+    is even (two images pair into one complex column transform), and a
+    length the column kernel takes (even, as every such length is)."""
+    if x.dtype != torch.float32 or x.ndim < 3:
+        return False
+    if x.shape[:-2].numel() % 2:
+        return False
+    return colfft.colfft_eligible(n0, x.shape[-1], x.dtype)
+
+
+def _coldct(x, t: int, n: int, mode: int):
+    """DCT-II/III over axis -2 through K9, the norm's scale and ortho
+    row weights fused into the kernel: the ``2/n`` of the scaled modes,
+    the DCT-II output weight and the DCT-III input weight of ortho."""
+    if mode > 0:
+        return colfft.scoldct(x, t, scale=2.0 / n)
+    if mode == 0:
+        return colfft.scoldct(x, t, w=_tab("weights", n, x)[t - 2])
+    return colfft.scoldct(x, t)
+
+
 def _run(table, t: int, x, axis: int, mode: int):
     _check_axis(x, axis)
     n = x.shape[axis]
+    # the column route is the DCT's: the DST cores (flips and signs
+    # around the DCT's) keep the moved axis
+    if (table is _FWD and t in (2, 3) and axis % x.ndim == x.ndim - 2
+            and _coldct_ok(x, n)):
+        return _coldct(x, t, n, mode)
     return _apply_axis(x, axis, lambda v: table[t](v, n, mode))
 
 
@@ -544,9 +571,10 @@ def idst(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
 
 
 # ------------------------------------------------------------- N-D forms
-# Separable 1-D passes per axis.  Along axis -2 each pass moves the axis
-# last (``cfft._apply_axis``) until the column kernels (K6, K9) are
-# ported.
+# Separable 1-D passes per axis.  A DCT-II/III pass along axis -2 of an
+# even number of float32 images takes the column kernel K9 in the
+# natural layout (``_run``); every other pass moves its axis last
+# (``cfft._apply_axis``).
 
 def _norm_axes(x, axes):
     if axes is None:

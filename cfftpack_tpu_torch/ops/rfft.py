@@ -5,20 +5,25 @@ spectrum with imag(DC) == 0 and, for even n, imag(Nyquist) == 0, the
 reference's ``rfft_forward``/``rfft_inverse`` layout.  Scaling follows
 the complex path: the unscaled cores satisfy
 ``sirfft(srfft(x)) == n*x`` and the public API applies the norm.
-2-D real transforms are not ported yet.
+The 2-D forms run r2c along the last of their axes and a complex pass
+along the first, which for the trailing pair of float32 planes is K6 on
+the n1//2 + 1 packed columns as they stand (the kernel masks its last
+lane group, so the ragged width needs no pad).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import (DEFAULT_NORM, check_norm, complex_dtype_of, fwd_scale,
-                      inv_scale, real_dtype_of)
+from ..config import (DEFAULT_NORM, as_tensor, check_norm, complex_dtype_of,
+                      fwd_scale, inv_scale, real_dtype_of)
 from .. import plan
 from . import core, fused_fft, stream_fft
-from .cfft import _apply_axis, _as_real_plane, _check_axis
+from .cfft import (_apply_axis, _as_real_plane, _check_axis, _fft_impl,
+                   _fft_split_impl)
 
-__all__ = ["rfft", "irfft", "rfft_split", "irfft_split", "rfilter_split"]
+__all__ = ["rfft", "irfft", "rfft2", "irfft2", "rfft_split", "irfft_split",
+           "rfft2_split", "irfft2_split", "rfilter_split"]
 
 
 def rfft(x, axis: int = -1, norm: str = DEFAULT_NORM):
@@ -28,7 +33,7 @@ def rfft(x, axis: int = -1, norm: str = DEFAULT_NORM):
     ``rfft_forward``.  Any length n is supported.
     """
     norm = check_norm(norm)
-    x = _as_real_plane(torch.as_tensor(x), "rfft")
+    x = _as_real_plane(as_tensor(x), "rfft")
     _check_axis(x, axis)
     n = x.shape[axis]
 
@@ -51,7 +56,7 @@ def irfft(y, n: int, axis: int = -1, norm: str = DEFAULT_NORM):
     """
     norm = check_norm(norm)
     n = int(n)
-    y = torch.as_tensor(y)
+    y = as_tensor(y)
     _check_axis(y, axis)
     y = y.to(complex_dtype_of(y.dtype))
     if y.shape[axis] != n // 2 + 1:
@@ -67,12 +72,33 @@ def irfft(y, n: int, axis: int = -1, norm: str = DEFAULT_NORM):
     return x
 
 
+def rfft2(x, axes=(-2, -1), norm: str = DEFAULT_NORM):
+    """2-D real FFT -> (..., n0, n1//2+1) packed complex spectrum: r2c
+    along ``axes[1]``, then a complex FFT along ``axes[0]`` (the order
+    of the reference's ``rfft2f_``)."""
+    norm = check_norm(norm)
+    a0, a1 = (int(a) for a in axes)
+    return _fft_impl(rfft(x, a1, norm), a0, norm, inverse=False)
+
+
+def irfft2(y, s, axes=(-2, -1), norm: str = DEFAULT_NORM):
+    """Inverse 2-D real FFT; ``s = (n0, n1)`` is the real output shape."""
+    norm = check_norm(norm)
+    a0, a1 = (int(a) for a in axes)
+    n0, n1 = int(s[0]), int(s[1])
+    y = as_tensor(y)
+    if y.shape[a0] != n0:
+        raise ValueError(
+            f"irfft2: axis {a0} has {y.shape[a0]} bins, expected n0={n0}")
+    return irfft(_fft_impl(y, a0, norm, inverse=True), n1, a1, norm)
+
+
 # ------------------------------------------------- split (re, im) API
 
 def rfft_split(x, axis: int = -1, norm: str = DEFAULT_NORM):
     """r2c FFT returning an (re, im) pair of real tensors."""
     norm = check_norm(norm)
-    x = _as_real_plane(torch.as_tensor(x), "rfft_split")
+    x = _as_real_plane(as_tensor(x), "rfft_split")
     _check_axis(x, axis)
     n = x.shape[axis]
     yr, yi = core.srfft(x.movedim(axis, -1), n)
@@ -87,8 +113,8 @@ def irfft_split(yr, yi, n: int, axis: int = -1, norm: str = DEFAULT_NORM):
     """c2r inverse of an (re, im) packed-spectrum pair."""
     norm = check_norm(norm)
     n = int(n)
-    yr = torch.as_tensor(yr)
-    yi = torch.as_tensor(yi)
+    yr = as_tensor(yr)
+    yi = as_tensor(yi, like=yr)
     if yr.shape != yi.shape:
         raise ValueError("re/im shapes differ")
     yr = _as_real_plane(yr, "irfft_split")
@@ -104,6 +130,34 @@ def irfft_split(yr, yi, n: int, axis: int = -1, norm: str = DEFAULT_NORM):
     if s != 1.0:
         x = x * s
     return x.movedim(-1, axis)
+
+
+def rfft2_split(x, axes=(-2, -1), norm: str = DEFAULT_NORM):
+    """2-D real FFT -> (re, im) pair of shape (..., n0, n1//2+1), with
+    the row-column semantics of :func:`rfft2`."""
+    norm = check_norm(norm)
+    a0, a1 = (int(a) for a in axes)
+    yr, yi = rfft_split(x, a1, norm)
+    return _fft_split_impl(yr, yi, a0, norm, inverse=False)
+
+
+def irfft2_split(yr, yi, s, axes=(-2, -1), norm: str = DEFAULT_NORM):
+    """Inverse of :func:`rfft2_split`; ``s = (n0, n1)`` is the real
+    output shape (packed spectra are parity-ambiguous)."""
+    norm = check_norm(norm)
+    a0, a1 = (int(a) for a in axes)
+    n0, n1 = int(s[0]), int(s[1])
+    yr = as_tensor(yr)
+    yi = as_tensor(yi, like=yr)
+    if yr.shape[a0] != n0:
+        raise ValueError(f"irfft2_split: axis {a0} has {yr.shape[a0]} "
+                         f"bins, expected n0={n0}")
+    if yr.shape[a1] != n1 // 2 + 1:
+        raise ValueError(
+            f"irfft2_split: axis {a1} has {yr.shape[a1]} bins, expected "
+            f"n1//2+1 = {n1 // 2 + 1} for n1={n1}")
+    zr, zi = _fft_split_impl(yr, yi, a0, norm, inverse=True)
+    return irfft_split(zr, zi, n1, a1, norm)
 
 
 def _rfilter_tables(n: int):
@@ -198,10 +252,10 @@ def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
     real filter.
     """
     norm = check_norm(norm)
-    x = _as_real_plane(torch.as_tensor(x), "rfilter_split")
-    fr = _as_real_plane(torch.as_tensor(fr), "rfilter_split").to(
+    x = _as_real_plane(as_tensor(x), "rfilter_split")
+    fr = _as_real_plane(as_tensor(fr, like=x), "rfilter_split").to(
         dtype=x.dtype, device=x.device)
-    fi = _as_real_plane(torch.as_tensor(fi), "rfilter_split").to(
+    fi = _as_real_plane(as_tensor(fi, like=x), "rfilter_split").to(
         dtype=x.dtype, device=x.device)
     _check_axis(x, axis)
     n = x.shape[axis]

@@ -4,22 +4,28 @@
 
 Builds the CUDA kernels from the checkout (K1,
 ``cfftpack_tpu_torch/csrc/stockham_fft.cu``; K2, K3 and K4,
-``csrc/stream_fft.cu``; K7 and K8, ``csrc/rstream_fft.cu``), holds each
-against its plain PyTorch version and ``torch.fft`` or scipy at the
-main path's shapes, then drives the main path through the public entry
-points (the bench headline ``fft_split`` at n = 1024 x 4096, the
-flagship rfft -> multiply -> irfft step, the conv option pricer in
-float64 and in float32 at the 2^20 grid, Bluestein and four-step
-lengths, ``fft_split`` through the stream kernel at 65536 and its split
-at 2^20 and 2^21, the streaming filter, ``rfft_split``/``irfft_split``
-and the DCT/DST types 2-4 at (64, 65536), ``dct`` at (4096, 1024),
-``dctn`` at (4, 1024, 1024) and a float64 DCT round trip) and checks
-each result.  Each path runs with the launch counts set to 0 just before it
-and read just after.  Prints CUDA-event times of the kernels and their
-plain versions, one JSON line describing the kernels, and as its last
-line ``{"ok": true, "device": {...}}``.  Any failed check raises, so
-the run exits non-zero; without a CUDA card it exits non-zero before
-printing a result.
+``csrc/stream_fft.cu``; K7 and K8, ``csrc/rstream_fft.cu``; K6 and K9,
+``csrc/col_fft.cu``), holds each against its plain PyTorch version and
+``torch.fft`` or scipy at the main path's shapes, then drives the main
+path through the public entry points (the bench headline ``fft_split``
+at n = 1024 x 4096, the flagship rfft -> multiply -> irfft step, the
+conv option pricer in float64 and in float32 at the 2^20 grid,
+Bluestein and four-step lengths, ``fft_split`` through the stream
+kernel at 65536 and its split at 2^20 and 2^21, the streaming filter,
+``rfft_split``/``irfft_split`` and the DCT/DST types 2-4 at
+(64, 65536), ``dct`` at (4096, 1024), ``dctn`` at (4, 1024, 1024), a
+float64 DCT round trip, and the 2-D path through the column kernels:
+``fft2_split``/``ifft2_split`` at (4, 1024, 1024) and
+(64, 1024, 1024), complex ``fft2``, ``rfft2_split``/``irfft2_split``
+and ``dctn``/``idctn`` at (64, 1024, 1024)) and checks each result.
+Each path runs with the launch counts set to 0 just before it and read
+just after.  Prints CUDA-event times of the kernels, their plain
+versions and the PyTorch calls that compute the same functions, a
+profiler breakdown of the 2-D routes, one JSON line describing the
+kernels (each with its bound on this card), and as its last line
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
+exits non-zero; without a CUDA card it exits non-zero before printing a
+result.
 """
 from __future__ import annotations
 
@@ -38,8 +44,8 @@ import cfftpack_tpu_torch as ct
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
-from cfftpack_tpu_torch.ops import _build, core, fused_fft, stream_fft
-from cfftpack_tpu_torch.ops import rstream
+from cfftpack_tpu_torch.ops import _build, colfft, core, fused_fft
+from cfftpack_tpu_torch.ops import rstream, stream_fft
 
 # the modules, not the functions of the same names that ops exports
 rfft_ops = importlib.import_module("cfftpack_tpu_torch.ops.rfft")
@@ -59,7 +65,15 @@ STREAM_MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
 # phase 3b: K7 at n = 128*m and K8 at n = 2*128*m, m = 16, 48 (radix 3),
 # 80 (radix 5), 512, 4096
 RSTREAM_M = (16, 48, 80, 512, 4096)
-KERNELS = ("K1", "K2", "K3", "K4", "K7", "K8")
+# phase 3c: K6 and K9 at radix 3 and 5 lengths, the bench length and the
+# cap; n1 = 513 is the packed width of rfft2 at 1024
+COL_N0 = (16, 48, 80, 1024, 4096)
+COL_N1 = (128, 513, 1024)
+KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9")
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s
+# and float32 flop/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -97,12 +111,33 @@ def rstream_plain(mode, n, x, xi=None, pre=None, post=None):
     return fn(x.reshape(-1, n), n)
 
 
+def colfft_plain_launch(mode, x, xi=None, w=None, scale=1.0):
+    """The plain version of each K6/K9 mode, in ``colfft._launch``'s
+    contract."""
+    if mode in ("fwd", "inv"):
+        return colfft.colfft_plain(x, xi, mode == "inv", scale)
+    return colfft.coldct_plain(x, int(mode[-1]), w, scale)
+
+
+def bound_ms(nbytes: float, flops: float):
+    """The least time this card could take: the larger of the bytes over
+    its memory rate and the operations over its float32 rate, and which
+    of the two it is."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def fft_flops(count: float, n: int) -> float:
+    """5 n log2 n for each of ``count`` complex transforms of length n."""
+    return 5.0 * count * n * np.log2(n)
+
+
 @contextlib.contextmanager
 def plain_engine():
     """Run the transform path with the kernels' plain versions in place
     of the kernels, on the same card, for comparison and timing only."""
     kernel, stream_launch = fused_fft.sfft_fused, stream_fft._launch
-    rstream_launch = rstream.launch
+    rstream_launch, col_launch = rstream.launch, colfft._launch
 
     def plain(xr, xi, n, inverse):
         shape = xr.shape
@@ -113,12 +148,14 @@ def plain_engine():
     fused_fft.sfft_fused = plain
     stream_fft._launch = stream_fft.stream_plain
     rstream.launch = rstream_plain
+    colfft._launch = colfft_plain_launch
     try:
         yield
     finally:
         fused_fft.sfft_fused = kernel
         stream_fft._launch = stream_launch
         rstream.launch = rstream_launch
+        colfft._launch = col_launch
 
 
 @contextlib.contextmanager
@@ -147,14 +184,26 @@ def no_rstream():
         core._use_rstream, dct_ops._dct4_stream_ok = use, ok
 
 
+@contextlib.contextmanager
+def no_colfft():
+    """Take K6 and K9 out of the dispatch (the route before them: the
+    axis moved last around K1), for timing only."""
+    gate = colfft.colfft_eligible
+    colfft.colfft_eligible = lambda *a: False
+    try:
+        yield
+    finally:
+        colfft.colfft_eligible = gate
+
+
 def counts() -> dict:
     return {"K1": fused_fft.launches, **stream_fft.launches,
-            **rstream.launches}
+            **rstream.launches, **colfft.launches}
 
 
 def zero_counts() -> None:
     fused_fft.launches = 0
-    for d in (stream_fft.launches, rstream.launches):
+    for d in (stream_fft.launches, rstream.launches, colfft.launches):
         for k in d:
             d[k] = 0
 
@@ -205,6 +254,34 @@ def median_ms(fn, reps: int = 30, warm: int = 3) -> float:
     return float(np.median(times))
 
 
+def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
+    """torch.profiler over ``calls`` calls of fn after 3 warm-up calls:
+    device time per call by kernel (kernel rows only), the CUDA-event
+    time per call without the profiler, and the idle share
+    1 - kernel time / event time."""
+    from torch.profiler import ProfilerActivity, profile
+    event_ms = median_ms(fn, reps=calls, warm=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for k in prof.key_averages():
+        if k.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(k, "self_device_time_total", None)
+            if t is None:
+                t = k.self_cuda_time_total
+            rows[k.key] = t / calls
+    kern_us = sum(rows.values())
+    idle = 1.0 - kern_us / (event_ms * 1e3)
+    print(f"  profile {name}: {event_ms * 1e3:.1f} us per call, kernels "
+          f"{kern_us:.1f} us, idle {idle:.3f}  [{card}]")
+    for kname, us in sorted(rows.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {us:9.1f} us  {kname[:90]}")
+    return {"event_us": event_ms * 1e3, "kernel_us": kern_us, "idle": idle}
+
+
 def bs_closed_form(S, K, sigma, t, r):
     from scipy.special import ndtr
     d1 = (np.log(S / K) + t * (r + 0.5 * sigma * sigma)) / (sigma * np.sqrt(t))
@@ -233,7 +310,8 @@ def main() -> None:
           f"cudnn {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
     _build.load()
-    print(f"  K1-K4, K7, K8 built and loaded in {time.perf_counter() - t0:.2f} s "
+    print(f"  K1-K4, K6-K9 built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
     for line in _build.library_path().with_suffix(".log").read_text(
             ).splitlines():
@@ -341,6 +419,57 @@ def main() -> None:
                                 post=dct_ops._tab("dct4_post_perm", n4, x4)),
                  rstream_plain("dct4", n4, x4),
                  host(scipy.fft.dct(x4.double().cpu().numpy(), 4) / 2))
+    print(f"  worst vs plain {worst['plain']:.3e}, vs torch.fft/scipy "
+          f"{worst['oracle']:.3e}")
+
+    # ---- phase 3c: K6 and K9 against their plain versions, torch.fft
+    # over dim -2 (complex128) and scipy over axis -2 (float64 on the
+    # host; its unnormalised DCT types 2-3 are twice the cores' sums)
+    print("phase 3c: K6/K9 vs plain version, torch.fft and scipy")
+    col_err = {"K6": 0.0, "K9": 0.0}
+    worst = {"plain": 0.0, "oracle": 0.0}
+
+    def hold_col(k, what, got, plain, want):
+        ep, eo = rel_err(got, plain), rel_err(got, want)
+        check(ep < 1e-5 and eo < 1e-5,
+              f"{k} {what}: vs plain {ep:.2e}, vs oracle {eo:.2e} < 1e-5")
+        col_err[k] = max(col_err[k], float((got - plain).abs().max()))
+        worst["plain"] = max(worst["plain"], ep)
+        worst["oracle"] = max(worst["oracle"], eo)
+
+    for n0 in COL_N0:
+        for n1 in COL_N1:
+            xr, xi = pair((3, n0, n1), torch.float32, seed=n0 + n1)
+            ref = torch.fft.fft(torch.complex(xr.double(), xi.double()),
+                                dim=-2)
+            iref = torch.fft.ifft(torch.complex(xr.double(), xi.double()),
+                                  dim=-2) * n0
+            for inv, scale, want in ((False, 1.0, ref), (True, 1.0, iref),
+                                     (False, 0.25, ref * 0.25)):
+                yr, yi = colfft.scolfft(xr, xi, inv, scale)
+                pr, pi = colfft.colfft_plain(xr, xi, inv, scale)
+                torch.cuda.synchronize()
+                hold_col("K6", f"n0={n0} n1={n1} b=3 inv={inv} scale={scale}",
+                         torch.complex(yr, yi), torch.complex(pr, pi), want)
+            for b in (2, 6):
+                x = real((b, n0, n1), torch.float32, seed=n0 + n1 + b)
+                xh = x.double().cpu().numpy()
+                for t, plain in ((2, colfft.coldct2_plain),
+                                 (3, colfft.coldct3_plain)):
+                    y = colfft.scoldct(x, t)
+                    torch.cuda.synchronize()
+                    hold_col("K9", f"dct{t} n0={n0} n1={n1} b={b}", y,
+                             plain(x, n0),
+                             host(scipy.fft.dct(xh, t, axis=-2, workers=8)
+                                  / 2))
+    # the fused row weight and scale (the ortho norms' path)
+    x = real((2, 1024, 513), torch.float32, seed=31)
+    w = torch.rand(1024, device=DEV) + 0.5
+    for t in (2, 3):
+        hold_col("K9", f"dct{t} n0=1024 n1=513 with row weight and scale",
+                 colfft.scoldct(x, t, w, 0.125),
+                 colfft.coldct_plain(x, t, w, 0.125),
+                 colfft.coldct_plain(x.double(), t, w.double(), 0.125))
     print(f"  worst vs plain {worst['plain']:.3e}, vs torch.fft/scipy "
           f"{worst['oracle']:.3e}")
 
@@ -591,7 +720,8 @@ def main() -> None:
     xn = real((4, 1024, 1024), torch.float32, seed=22)
     y, got = drive(lambda: ct.dctn(xn, 2, axes=(-2, -1), norm="ortho"),
                    total)
-    check(got["K1"] > 0, f"K1 launched by dctn ({got})")
+    check(got["K1"] > 0 and got["K9"] > 0,
+          f"K1 (axis -1) and K9 (axis -2) launched by dctn ({got})")
     with plain_engine():
         want = ct.dctn(xn, 2, axes=(-2, -1), norm="ortho")
     e_p = rel_err(y, want)
@@ -609,6 +739,119 @@ def main() -> None:
     z, _ = trig("idct", ct.idct, 2, "K1", y, y.cpu().numpy(), bar=1e-12)
     e_r = rel_err(z, x64)
     check(e_r < 1e-12, f"idct(dct(x)) vs x {e_r:.2e} < 1e-12")
+
+    # ---- phase 20: fft2_split -> ifft2_split through K6 (axis -2) and
+    # K1 (axis -1) at the candidate bench cell and at 64 images
+    for b in (4, 64):
+        print(f"phase 20: fft2_split -> ifft2_split shape ({b}, 1024, 1024) "
+              f"f32 ortho")
+        xr, xi = pair((b, 1024, 1024), torch.float32, seed=40 + b)
+        (yr, yi), got = drive(lambda: ct.fft2_split(xr, xi, norm="ortho"),
+                              total)
+        check(got["K6"] > 0 and got["K1"] > 0,
+              f"K6 and K1 launched by fft2_split ({got})")
+        with plain_engine():
+            pr, pi = ct.fft2_split(xr, xi, norm="ortho")
+        e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+        del pr, pi
+        e_o = rel_err(torch.complex(yr, yi), torch.fft.fft2(
+            torch.complex(xr.double(), xi.double()), norm="ortho"))
+        check(tuple(yr.shape) == (b, 1024, 1024)
+              and bool(torch.isfinite(yr).all())
+              and bool(torch.isfinite(yi).all()), "output shape and finite")
+        check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
+        check(e_o < 1e-5, f"vs torch.fft.fft2 {e_o:.2e} < 1e-5")
+        (zr, zi), got = drive(lambda: ct.ifft2_split(yr, yi, norm="ortho"),
+                              total)
+        check(got["K6"] > 0 and got["K1"] > 0,
+              f"K6 and K1 launched by ifft2_split ({got})")
+        e_r = rel_err(torch.complex(zr, zi), torch.complex(xr, xi))
+        check(e_r < 1e-5, f"ifft2_split(fft2_split(x)) vs x {e_r:.2e} < 1e-5")
+        del yr, yi, zr, zi
+
+    # ---- phase 21: complex fft2 reaches the same kernels
+    print("phase 21: fft2 shape (4, 1024, 1024) complex64 backward")
+    xc = torch.complex(*pair((4, 1024, 1024), torch.float32, seed=45))
+    y, got = drive(lambda: ct.fft2(xc, norm="backward"), total)
+    check(got["K6"] > 0 and got["K1"] > 0,
+          f"K6 and K1 launched by fft2 ({got})")
+    e_o = rel_err(y, torch.fft.fft2(xc.to(torch.complex128)))
+    check(y.dtype == torch.complex64 and tuple(y.shape) == (4, 1024, 1024)
+          and bool(torch.isfinite(y.real).all()),
+          "output dtype, shape, finite")
+    check(e_o < 1e-5, f"vs torch.fft.fft2 {e_o:.2e} < 1e-5")
+    print("phase 21: fft2 shape (4, 512, 512) complex128 backward")
+    xz = torch.complex(*pair((4, 512, 512), torch.float64, seed=46))
+    y, got = drive(lambda: ct.fft2(xz, norm="backward"), total)
+    check(got["K6"] == 0 and got["K1"] > 0,
+          f"float64 keeps the moved axis: K1, no K6 ({got})")
+    e_o = rel_err(y, torch.fft.fft2(xz))
+    check(e_o < 1e-12, f"vs torch.fft.fft2 {e_o:.2e} < 1e-12")
+    del xc, xz, y
+
+    # ---- phase 22: rfft2_split -> irfft2_split, K6 on the 513 packed
+    # columns
+    print("phase 22: rfft2_split -> irfft2_split shape (64, 1024, 1024) f32")
+    x2 = real((64, 1024, 1024), torch.float32, seed=47)
+    (yr, yi), got = drive(lambda: ct.rfft2_split(x2, norm="ortho"), total)
+    check(got["K6"] > 0 and got["K1"] > 0,
+          f"K6 and K1 launched by rfft2_split ({got})")
+    with plain_engine():
+        pr, pi = ct.rfft2_split(x2, norm="ortho")
+    e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+    del pr, pi
+    e_o = rel_err(torch.complex(yr, yi),
+                  torch.fft.rfft2(x2.double(), norm="ortho"))
+    check(tuple(yr.shape) == (64, 1024, 513)
+          and bool(torch.isfinite(yr).all())
+          and bool(torch.isfinite(yi).all()), "output shape and finite")
+    check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
+    check(e_o < 1e-5, f"vs torch.fft.rfft2 {e_o:.2e} < 1e-5")
+    z, got = drive(lambda: ct.irfft2_split(yr, yi, (1024, 1024),
+                                           norm="ortho"), total)
+    check(got["K6"] > 0 and got["K1"] > 0,
+          f"K6 and K1 launched by irfft2_split ({got})")
+    e_r = rel_err(z, x2)
+    check(e_r < 1e-5, f"irfft2_split(rfft2_split(x)) vs x {e_r:.2e} < 1e-5")
+    del yr, yi, z
+
+    # ---- phase 23: dctn -> idctn type 2 at 64 images through K9
+    print("phase 23: dctn -> idctn type 2 axes=(-2, -1) shape "
+          "(64, 1024, 1024) f32 ortho")
+    y, got = drive(lambda: ct.dctn(x2, 2, axes=(-2, -1), norm="ortho"),
+                   total)
+    check(got["K9"] > 0 and got["K1"] > 0,
+          f"K9 and K1 launched by dctn ({got})")
+    with plain_engine():
+        want = ct.dctn(x2, 2, axes=(-2, -1), norm="ortho")
+    e_p = rel_err(y, want)
+    del want
+    e_o = rel_err(y, host(scipy.fft.dctn(x2.double().cpu().numpy(), 2,
+                                         axes=(-2, -1), norm="ortho",
+                                         workers=8)))
+    check(tuple(y.shape) == (64, 1024, 1024)
+          and bool(torch.isfinite(y).all()), "output shape and finite")
+    check(e_p < 1e-5 and e_o < 1e-5,
+          f"vs plain {e_p:.2e}, vs scipy {e_o:.2e} < 1e-5")
+    z, got = drive(lambda: ct.idctn(y, 2, axes=(-2, -1), norm="ortho"),
+                   total)
+    check(got["K9"] > 0 and got["K1"] > 0,
+          f"K9 and K1 launched by idctn ({got})")
+    e_r = rel_err(z, x2)
+    check(e_r < 1e-5, f"idctn(dctn(x)) vs x {e_r:.2e} < 1e-5")
+    del y, z
+
+    # ---- phase 24: dstn keeps the moved axis (the column route is the
+    # DCT's)
+    print("phase 24: dstn type 2 axes=(-2, -1) shape (4, 1024, 1024) f32")
+    y, got = drive(lambda: ct.dstn(xn, 2, axes=(-2, -1), norm="ortho"),
+                   total)
+    check(got["K9"] == 0 and got["K6"] == 0 and got["K1"] > 0,
+          f"no K9 or K6 under dstn ({got})")
+    e_o = rel_err(y, host(scipy.fft.dstn(xn.double().cpu().numpy(), 2,
+                                         axes=(-2, -1), norm="ortho")))
+    check(e_o < 1e-5, f"vs scipy {e_o:.2e} < 1e-5")
+    del y
 
     for k in KERNELS:
         check(total[k] > 0, f"main path launched {k} {total[k]} times")
@@ -647,6 +890,7 @@ def main() -> None:
         fs_four_ms = median_ms(lambda: ct.fft_split(xr, xi, norm="ortho"))
     xc = torch.complex(xr, xi)
     fs_cufft_ms = median_ms(lambda: torch.fft.fft(xc, norm="ortho"))
+    k3_cufft_ms = median_ms(lambda: torch.fft.fft(xc))
     xs, ys = pair((8, 1 << 20), torch.float32, seed=15)
     split_ms = median_ms(lambda: ct.fft_split(xs, ys), reps=10)
     xs, ys = pair((4, 1 << 21), torch.float32, seed=16)
@@ -686,7 +930,70 @@ def main() -> None:
         with no_rstream():
             route_ms[name + " half"] = median_ms(fn)
     rfft_cufft_ms = median_ms(lambda: torch.fft.rfft(x, norm="forward"))
+    yc = torch.complex(yr, yi)
+    irfft_cufft_ms = median_ms(lambda: torch.fft.irfft(yc, n=n))
+    del yc
     dct_bench_ms = median_ms(lambda: ct.dct(xb, 2))
+    # K6 and K9, and the 2-D routes with and without them
+    col_shapes = ((4, 1024, 1024), (64, 1024, 1024), (4, 4096, 1024))
+    col_ms, col_plain_ms, col_lib_ms = {}, {}, {}
+    for shape in col_shapes:
+        cr, ci = pair(shape, torch.float32, seed=50 + shape[0])
+        col_ms[shape] = median_ms(lambda: colfft.scolfft(cr, ci))
+        col_plain_ms[shape] = median_ms(
+            lambda: colfft.colfft_plain(cr, ci), reps=5, warm=1)
+        cc = torch.complex(cr, ci)
+        col_lib_ms[shape] = median_ms(lambda: torch.fft.fft(cc, dim=-2))
+        del cr, ci, cc
+    # K6 at other lane counts than the rule's (colfft._col_lanes)
+    lane_ms = {}
+    rule = colfft._col_lanes
+    for shape, lanes in (((64, 1024, 1024), (2, 4, 8)),
+                         ((64, 512, 1024), (4, 8, 16)),
+                         ((16, 4096, 1024), (1, 2))):
+        cr, ci = pair(shape, torch.float32, seed=55)
+        for L in lanes:
+            colfft._col_lanes = lambda n0, n1, L=L: L
+            try:
+                lane_ms[shape, L] = median_ms(lambda: colfft.scolfft(cr, ci))
+            finally:
+                colfft._col_lanes = rule
+        del cr, ci
+    k9_ms = {t: median_ms(lambda: colfft.scoldct(x2, t)) for t in (2, 3)}
+    k9_plain_ms = {
+        2: median_ms(lambda: colfft.coldct2_plain(x2, 1024), reps=5, warm=1),
+        3: median_ms(lambda: colfft.coldct3_plain(x2, 1024), reps=5, warm=1)}
+    two_d = {}
+
+    def route(name, fn, library=None):
+        """fn through the column kernels, with them out of the dispatch
+        (the moved-axis route), and the PyTorch call beside it."""
+        two_d[f"{name} f32 ortho, column route (K6/K9)"] = median_ms(
+            fn, reps=15)
+        with no_colfft():
+            two_d[f"{name} f32 ortho, moved-axis route (no K6/K9)"] = (
+                median_ms(fn, reps=15))
+        if library is not None:
+            two_d[f"{name} ortho, cuFFT through torch.fft"] = median_ms(
+                library, reps=15)
+
+    # 4 and 64 images of 1024 x 1024, and smaller images for the crossover
+    # with the moved-axis route
+    for shape in ((4, 1024, 1024), (64, 1024, 1024), (4, 256, 256),
+                  (64, 256, 256), (4, 64, 64)):
+        fr2, fi2 = pair(shape, torch.float32, seed=60 + shape[0])
+        fc2 = torch.complex(fr2, fi2)
+        route(f"fft2_split {shape}",
+              lambda: ct.fft2_split(fr2, fi2, norm="ortho"),
+              lambda: torch.fft.fft2(fc2, norm="ortho"))
+        del fr2, fi2, fc2
+    route("rfft2_split (64, 1024, 1024)",
+          lambda: ct.rfft2_split(x2, norm="ortho"),
+          lambda: torch.fft.rfft2(x2, norm="ortho"))
+    route("dctn type 2 (64, 1024, 1024)",
+          lambda: ct.dctn(x2, 2, axes=(-2, -1), norm="ortho"))
+    route("dctn type 2 (4, 1024, 1024)",
+          lambda: ct.dctn(xn, 2, axes=(-2, -1), norm="ortho"))
     rows = [
         ("K1 sfft_fused (4096, 1024) f32", k1_ms),
         ("plain sfft_plain (4096, 1024) f32", plain_ms),
@@ -725,39 +1032,91 @@ def main() -> None:
         ("dct type 4 K8 route (64, 65536) f32", route_ms["dct type 4"]),
         ("dct type 4 K3 route (64, 65536) f32", route_ms["dct type 4 half"]),
         ("dct type 2 K1 route (4096, 1024) f32", dct_bench_ms),
+        ("cuFFT torch.fft.fft (64, 65536) complex64", k3_cufft_ms),
+        ("cuFFT torch.fft.irfft (64, 65536) complex64", irfft_cufft_ms),
+        *[(f"K6 scolfft {sh} f32", col_ms[sh]) for sh in col_shapes],
+        *[(f"plain K6 colfft_plain {sh} f32", col_plain_ms[sh])
+          for sh in col_shapes],
+        *[(f"cuFFT torch.fft.fft dim=-2 {sh} complex64", col_lib_ms[sh])
+          for sh in col_shapes],
+        *[(f"K6 scolfft {sh} f32 at {L} lanes a block (the rule takes "
+           f"{rule(sh[1], sh[2])})", ms) for (sh, L), ms in lane_ms.items()],
+        *[(f"K9 dct{t} (64, 1024, 1024) f32", k9_ms[t]) for t in (2, 3)],
+        *[(f"plain K9 dct{t} (64, 1024, 1024) f32", k9_plain_ms[t])
+          for t in (2, 3)],
     ]
+    rows.extend(two_d.items())
     for name, ms in rows:
         print(f"  time {name}: {ms:.4f} ms  [{card}]")
 
+    # ---- phase 25: where the 2-D routes' time goes (torch.profiler)
+    print("phase 25: profile of the 2-D routes at (64, 1024, 1024) f32")
+    fr2, fi2 = pair((64, 1024, 1024), torch.float32, seed=70)
+    for name, fn in (
+            ("fft2_split", lambda: ct.fft2_split(fr2, fi2, norm="ortho")),
+            ("dctn type 2", lambda: ct.dctn(x2, 2, axes=(-2, -1),
+                                            norm="ortho"))):
+        profile_route(f"{name} column route", fn, card)
+        with no_colfft():
+            profile_route(f"{name} moved-axis route", fn, card)
+    del fr2, fi2
+
+    # each kernel's bound at the shape its times were taken at: every
+    # input read once and every output written once (the data planes; the
+    # twiddle and phase tables are under 1% of them) and 5 n log2 n
+    # flops a complex transform
+    big = 64 * 65536
+    stream_bound = bound_ms(16 * big, fft_flops(64, 65536))
+    col_big = (64, 1024, 1024)
     src = "cfftpack_tpu_torch/csrc/stream_fft.cu"
-    kernels = [{
-        "name": "stockham_fft (K1)", "route": "cuda",
-        "source": "cfftpack_tpu_torch/csrc/stockham_fft.cu",
-        "replaces": "cfftpack_tpu/ops/pallas_fft.py:90",
-        "launches": total["K1"], "max_abs_err": kern_err,
-        "ms": k1_ms, "plain_ms": plain_ms,
-    }]
+
+    def entry_of(name, source, replaces, k, err, ms, plain, bound, library):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": total[k],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library}
+
+    kernels = [entry_of(
+        "stockham_fft (K1)", "cfftpack_tpu_torch/csrc/stockham_fft.cu",
+        "cfftpack_tpu/ops/pallas_fft.py:90", "K1", kern_err, k1_ms, plain_ms,
+        bound_ms(16 * 4096 * 1024, fft_flops(4096, 1024)), cufft_ms)]
     for k, name, line in (("K2", "stream_fft fwd/inv (K2)", 352),
                           ("K3", "stream_fft fwd_nat/inv_nat (K3)", 386),
                           ("K4", "stream_fft filter (K4)", 444)):
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": f"cfftpack_tpu/ops/pallas_stream.py:{line}",
-            "launches": total[k], "max_abs_err": stream_err[k],
-            "ms": st_ms[k], "plain_ms": st_plain_ms[k],
-        })
+        kernels.append(entry_of(
+            name, src, f"cfftpack_tpu/ops/pallas_stream.py:{line}", k,
+            stream_err[k], st_ms[k], st_plain_ms[k], stream_bound,
+            k3_cufft_ms if k == "K3" else None))
     src = "cfftpack_tpu_torch/csrc/rstream_fft.cu"
-    for k, name, replaces, mode in (
+    # K7 pairs rows: 32 complex transforms of 65536; K8 runs 64 of 32768
+    for k, name, replaces, mode, bound, library in (
             ("K7", "rstream_fft rfft/irfft/dct2/dct3 (K7), times of rfft",
-             "cfftpack_tpu/ops/pallas_rstream.py:157", "rfft"),
+             "cfftpack_tpu/ops/pallas_rstream.py:157", "rfft",
+             bound_ms(4 * big + 8 * 64 * 32769, fft_flops(32, 65536)),
+             rfft_cufft_ms),
             ("K8", "rstream_fft dct4 (K8)", "cfftpack_tpu/ops/dct.py:285",
-             "dct4")):
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": total[k],
-            "max_abs_err": rs_err[k], "ms": rs_ms[mode],
-            "plain_ms": rs_plain_ms[mode],
-        })
+             "dct4", bound_ms(8 * big, fft_flops(64, 32768)), None)):
+        kernels.append(entry_of(name, src, replaces, k, rs_err[k],
+                                rs_ms[mode], rs_plain_ms[mode], bound,
+                                library))
+    src = "cfftpack_tpu_torch/csrc/col_fft.cu"
+    cols = 64 * 1024                    # columns of (64, 1024, 1024)
+    kernels.append(entry_of(
+        "col_fft fwd/inv (K6)", src, "cfftpack_tpu/ops/pallas_colfft.py:122",
+        "K6", col_err["K6"], col_ms[col_big], col_plain_ms[col_big],
+        bound_ms(16 * cols * 1024, fft_flops(cols, 1024)),
+        col_lib_ms[col_big]))
+    kernels.append(entry_of(
+        "col_fft dct2/dct3 (K9), times of dct2", src,
+        "cfftpack_tpu/ops/dct.py:569", "K9", col_err["K9"], k9_ms[2],
+        k9_plain_ms[2], bound_ms(8 * cols * 1024, fft_flops(cols // 2, 1024)),
+        None))
+    kernels.sort(key=lambda e: int(e["name"].split("(K")[1].split(")")[0]))
+    for e in kernels:
+        print(f"  bound {e['name']}: {e['bound_ms']:.4f} ms by "
+              f"{e['bound_by']}, kernel {e['ms']:.4f} ms "
+              f"({e['bound_ms'] / e['ms']:.2f} of the bound's rate)  [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

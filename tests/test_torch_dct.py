@@ -2,7 +2,7 @@
 library's golden vectors.
 
 The same seeded numpy inputs go through ``cfftpack_tpu`` (CPU, x64) and
-``cfftpack_tpu_torch`` (CPU tensors: K1's, K3's and K7/K8's plain
+``cfftpack_tpu_torch`` (CPU tensors: K1's, K3's, K7/K8's and K9's plain
 versions).  Bars: 1e-12 of max |X| in float64, 1e-4 in float32
 (torch_parity.BARS); the golden vectors at tests/test_golden.py's
 tolerances.
@@ -26,6 +26,7 @@ from torch_parity import bar, real_input, rel_err, to_np
 
 jdct = importlib.import_module("cfftpack_tpu.ops.dct")
 pdct = importlib.import_module("cfftpack_tpu_torch.ops.dct")
+pcol = importlib.import_module("cfftpack_tpu_torch.ops.colfft")
 
 torch.set_num_threads(1)
 
@@ -225,6 +226,81 @@ def test_dst_along_axis_minus_2_is_the_dst(inverse):
     assert rel_err(got, dct) > 0.1                 # not the DCT
 
 
+# ------------------------------------------------- the column route (K9)
+
+def _spy_cores(monkeypatch):
+    """Record each call of K9's plain cores by name."""
+    calls = []
+    for name in ("coldct2_plain", "coldct3_plain"):
+        real = getattr(pcol, name)
+
+        def spy(x, n, name=name, real=real):
+            calls.append(name)
+            return real(x, n)
+
+        monkeypatch.setattr(pcol, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("norm", NORMS)
+@pytest.mark.parametrize("t", [2, 3])
+def test_axis_minus_2_takes_the_column_route(monkeypatch, t, norm):
+    """dct/idct types 2 and 3 along axis -2 of (2, 64, 128) float32 run
+    K9's plain core and equal the last-axis result on the transposed
+    input (5e-6 of max |X|, the bar of the reference's own test)."""
+    calls = _spy_cores(monkeypatch)
+    x = torch.as_tensor(real_input((2, 64, 128), np.float32, seed=71))
+    xt = x.transpose(-1, -2).contiguous()
+    got = pt.dct(x, t, axis=-2, norm=norm)
+    want = pt.dct(xt, t, axis=-1, norm=norm).transpose(-1, -2)
+    assert calls == [f"coldct{t}_plain"]
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) / scale < 5e-6
+    ref = np.asarray(jt.dct(x.numpy(), t, axis=-2, norm=norm))
+    assert rel_err(got, ref) < 1e-4
+    back = pt.idct(got, t, axis=-2, norm=norm)
+    assert calls == [f"coldct{t}_plain", f"coldct{5 - t}_plain"]
+    assert float((back - x).abs().max()) < 5e-5
+
+
+@pytest.mark.parametrize("t", [2, 3])
+def test_dctn_round_trip_takes_the_column_route(monkeypatch, t):
+    calls = _spy_cores(monkeypatch)
+    x = torch.as_tensor(real_input((2, 3, 48, 40), np.float32, seed=t))
+    y = pt.dctn(x, t, axes=(-2, -1), norm="ortho")
+    want = np.asarray(jt.dctn(x.numpy(), t, axes=(-2, -1), norm="ortho"))
+    assert rel_err(y, want) < 1e-4
+    back = pt.idctn(y, t, axes=(-2, -1), norm="ortho")
+    assert rel_err(back, x) < 1e-4
+    assert sorted(calls) == ["coldct2_plain", "coldct3_plain"]
+
+
+@pytest.mark.parametrize("shape,dt", [((3, 64, 32), np.float32),    # odd count
+                                      ((64, 32), np.float32),       # no batch
+                                      ((2, 24, 32), np.float32),    # n0 = 24
+                                      ((2, 64, 32), np.float64)])
+def test_other_shapes_keep_the_moved_axis(monkeypatch, shape, dt):
+    calls = _spy_cores(monkeypatch)
+    x = torch.as_tensor(real_input(shape, dt, seed=3))
+    got = pt.dct(x, 2, axis=-2, norm="ortho")
+    want = pt.dct(x.transpose(-1, -2), 2, axis=-1, norm="ortho")
+    assert calls == []
+    assert rel_err(got, want.transpose(-1, -2)) < bar(dt)
+    assert not pdct._coldct_ok(x, x.shape[-2])
+
+
+def test_dst_and_other_types_stay_off_the_column_route(monkeypatch):
+    calls = _spy_cores(monkeypatch)
+    x = torch.as_tensor(real_input((2, 64, 32), np.float32, seed=4))
+    assert pdct._coldct_ok(x, 64)
+    pt.dst(x, 2, axis=-2)
+    pt.idst(x, 3, axis=-2)
+    pt.dct(x, 4, axis=-2)
+    pt.dct(x, 1, axis=-2)
+    pt.dct(x, 2, axis=0)
+    assert calls == []
+
+
 # ------------------------------------------------- the API's edges
 
 def test_errors():
@@ -250,11 +326,11 @@ def test_errors():
 
 def test_input_promotion():
     xi = np.arange(12).reshape(2, 6)
-    got = pt.dct(xi)
+    got = pt.dct(torch.as_tensor(xi))
     assert got.dtype == torch.float64
     assert rel_err(got, np.asarray(jt.dct(xi))) < 1e-12
     assert pt.dst(torch.ones(6, dtype=torch.float16)).dtype == torch.float32
-    y = pt.dct(xi.astype(np.float32))
+    y = pt.dct(torch.as_tensor(xi.astype(np.float32)))
     assert y.dtype == torch.float32 and y.shape == (2, 6)
 
 
@@ -262,7 +338,8 @@ def test_exports_match_reference():
     names = ("dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn")
     for name in names:
         assert callable(getattr(pt, name)) and hasattr(jt, name)
-    code = ("import sys, cfftpack_tpu_torch as pt; pt.dct([1.0, 2.0]); "
+    code = ("import sys, torch, cfftpack_tpu_torch as pt; "
+            "pt.dct(torch.tensor([1.0, 2.0])); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'cfftpack_tpu.'))]; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,6 +1,7 @@
 """The slice end to end: the flagship step and the conv pricer against
-the JAX package, that importing the port leaves JAX out, and that CPU
-runs never launch the kernel."""
+the JAX package, that importing the port leaves JAX out, that CPU runs
+never launch the kernel, and that the entry points run on the card
+unless the caller asks for the CPU."""
 import subprocess
 import sys
 from pathlib import Path
@@ -15,10 +16,12 @@ from cfftpack_tpu.models import (bs_cf as j_bs_cf,
                                  conv_bsvg_option as j_conv_bsvg_option,
                                  conv_option_price as j_conv_option_price)
 
+import cfftpack_tpu_torch as pt
+from cfftpack_tpu_torch.config import resolve_device
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
-from cfftpack_tpu_torch.ops import fused_fft, stream_fft
+from cfftpack_tpu_torch.ops import colfft, fused_fft, stream_fft
 
 from torch_parity import rel_err, to_np
 
@@ -46,7 +49,7 @@ def test_conv_option_price_matches_reference():
         return bs_cf(u, 0.25, 0.2, 0.03)
 
     got = conv_option_price(100.0, STRIKES, 0.25, 0.03, phi, n=4096,
-                            grid_sigma=0.2)
+                            grid_sigma=0.2, device="cpu")
     want = j_conv_option_price(100.0, STRIKES, 0.25, 0.03,
                                lambda u: j_bs_cf(u, 0.25, 0.2, 0.03),
                                n=4096, grid_sigma=0.2)
@@ -56,12 +59,14 @@ def test_conv_option_price_matches_reference():
 
 @pytest.mark.parametrize("is_call", [True, False])
 def test_conv_bsvg_option_vg_matches_reference(is_call):
-    got = conv_bsvg_option(4096, *VG, is_call=is_call, is_bs=False)
+    got = conv_bsvg_option(4096, *VG, is_call=is_call, is_bs=False,
+                           device="cpu")
     want = j_conv_bsvg_option(4096, *VG, is_call=is_call, is_bs=False)
     assert abs(got - want) < 1e-12 * abs(want)
 
 
 def test_pricer_mesh_waits_for_the_parallel_layer():
+    # no device given: the mesh error comes before any device is resolved
     with pytest.raises(NotImplementedError, match="parallel"):
         conv_option_price(100.0, 100.0, 0.25, 0.03,
                           lambda u: bs_cf(u, 0.25, 0.2, 0.03), n=64,
@@ -70,7 +75,8 @@ def test_pricer_mesh_waits_for_the_parallel_layer():
 
 def test_import_leaves_jax_out():
     code = ("import sys, cfftpack_tpu_torch, cfftpack_tpu_torch.models, "
-            "cfftpack_tpu_torch.entry, cfftpack_tpu_torch.ops.stream_fft; "
+            "cfftpack_tpu_torch.entry, cfftpack_tpu_torch.ops.stream_fft, "
+            "cfftpack_tpu_torch.ops.colfft; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'cfftpack_tpu.'))] ; "
             "assert not bad, bad")
@@ -84,6 +90,49 @@ def test_cpu_slice_never_launches_the_kernel():
     step(*args)
     conv_option_price(100.0, STRIKES[:4], 0.25, 0.03,
                       lambda u: bs_cf(u, 0.25, 0.2, 0.03), n=256,
-                      grid_sigma=0.2)
+                      grid_sigma=0.2, device="cpu")
+    pt.fft2_split(torch.zeros((2, 64, 8)), torch.zeros((2, 64, 8)))
+    pt.dctn(torch.zeros((2, 64, 8)), 2, axes=(-2, -1))
     assert fused_fft.launches == 0
     assert stream_fft.launches == {"K2": 0, "K3": 0, "K4": 0}
+    assert colfft.launches == {"K6": 0, "K9": 0}
+
+
+def _phi(u):
+    return bs_cf(u, 0.25, 0.2, 0.03)
+
+
+DEFAULT_DEVICE_CALLS = {
+    "entry": lambda **kw: entry(batch=2, **kw),
+    "conv_option_price": lambda **kw: conv_option_price(
+        100.0, STRIKES[:2], 0.25, 0.03, _phi, n=64, grid_sigma=0.2, **kw),
+    "conv_bsvg_option": lambda **kw: conv_bsvg_option(64, *VG, **kw),
+    "fft of a list": lambda **kw: pt.fft(
+        [1.0, 2.0, 3.0] if not kw else torch.tensor([1.0, 2.0, 3.0], **kw)),
+    "dct of an ndarray": lambda **kw: pt.dct(
+        np.ones(6) if not kw else torch.ones(6, **kw)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_DEVICE_CALLS))
+def test_default_device_is_the_card(name, monkeypatch):
+    """With no device named, an entry point runs on the card: where
+    there is none it raises and does not fall back; device="cpu" (or a
+    CPU tensor) runs."""
+    call = DEFAULT_DEVICE_CALLS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    call(device="cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_default_device_runs_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, args = entry(batch=2)
+    assert all(a.is_cuda for a in args)
+    assert pt.fft([1.0, 2.0, 3.0]).is_cuda
