@@ -47,6 +47,12 @@ _RSTREAM_ARGTYPES = ([_P] * 2 + [ctypes.c_longlong] + [_P] * 8
 # lshift, scale, stream
 _COL_ARGTYPES = ([_P] * 6 + [_I, _P, _P] + [_P] * 3 + [_I] * 5
                  + [ctypes.c_float, _P])
+# xr, xi, yr, yi, sr, si, dr, di, t1r, t1i, twr, twi, nstages, fac, off,
+# b, n2, rshift, inverse, stream
+_FOURSTEP_ARGTYPES = [_P] * 12 + [_I, _P, _P] + [_I] * 4 + [_P]
+# xr, xi, yr, yi, sr, si, dmr, dmi, d1r, d1i, t1r, t1i, b, m, inverse,
+# natural, stream
+_MM2_ARGTYPES = [_P] * 12 + [_I] * 4 + [_P]
 
 
 def _nvcc() -> str:
@@ -111,7 +117,9 @@ def load() -> ctypes.CDLL:
                         ("cfft_stockham_f64", _K1_ARGTYPES),
                         ("stream_fft_f32", _STREAM_ARGTYPES),
                         ("rstream_fft_f32", _RSTREAM_ARGTYPES),
-                        ("col_fft_f32", _COL_ARGTYPES)):
+                        ("col_fft_f32", _COL_ARGTYPES),
+                        ("fourstep_fft_f32", _FOURSTEP_ARGTYPES),
+                        ("mm2_fft_f32", _MM2_ARGTYPES)):
         fn = getattr(lib, name)
         fn.argtypes = types
         fn.restype = ctypes.c_int

@@ -8,8 +8,10 @@ works on the last axis; a pass over axis -2 of float32 planes whose
 length the column kernel takes (``colfft.colfft_eligible``) runs K6 in
 the natural layout, every other pass moves its axis last.  The complex
 forms go through the same split passes, so they reach the same kernels.
-An input that is not a tensor is placed on the default device
-(``config.as_tensor``); a tensor keeps its own.
+``impl="pallas"`` on the split forms names the kernel instead of leaving
+the choice to the engine: the four-step kernel K10 at its lengths, else
+K1, else an error.  An input that is not a tensor is placed on the
+default device (``config.as_tensor``); a tensor keeps its own.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from ..config import (DEFAULT_NORM, as_tensor, check_norm, complex_dtype_of,
                       fwd_scale, inv_scale)
-from . import colfft, core
+from . import colfft, core, fourstep_fft, fused_fft
 
 __all__ = ["fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
            "fft_split", "ifft_split", "fft2_split", "ifft2_split"]
@@ -73,34 +75,37 @@ def _as_real_plane(x, name: str):
     return x
 
 
-def _k10_eligible(n: int, dtype) -> bool:
-    """Lengths the JAX package's fused four-step Pallas kernel (K10,
-    ``pallas_fourstep.fourstep_pallas_eligible``) takes: float32 and
-    n = 64 * 16 * 4^k with n / 64 <= 4096."""
-    if dtype != torch.float32 or n % 64:
-        return False
-    m = n // 64
-    if m > 4096:
-        return False
-    while m > 16 and m % 4 == 0:
-        m //= 4
-    return m == 16
+def _kernel_engine(xr, xi, n: int, inverse: bool):
+    """The unscaled transform of ``impl="pallas"``: K10 where it takes
+    (n, dtype), else K1 called directly, else ``ValueError``, as the
+    reference raises when neither of its kernels takes the length.  No
+    Bluestein, no stream kernel, no in-core four-step."""
+    if fourstep_fft.fourstep_eligible(n, xr.dtype):
+        return fourstep_fft.sfft_fourstep(xr, xi, n, inverse)
+    if fused_fft.fused_eligible(n, xr.dtype):
+        return fused_fft.sfft_fused(xr, xi, n, inverse)
+    raise ValueError(
+        f"impl='pallas' unsupported for n={n}, dtype={xr.dtype}: the "
+        "four-step kernel takes float32 n in {1024, 4096, 16384, 65536, "
+        "262144}, the fused kernel float32 or float64 n > 1 with no prime "
+        "factor above 32 whose buffers fit one block's shared memory")
 
 
 def _split_pass(xr, xi, axis: int, norm: str, inverse: bool,
-                column: bool = True):
-    """One scaled pass over ``axis`` of same-dtype real planes: K6 in
-    the natural layout for an eligible axis -2 (unless ``column`` is
-    off, as the reference's ``impl="pallas"`` has it), else the engine
-    on the axis moved last."""
+                impl: str = "xla"):
+    """One scaled pass over ``axis`` of same-dtype real planes.  The
+    default engine: K6 in the natural layout for an eligible axis -2,
+    else ``core.sfft`` on the axis moved last.  ``impl="pallas"``: the
+    axis moved last, :func:`_kernel_engine`, and the scale as a separate
+    pass, as the reference has it."""
     n = xr.shape[axis]
     s = inv_scale(norm, n) if inverse else fwd_scale(norm, n)
-    if (column and xr.ndim >= 2 and axis % xr.ndim == xr.ndim - 2
+    if (impl == "xla" and xr.ndim >= 2 and axis % xr.ndim == xr.ndim - 2
             and colfft.colfft_eligible(n, xr.shape[-1], xr.dtype)):
         # the norm scale rides in the kernel's store
         return colfft.scolfft(xr, xi, inverse, scale=s)
-    yr, yi = core.sfft(xr.movedim(axis, -1), xi.movedim(axis, -1), n,
-                       inverse)
+    engine = _kernel_engine if impl == "pallas" else core.sfft
+    yr, yi = engine(xr.movedim(axis, -1), xi.movedim(axis, -1), n, inverse)
     if s != 1.0:
         yr = yr * s
         yi = yi * s
@@ -118,21 +123,20 @@ def _fft_split_impl(xr, xi, axis: int, norm: str, inverse: bool,
     if xi.dtype != xr.dtype:
         xi = xi.to(xr.dtype)
     _check_axis(xr, axis)
-    n = xr.shape[axis]
-    if impl == "pallas" and _k10_eligible(n, xr.dtype):
-        raise NotImplementedError(
-            f"impl='pallas' at n={n} selects the fused four-step kernel "
-            "(K10), which is not ported yet (ROADMAP.md queue 2)")
-    return _split_pass(xr, xi, axis, norm, inverse, column=impl == "xla")
+    return _split_pass(xr, xi, axis, norm, inverse, impl)
 
 
 def fft_split(xr, xi, axis: int = -1, norm: str = DEFAULT_NORM,
               impl: str = "xla"):
     """Forward FFT on an (re, im) pair of real tensors.
 
-    ``impl`` keeps the JAX package's signature: every engine choice is
-    the default one here, except that ``"pallas"`` at a length of the
-    fused four-step kernel (K10) raises until that kernel is ported.
+    ``impl="xla"`` (the name kept from the JAX package's signature)
+    leaves the choice of kernel to the engine.  ``impl="pallas"`` opts
+    into a named kernel: the four-step kernel K10 at float32 n in
+    {1024, 4096, 16384, 65536, 262144}, else K1 where it takes the length, else
+    ``ValueError``.  K1 here takes float64 and any float32 length whose
+    buffers fit a block's shared memory (n <= 14528), which are this
+    kernel's own limits, not the TPU kernel's (float32 only).
     """
     return _fft_split_impl(xr, xi, axis, check_norm(norm), False, impl)
 

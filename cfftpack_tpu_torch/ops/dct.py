@@ -1,4 +1,4 @@
-"""DCT/DST types I-IV over one axis, FFT-based, any length (PyTorch port).
+"""DCT/DST types I-VIII over one axis, FFT-based, any length (PyTorch port).
 
 Counterpart of ``cfftpack_tpu/ops/dct.py``, with the same algorithms,
 tables, norms and signatures:
@@ -15,13 +15,16 @@ tables, norms and signatures:
   n/2-point FFT); past K1 in float32 the whole of it runs as K8
   (``_dct4_stream``).  Odd n: the half-shift DFT of length 2n
   (``core.s_shifted_dft_real``).  DST-IV is a flip and sign of DCT-IV.
+* Types V-VIII (the odd-period transforms): ``oddtypes``, one shifted DFT
+  of length 2n-1 or 2n+1 each, through the engine's default dispatch
+  (Bluestein and K1 for most n); no kernel gate of this module opens for
+  them.
 
 Norms: ``"fftpack"`` (and its alias ``"forward"``) puts FFTPACK's full
 scale on the forward transform, ``"ortho"`` is orthonormal both ways,
-``"backward"`` scales the inverse.  Types V-VIII are not ported yet.
-Float64 runs natively (the JAX package's double-float route for TPUs
-has no counterpart here).  Host tables are built in float64 and cached
-per (n, dtype, device).
+``"backward"`` scales the inverse.  Float64 runs natively (the JAX
+package's double-float route for TPUs has no counterpart here).  Host
+tables are built in float64 and cached per (n, dtype, device).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 
 from ..config import DEFAULT_NORM, as_tensor, check_norm
 from .. import plan
-from . import colfft, core, fused_fft, rstream, stream_fft
+from . import colfft, core, fused_fft, oddtypes, rstream, stream_fft
 from .cfft import _apply_axis, _check_axis
 
 __all__ = ["dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn"]
@@ -451,8 +454,12 @@ def _dst4_apply(x, n: int, mode: int):
     return y * float(np.sqrt(2.0 / n))
 
 
-_FWD = {1: _dct1_apply, 2: _dct2_apply, 3: _dct3_apply, 4: _dct4_apply}
-_FWD_S = {1: _dst1_apply, 2: _dst2_apply, 3: _dst3_apply, 4: _dst4_apply}
+_FWD = {1: _dct1_apply, 2: _dct2_apply, 3: _dct3_apply, 4: _dct4_apply,
+        5: oddtypes.dct5_apply, 6: oddtypes.dct6_apply,
+        7: oddtypes.dct7_apply, 8: oddtypes.dct8_apply}
+_FWD_S = {1: _dst1_apply, 2: _dst2_apply, 3: _dst3_apply, 4: _dst4_apply,
+          5: oddtypes.dst5_apply, 6: oddtypes.dst6_apply,
+          7: oddtypes.dst7_apply, 8: oddtypes.dst8_apply}
 # operator inverse of each type (I/IV/V/VIII are involutions up to scale;
 # VI and VII are transposes of each other, Martucci 1994)
 _INV_TYPE = {1: 1, 2: 3, 3: 2, 4: 4, 5: 5, 6: 7, 7: 6, 8: 8}
@@ -473,10 +480,6 @@ def _check_type(t) -> int:
     t = int(t)
     if t not in (1, 2, 3, 4, 5, 6, 7, 8):
         raise ValueError(f"transform type must be 1..8, got {t}")
-    if t > 4:
-        raise NotImplementedError(
-            f"DCT/DST type {t} is not ported yet: types V-VIII wait for "
-            "oddtypes.py and gdft.py (ROADMAP.md queue 1, item 8)")
     return t
 
 
@@ -541,8 +544,7 @@ def _dst_impl(x, t: int, axis: int, norm: str, inverse: bool):
 
 
 def dct(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
-    """Forward DCT of the given type along ``axis`` (types 1-4; 5-8
-    raise ``NotImplementedError`` until ported).
+    """Forward DCT of the given type (1-8) along ``axis``.
 
     norm="fftpack" follows the reference pairing: the type-3 transform
     carries the full 2/N scaling (FFTPACK's "forward" DCT) and type 2 is

@@ -1,4 +1,4 @@
-"""K2, K3, K4 and K5: the streaming four-step FFT for n = 128*m.
+"""K2, K3, K4, K5 and K11: the streaming four-step FFT for n = 128*m.
 
 Counterpart of ``cfftpack_tpu/ops/pallas_stream.py`` (the Pallas kernel
 ``_make_kernel`` in its five modes, and the wrappers around it).  For
@@ -15,10 +15,16 @@ s = 2 or 4 ways around K2.  The CUDA kernels live in
 ``csrc/stream_fft.cu``; each direction is two passes there (an m-point
 column pass and a 128-point row pass through scratch planes).
 
+K11 (:func:`sfft_mm2`, :func:`sfft_mm2_permuted`; the reference's
+``_mm2_2d``) computes the same formula for any integer 2 <= m <= 256
+with both DFTs as dense matrix products, ``csrc/mm2_fft.cu``.  No
+dispatch picks it: it is reached through its own functions only.
+
 On a CPU tensor every wrapper runs the plain PyTorch version
 (:func:`stream_plain`, built from ``core._stockham`` and a float32
-matmul); on a CUDA tensor it launches the kernel or raises.
-``launches`` counts kernel launches per kernel.
+matmul; :func:`sfft_mm2_plain`, two float32 matmuls); on a CUDA tensor
+it launches the kernel or raises.  ``launches`` counts kernel launches
+per kernel.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from . import _build, core
 
 __all__ = ["stream_eligible", "stream_filter_eligible", "stream_plain",
            "sfft_stream", "sfft_stream_permuted", "sfilter_stream",
-           "sfft_stream_split"]
+           "sfft_stream_split", "mm2_eligible", "sfft_mm2",
+           "sfft_mm2_permuted", "sfft_mm2_plain"]
 
 _N1 = 128          # lanes: the outer DFT length
 _TAIL = 16
@@ -52,7 +59,7 @@ _MAX_LANES = 32
 _MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
 _KERNEL = {"fwd": "K2", "inv": "K2", "fwd_nat": "K3", "inv_nat": "K3",
            "filter": "K4"}
-launches = {"K2": 0, "K3": 0, "K4": 0}
+launches = {"K2": 0, "K3": 0, "K4": 0, "K11": 0}
 
 
 def _stage_ok(m: int) -> bool:
@@ -370,3 +377,120 @@ def sfft_stream_split(xr, xi, n: int, inverse: bool):
     wr, wi = _run(Cr, Ci, n_in, "inv")
     zr, zi = _split_post(wr.reshape(b, s, n_in), wi.reshape(b, s, n_in), n, s)
     return zr.reshape(shape), zi.reshape(shape)
+
+
+# --------------------------------------------- two-matmul kernel (K11)
+#
+# The same formula as the stream kernels, n = 128*m with the natural
+# tile x[q, r], for any integer m: S = D_m . x over q, Y = S * W_n^{r k2},
+# X = Y . D_128 over r, each a dense complex product in four real ones.
+# The inverse mirrors it: the conjugate outer product, the conjugate
+# twiddle, the conjugate inner product.
+
+_MM2_MAX_M = 256          # the reference's contraction-length cap for D_m
+
+
+def mm2_eligible(n: int, dtype) -> bool:
+    return (dtype == torch.float32 and n % _N1 == 0
+            and 2 <= n // _N1 <= _MM2_MAX_M)
+
+
+def _mm2_device_tables(n: int, inverse: bool, device):
+    """(D_m re, im, D_128 re, im, t1 re, im) in the transform's sign."""
+    return (core._dense_dft(n // _N1, inverse, torch.float32, device)
+            + core._dense_dft(_N1, inverse, torch.float32, device)
+            + _device_outer(n, inverse, device))
+
+
+def _cmatmul(ar, ai, br, bi):
+    return (torch.matmul(ar, br) - torch.matmul(ai, bi),
+            torch.matmul(ar, bi) + torch.matmul(ai, br))
+
+
+def sfft_mm2_plain(xr, xi, n: int, inverse: bool, natural: bool = True):
+    """K11's plain PyTorch version on any device: (b, n) float32 planes
+    in and out, the same tables as the kernel.  ``natural`` is the
+    spectrum's layout (the forward's output, the inverse's input):
+    natural order, or permuted [k2, k1]."""
+    m = n // _N1
+    b = xr.shape[0]
+    dmr, dmi, d1r, d1i, t1r, t1i = _mm2_device_tables(n, inverse, xr.device)
+    if not inverse:
+        sr, si = _cmatmul(dmr, dmi, xr.reshape(b, m, _N1),
+                          xi.reshape(b, m, _N1))
+        zr, zi = _cmatmul(*core._cmul_tab(sr, si, t1r, t1i), d1r, d1i)
+        if natural:
+            zr, zi = zr.transpose(1, 2), zi.transpose(1, 2)
+        return zr.reshape(b, n), zi.reshape(b, n)
+    if natural:
+        xr = xr.reshape(b, _N1, m).transpose(1, 2)
+        xi = xi.reshape(b, _N1, m).transpose(1, 2)
+    else:
+        xr, xi = xr.reshape(b, m, _N1), xi.reshape(b, m, _N1)
+    yr, yi = _cmatmul(xr, xi, d1r, d1i)
+    zr, zi = _cmatmul(dmr, dmi, *core._cmul_tab(yr, yi, t1r, t1i))
+    return zr.reshape(b, n), zi.reshape(b, n)
+
+
+def _mm2_launch(xr, xi, n: int, inverse: bool, natural: bool):
+    """One direction through the CUDA kernels (both products)."""
+    if not (xr.is_cuda and xi.is_cuda) or xr.device != xi.device:
+        raise ValueError(f"K11 needs both planes on one CUDA device, got "
+                         f"{xr.device} and {xi.device}")
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
+        raise TypeError(f"K11 takes float32 planes, got {xr.dtype} and "
+                        f"{xi.dtype}")
+    if not mm2_eligible(n, xr.dtype):
+        raise ValueError(f"K11 does not take n={n}")
+    if tuple(xr.shape[1:]) != (n,) or xi.shape != xr.shape:
+        raise ValueError(f"K11 takes (b, {n}) planes, got "
+                         f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+    xr = xr.contiguous()
+    xi = xi.contiguous()
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    b = xr.shape[0]
+    if b == 0:
+        return yr, yi
+    sr = torch.empty_like(xr)
+    si = torch.empty_like(xi)
+    tabs = _mm2_device_tables(n, inverse, xr.device)
+    lib = _build.load()
+    with torch.cuda.device(xr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mm2_fft_f32(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            sr.data_ptr(), si.data_ptr(), *(t.data_ptr() for t in tabs),
+            b, n // _N1, int(inverse), int(natural), stream)
+    if err != 0:
+        raise RuntimeError(f"K11 launch failed at n={n}, b={b}, "
+                           f"inverse={inverse}, natural={natural}: CUDA "
+                           f"error {err}")
+    launches["K11"] += 1
+    return yr, yi
+
+
+def _mm2_run(xr, xi, n: int, inverse: bool, natural: bool):
+    shape = xr.shape
+    xr2 = xr.reshape(-1, n)
+    xi2 = xi.reshape(-1, n)
+    if xr.device.type == "cpu":
+        yr, yi = sfft_mm2_plain(xr2, xi2, n, inverse, natural)
+    else:
+        yr, yi = _mm2_launch(xr2, xi2, n, inverse, natural)
+    return yr.reshape(shape), yi.reshape(shape)
+
+
+def sfft_mm2(xr, xi, n: int, inverse: bool):
+    """Natural-order two-matmul FFT over the last axis (K11): the
+    ``core.sfft`` contract, natural in and out; the caller guarantees
+    ``mm2_eligible(n, dtype)``."""
+    return _mm2_run(xr, xi, n, inverse, True)
+
+
+def sfft_mm2_permuted(xr, xi, n: int, inverse: bool):
+    """Permuted-spectrum two-matmul FFT (K11), the layout of
+    :func:`sfft_stream_permuted`: forward natural -> permuted,
+    X[k2 + m*k1] at flat [k2*128 + k1]; inverse permuted -> natural
+    (unscaled)."""
+    return _mm2_run(xr, xi, n, inverse, False)

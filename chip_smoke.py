@@ -5,7 +5,8 @@
 Builds the CUDA kernels from the checkout (K1,
 ``cfftpack_tpu_torch/csrc/stockham_fft.cu``; K2, K3 and K4,
 ``csrc/stream_fft.cu``; K7 and K8, ``csrc/rstream_fft.cu``; K6 and K9,
-``csrc/col_fft.cu``), holds each against its plain PyTorch version and
+``csrc/col_fft.cu``; K10, ``csrc/fourstep_fft.cu``; K11,
+``csrc/mm2_fft.cu``), holds each against its plain PyTorch version and
 ``torch.fft`` or scipy at the main path's shapes, then drives the main
 path through the public entry points (the bench headline ``fft_split``
 at n = 1024 x 4096, the flagship rfft -> multiply -> irfft step, the
@@ -17,7 +18,11 @@ kernel at 65536 and its split at 2^20 and 2^21, the streaming filter,
 float64 DCT round trip, and the 2-D path through the column kernels:
 ``fft2_split``/``ifft2_split`` at (4, 1024, 1024) and
 (64, 1024, 1024), complex ``fft2``, ``rfft2_split``/``irfft2_split``
-and ``dctn``/``idctn`` at (64, 1024, 1024)) and checks each result.
+and ``dctn``/``idctn`` at (64, 1024, 1024), ``fft_split`` and
+``ifft_split`` with ``impl="pallas"`` through the four-step kernel at
+(1024, 4096), (64, 65536) and (16, 262144), the two-matmul FFT at
+(2048, 2048) and (128, 32768), ``gdft``/``igdft``, the DCT/DST types
+5-8 and ``circular_convolve`` at (4096, 1024)) and checks each result.
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Prints CUDA-event times of the kernels, their plain
 versions and the PyTorch calls that compute the same functions, a
@@ -44,8 +49,8 @@ import cfftpack_tpu_torch as ct
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
-from cfftpack_tpu_torch.ops import _build, colfft, core, fused_fft
-from cfftpack_tpu_torch.ops import rstream, stream_fft
+from cfftpack_tpu_torch.ops import _build, colfft, core, fourstep_fft
+from cfftpack_tpu_torch.ops import fused_fft, rstream, stream_fft
 
 # the modules, not the functions of the same names that ops exports
 rfft_ops = importlib.import_module("cfftpack_tpu_torch.ops.rfft")
@@ -69,7 +74,13 @@ RSTREAM_M = (16, 48, 80, 512, 4096)
 # cap; n1 = 513 is the packed width of rfft2 at 1024
 COL_N0 = (16, 48, 80, 1024, 4096)
 COL_N1 = (128, 513, 1024)
-KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9")
+# phase 3d: every K10 length, and K11 at the smallest m, odd and ragged
+# m, a tile's edge and the cap
+K10_SIZES = (1024, 4096, 16384, 65536, 262144)
+K11_M = (2, 3, 16, 100, 255, 256)
+# (inverse, natural spectrum): K11's four forms
+K11_FORMS = ((False, True), (False, False), (True, True), (True, False))
+KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9", "K10", "K11")
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s
 # and float32 flop/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -138,6 +149,7 @@ def plain_engine():
     of the kernels, on the same card, for comparison and timing only."""
     kernel, stream_launch = fused_fft.sfft_fused, stream_fft._launch
     rstream_launch, col_launch = rstream.launch, colfft._launch
+    four_launch, mm2_launch = fourstep_fft._launch, stream_fft._mm2_launch
 
     def plain(xr, xi, n, inverse):
         shape = xr.shape
@@ -149,6 +161,8 @@ def plain_engine():
     stream_fft._launch = stream_fft.stream_plain
     rstream.launch = rstream_plain
     colfft._launch = colfft_plain_launch
+    fourstep_fft._launch = fourstep_fft.sfft_fourstep_plain
+    stream_fft._mm2_launch = stream_fft.sfft_mm2_plain
     try:
         yield
     finally:
@@ -156,6 +170,8 @@ def plain_engine():
         stream_fft._launch = stream_launch
         rstream.launch = rstream_launch
         colfft._launch = col_launch
+        fourstep_fft._launch = four_launch
+        stream_fft._mm2_launch = mm2_launch
 
 
 @contextlib.contextmanager
@@ -197,12 +213,13 @@ def no_colfft():
 
 
 def counts() -> dict:
-    return {"K1": fused_fft.launches, **stream_fft.launches,
-            **rstream.launches, **colfft.launches}
+    return {"K1": fused_fft.launches, "K10": fourstep_fft.launches,
+            **stream_fft.launches, **rstream.launches, **colfft.launches}
 
 
 def zero_counts() -> None:
     fused_fft.launches = 0
+    fourstep_fft.launches = 0
     for d in (stream_fft.launches, rstream.launches, colfft.launches):
         for k in d:
             d[k] = 0
@@ -282,6 +299,27 @@ def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
     return {"event_us": event_ms * 1e3, "kernel_us": kern_us, "idle": idle}
 
 
+def mm2_reference(x, n: int, inverse: bool, natural: bool):
+    """torch.fft (complex128) of what a K11 form computes on (b, n)
+    complex input, in the form's layout."""
+    b, m = x.shape[0], n // 128
+    xc = x.to(torch.complex128)
+    if not inverse:
+        X = torch.fft.fft(xc)
+        return X if natural else X.reshape(b, 128, m).transpose(
+            1, 2).reshape(b, n)
+    if not natural:
+        xc = xc.reshape(b, m, 128).transpose(1, 2).reshape(b, n)
+    return torch.fft.ifft(xc) * n
+
+
+def mm2_dense_flops(b: int, n: int) -> float:
+    """Real flops of K11's dense form in four-product complex
+    arithmetic: 8*128*m*(m + 128) a transform."""
+    m = n // 128
+    return 8.0 * b * 128 * m * (m + 128)
+
+
 def bs_closed_form(S, K, sigma, t, r):
     from scipy.special import ndtr
     d1 = (np.log(S / K) + t * (r + 0.5 * sigma * sigma)) / (sigma * np.sqrt(t))
@@ -308,9 +346,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(f"  allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}")
+    # the plain versions' matmuls must run at full float32
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "float32 matmul runs without TF32")
     t0 = time.perf_counter()
     _build.load()
-    print(f"  K1-K4, K6-K9 built and loaded in "
+    print(f"  K1-K4, K6-K11 built and loaded in "
           f"{time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
     for line in _build.library_path().with_suffix(".log").read_text(
@@ -472,6 +513,51 @@ def main() -> None:
                  colfft.coldct_plain(x.double(), t, w.double(), 0.125))
     print(f"  worst vs plain {worst['plain']:.3e}, vs torch.fft/scipy "
           f"{worst['oracle']:.3e}")
+
+    # ---- phase 3d: K10 and K11 against their plain versions and
+    # torch.fft (complex128), ragged and full batches, both signs, K11 in
+    # its four forms
+    print("phase 3d: K10/K11 vs plain version and torch.fft")
+    dense_err = {"K10": 0.0, "K11": 0.0}
+    worst = {"plain": 0.0, "oracle": 0.0}
+
+    def hold_dense(k, what, got, plain, want):
+        yr, yi = got
+        pr, pi = plain
+        torch.cuda.synchronize()
+        ep = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+        eo = rel_err(torch.complex(yr, yi), want)
+        check(ep < 1e-5 and eo < 1e-5,
+              f"{k} {what}: vs plain {ep:.2e}, vs torch.fft {eo:.2e} < 1e-5")
+        dense_err[k] = max(dense_err[k], float(max((yr - pr).abs().max(),
+                                                   (yi - pi).abs().max())))
+        worst["plain"] = max(worst["plain"], ep)
+        worst["oracle"] = max(worst["oracle"], eo)
+
+    for n in K10_SIZES:
+        for b in (3, (1 << 22) // n):
+            xr, xi = pair((b, n), torch.float32, seed=n + b)
+            x64 = torch.complex(xr.double(), xi.double())
+            for inv in (False, True):
+                hold_dense("K10", f"n={n} b={b} inv={inv}",
+                           fourstep_fft.sfft_fourstep(xr, xi, n, inv),
+                           fourstep_fft.sfft_fourstep_plain(xr, xi, n, inv),
+                           torch.fft.ifft(x64) * n if inv
+                           else torch.fft.fft(x64))
+    for mm in K11_M:
+        n = 128 * mm
+        for b in (3, (1 << 22) // n):
+            xr, xi = pair((b, n), torch.float32, seed=n + b)
+            for inv, nat in K11_FORMS:
+                fn = (stream_fft.sfft_mm2 if nat
+                      else stream_fft.sfft_mm2_permuted)
+                hold_dense("K11", f"m={mm} b={b} inv={inv} natural={nat}",
+                           fn(xr, xi, n, inv),
+                           stream_fft.sfft_mm2_plain(xr, xi, n, inv, nat),
+                           mm2_reference(torch.complex(xr, xi), n, inv, nat))
+    print(f"  worst vs plain {worst['plain']:.3e}, vs torch.fft "
+          f"{worst['oracle']:.3e}")
+    del x64
 
     # ---- the main path: each path runs with the counts zeroed just
     # before it and read just after; `total` sums them
@@ -853,6 +939,125 @@ def main() -> None:
     check(e_o < 1e-5, f"vs scipy {e_o:.2e} < 1e-5")
     del y
 
+    # ---- phase 26: fft_split -> ifft_split with impl="pallas" through
+    # K10, at 2^22 elements of each of three lengths
+    for b, n in ((1024, 4096), (64, 65536), (16, 262144)):
+        print(f"phase 26: fft_split -> ifft_split impl=pallas n={n} "
+              f"batch={b} f32 norm=ortho")
+        xr, xi = pair((b, n), torch.float32, seed=80 + b)
+        (yr, yi), got = drive(lambda: ct.fft_split(xr, xi, norm="ortho",
+                                                   impl="pallas"), total)
+        check(got["K10"] > 0 and got["K3"] == 0 and got["K1"] == 0,
+              f"K10 launched by fft_split, no K3 or K1 ({got})")
+        with plain_engine():
+            pr, pi = ct.fft_split(xr, xi, norm="ortho", impl="pallas")
+        e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+        e_o = rel_err(torch.complex(yr, yi), torch.fft.fft(
+            torch.complex(xr.double(), xi.double()), norm="ortho"))
+        check(tuple(yr.shape) == (b, n) and bool(torch.isfinite(yr).all())
+              and bool(torch.isfinite(yi).all()), "output shape and finite")
+        check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
+        check(e_o < 1e-5, f"vs torch.fft {e_o:.2e} < 1e-5")
+        (zr, zi), got = drive(lambda: ct.ifft_split(yr, yi, norm="ortho",
+                                                    impl="pallas"), total)
+        check(got["K10"] > 0 and got["K3"] == 0,
+              f"K10 launched by ifft_split, no K3 ({got})")
+        e_r = rel_err(torch.complex(zr, zi), torch.complex(xr, xi))
+        check(e_r < 1e-5, f"ifft_split(fft_split(x)) vs x {e_r:.2e} < 1e-5")
+    z1 = torch.zeros((2, 101), device=DEV)
+    try:
+        ct.fft_split(z1, z1, impl="pallas")
+    except ValueError as exc:
+        check("n=101" in str(exc), f"impl=pallas at n=101 raises ({exc})")
+    else:
+        check(False, "impl=pallas at n=101 raises")
+    del pr, pi, yr, yi, zr, zi
+
+    # ---- phase 27: the two-matmul FFT and back through K11, natural
+    # and permuted spectra
+    for b, n in ((2048, 2048), (128, 32768)):
+        print(f"phase 27: sfft_mm2 -> inverse n={n} batch={b} f32")
+        xr, xi = pair((b, n), torch.float32, seed=90 + b)
+        xc = torch.complex(xr, xi)
+        for nat, fn in ((True, stream_fft.sfft_mm2),
+                        (False, stream_fft.sfft_mm2_permuted)):
+            (yr, yi), got = drive(lambda: fn(xr, xi, n, False), total)
+            check(got["K11"] > 0, f"K11 launched, natural={nat} ({got})")
+            e_o = rel_err(torch.complex(yr, yi),
+                          mm2_reference(xc, n, False, nat))
+            check(tuple(yr.shape) == (b, n)
+                  and bool(torch.isfinite(yr).all()),
+                  "output shape and finite")
+            check(e_o < 1e-5, f"natural={nat} vs torch.fft {e_o:.2e} < 1e-5")
+            (zr, zi), got = drive(lambda: fn(yr, yi, n, True), total)
+            check(got["K11"] > 0, f"K11 launched by the inverse ({got})")
+            e_r = rel_err(torch.complex(zr, zi) / n, xc)
+            check(e_r < 1e-5, f"inverse(forward(x)) / n vs x {e_r:.2e} "
+                  f"< 1e-5")
+    del xc, yr, yi, zr, zi
+
+    # ---- phase 28: gdft -> igdft at (4096, 1024) complex64 with
+    # fractional shifts, against the float64 run of the same call
+    print("phase 28: gdft -> igdft n=1024 batch=4096 complex64 "
+          "a=0.5 b=0.25 ortho")
+    xg = torch.complex(*pair((4096, 1024), torch.float32, seed=95))
+    y, got = drive(lambda: ct.gdft(xg, 0.5, 0.25, norm="ortho"), total)
+    check(got["K1"] > 0, f"K1 launched by gdft ({got})")
+    want = ct.gdft(xg.to(torch.complex128), 0.5, 0.25, norm="ortho")
+    e_o = rel_err(y, want)
+    check(y.dtype == torch.complex64 and tuple(y.shape) == (4096, 1024)
+          and bool(torch.isfinite(y.real).all()),
+          "output dtype, shape, finite")
+    check(e_o < 1e-5, f"vs the float64 run {e_o:.2e} < 1e-5")
+    # the definition on a few rows: sum_j x[j] e^{-2i pi (j+a)(k+b)/n}
+    jj = torch.arange(1024, device=DEV, dtype=torch.float64)
+    W = torch.exp(-2j * np.pi * torch.outer(jj + 0.25, jj + 0.5) / 1024)
+    e_d = rel_err(want[:8], xg[:8].to(torch.complex128) @ W.T / 32.0)
+    check(e_d < 1e-12, f"float64 run vs the definition {e_d:.2e} < 1e-12")
+    z, got = drive(lambda: ct.igdft(y, 0.5, 0.25, norm="ortho"), total)
+    check(got["K1"] > 0, f"K1 launched by igdft ({got})")
+    e_r = rel_err(z, xg)
+    check(e_r < 1e-5, f"igdft(gdft(x)) vs x {e_r:.2e} < 1e-5")
+    del xg, y, z, want, W
+
+    # ---- phase 29: the odd DCT/DST types at (4096, 1024): shifted DFTs
+    # of length 2047 = 23*89 and 2049 = 3*683, so Bluestein around K1
+    xo = real((4096, 1024), torch.float32, seed=96)
+    for name, fwd, inv in (("dct", ct.dct, ct.idct), ("dst", ct.dst, ct.idst)):
+        for t in (5, 6, 7, 8):
+            print(f"phase 29: {name}/i{name} type {t} n=1024 batch=4096 f32 "
+                  f"ortho")
+            y, got = drive(lambda: fwd(xo, t, norm="ortho"), total)
+            check(got["K1"] > 0 and got["K7"] + got["K8"] + got["K9"] == 0,
+                  f"K1 launched through Bluestein, no K7/K8/K9 ({got})")
+            e_o = rel_err(y, fwd(xo.double(), t, norm="ortho"))
+            check(tuple(y.shape) == (4096, 1024)
+                  and bool(torch.isfinite(y).all()), "output shape and finite")
+            check(e_o < 1e-4, f"vs the float64 run {e_o:.2e} < 1e-4")
+            z, got = drive(lambda: inv(y, t, norm="ortho"), total)
+            check(got["K1"] > 0, f"K1 launched by the inverse ({got})")
+            e_r = rel_err(z, xo)
+            check(e_r < 1e-4, f"i{name}({name}(x)) vs x {e_r:.2e} < 1e-4")
+    del y, z
+
+    # ---- phase 30: circular_convolve of two real (4096, 1024) tensors
+    print("phase 30: circular_convolve n=1024 batch=4096 f32")
+    xb2 = real((4096, 1024), torch.float32, seed=97)
+    c, got = drive(lambda: ct.circular_convolve(xo, xb2), total)
+    check(got["K1"] > 0, f"K1 launched by circular_convolve ({got})")
+    want = torch.fft.irfft(torch.fft.rfft(xo.double())
+                           * torch.fft.rfft(xb2.double()), n=1024)
+    e_o = rel_err(c, want)
+    check(c.dtype == torch.float32 and tuple(c.shape) == (4096, 1024)
+          and bool(torch.isfinite(c).all()), "output dtype, shape, finite")
+    check(e_o < 1e-5, f"vs torch.fft {e_o:.2e} < 1e-5")
+    f8 = ct.fftfreq(8)
+    check(f8.is_cuda and f8.dtype == torch.float64 and np.array_equal(
+        f8.cpu().numpy(), np.fft.fftfreq(8)), "fftfreq lands on the card")
+    check(torch.equal(ct.ifftshift(ct.fftshift(c, axes=-1), axes=-1), c),
+          "ifftshift(fftshift(x)) is x")
+    del c, want, xb2, xo
+
     for k in KERNELS:
         check(total[k] > 0, f"main path launched {k} {total[k]} times")
 
@@ -963,6 +1168,54 @@ def main() -> None:
     k9_plain_ms = {
         2: median_ms(lambda: colfft.coldct2_plain(x2, 1024), reps=5, warm=1),
         3: median_ms(lambda: colfft.coldct3_plain(x2, 1024), reps=5, warm=1)}
+    # K10 and K11 at 2^22 elements of each length, beside K1 and K3
+    # wherever they take the length, and cuFFT
+    def rivals(ar, ai, n):
+        out = {}
+        if fused_fft.fused_eligible(n, torch.float32):
+            out["K1 sfft_fused"] = median_ms(
+                lambda: fused_fft.sfft_fused(ar, ai, n, False))
+        if stream_fft.stream_eligible(n, torch.float32):
+            out["K3 sfft_stream"] = median_ms(
+                lambda: stream_fft.sfft_stream(ar, ai, n, False))
+        return out
+
+    k10_ms, k10_plain_ms, k10_lib_ms, rival_ms = {}, {}, {}, {}
+    for n in K10_SIZES:
+        b = (1 << 22) // n
+        ar, ai = pair((b, n), torch.float32, seed=100)
+        k10_ms[n] = median_ms(
+            lambda: fourstep_fft.sfft_fourstep(ar, ai, n, False))
+        k10_plain_ms[n] = median_ms(
+            lambda: fourstep_fft.sfft_fourstep_plain(ar, ai, n, False),
+            reps=5, warm=1)
+        rival_ms[b, n] = rivals(ar, ai, n)
+        ac = torch.complex(ar, ai)
+        k10_lib_ms[n] = median_ms(lambda: torch.fft.fft(ac))
+        del ar, ai, ac
+    k11_shapes = ((2048, 2048), (1024, 4096), (512, 8192), (256, 16384),
+                  (128, 32768))
+    k11_ms, k11_perm_ms, k11_plain_ms, k11_lib_ms = {}, {}, {}, {}
+    for b, n in k11_shapes:
+        ar, ai = pair((b, n), torch.float32, seed=101)
+        k11_ms[b, n] = median_ms(
+            lambda: stream_fft.sfft_mm2(ar, ai, n, False))
+        k11_perm_ms[b, n] = median_ms(
+            lambda: stream_fft.sfft_mm2_permuted(ar, ai, n, False))
+        k11_plain_ms[b, n] = median_ms(
+            lambda: stream_fft.sfft_mm2_plain(ar, ai, n, False), reps=5,
+            warm=1)
+        if (b, n) not in rival_ms:
+            rival_ms[b, n] = rivals(ar, ai, n)
+        ac = torch.complex(ar, ai)
+        k11_lib_ms[b, n] = median_ms(lambda: torch.fft.fft(ac))
+        del ar, ai, ac
+    # the PyTorch call beside the K5 route's two shapes
+    k5_lib_ms = {}
+    for b, n in ((8, 1 << 20), (4, 1 << 21)):
+        ac = torch.complex(*pair((b, n), torch.float32, seed=102))
+        k5_lib_ms[b, n] = median_ms(lambda: torch.fft.fft(ac), reps=10)
+        del ac
     two_d = {}
 
     def route(name, fn, library=None):
@@ -1044,10 +1297,33 @@ def main() -> None:
         *[(f"K9 dct{t} (64, 1024, 1024) f32", k9_ms[t]) for t in (2, 3)],
         *[(f"plain K9 dct{t} (64, 1024, 1024) f32", k9_plain_ms[t])
           for t in (2, 3)],
+        *[(f"K10 sfft_fourstep ({(1 << 22) // n}, {n}) f32", k10_ms[n])
+          for n in K10_SIZES],
+        *[(f"plain K10 sfft_fourstep_plain ({(1 << 22) // n}, {n}) f32",
+           k10_plain_ms[n]) for n in K10_SIZES],
+        *[(f"{name} {sh} f32", ms) for sh, got in sorted(rival_ms.items())
+          for name, ms in got.items()],
+        *[(f"cuFFT torch.fft.fft ({(1 << 22) // n}, {n}) complex64",
+           k10_lib_ms[n]) for n in K10_SIZES],
+        *[(f"K11 sfft_mm2 {sh} f32", k11_ms[sh]) for sh in k11_shapes],
+        *[(f"K11 sfft_mm2_permuted {sh} f32", k11_perm_ms[sh])
+          for sh in k11_shapes],
+        *[(f"plain K11 sfft_mm2_plain {sh} f32", k11_plain_ms[sh])
+          for sh in k11_shapes],
+        *[(f"cuFFT torch.fft.fft {sh} complex64", k11_lib_ms[sh])
+          for sh in k11_shapes],
+        *[(f"cuFFT torch.fft.fft {sh} complex64 (the K5 route's shape)",
+           k5_lib_ms[sh]) for sh in k5_lib_ms],
     ]
     rows.extend(two_d.items())
     for name, ms in rows:
         print(f"  time {name}: {ms:.4f} ms  [{card}]")
+    for sh in k11_shapes:
+        fl = mm2_dense_flops(*sh)
+        print(f"  K11 dense form {sh}: {fl / 1e9:.3f} GFLOP, "
+              f"{fl / F32_FLOP_S * 1e3:.4f} ms at the card's float32 peak, "
+              f"kernel at {fl / (k11_ms[sh] * 1e-3) / 1e12:.2f} TFLOP/s; the "
+              f"function's {fft_flops(*sh) / 1e9:.3f} GFLOP  [{card}]")
 
     # ---- phase 25: where the 2-D routes' time goes (torch.profiler)
     print("phase 25: profile of the 2-D routes at (64, 1024, 1024) f32")
@@ -1060,6 +1336,25 @@ def main() -> None:
         with no_colfft():
             profile_route(f"{name} moved-axis route", fn, card)
     del fr2, fi2
+
+    # ---- phase 25b: device time of K10's and K11's passes, and of K1
+    # and K3 at the same shapes
+    print("phase 25b: profile of K10, K11, K1 and K3 at 2^22 elements "
+          "(device time of each pass)")
+    for b, n in sorted(rival_ms):
+        ar, ai = pair((b, n), torch.float32, seed=103)
+        for name, fn, takes in (
+                ("K10 sfft_fourstep", fourstep_fft.sfft_fourstep,
+                 fourstep_fft.fourstep_eligible),
+                ("K11 sfft_mm2", stream_fft.sfft_mm2, stream_fft.mm2_eligible),
+                ("K1 sfft_fused", fused_fft.sfft_fused,
+                 fused_fft.fused_eligible),
+                ("K3 sfft_stream", stream_fft.sfft_stream,
+                 stream_fft.stream_eligible)):
+            if takes(n, torch.float32):
+                profile_route(f"{name} ({b}, {n})",
+                              lambda: fn(ar, ai, n, False), card)
+        del ar, ai
 
     # each kernel's bound at the shape its times were taken at: every
     # input read once and every output written once (the data planes; the
@@ -1112,6 +1407,18 @@ def main() -> None:
         "cfftpack_tpu/ops/dct.py:569", "K9", col_err["K9"], k9_ms[2],
         k9_plain_ms[2], bound_ms(8 * cols * 1024, fft_flops(cols // 2, 1024)),
         None))
+    kernels.append(entry_of(
+        "fourstep_fft (K10)", "cfftpack_tpu_torch/csrc/fourstep_fft.cu",
+        "cfftpack_tpu/ops/pallas_fourstep.py:225", "K10", dense_err["K10"],
+        k10_ms[65536], k10_plain_ms[65536], stream_bound, k10_lib_ms[65536]))
+    k11_at = (128, 32768)
+    kernels.append(entry_of(
+        "mm2_fft natural/permuted (K11), times of natural forward",
+        "cfftpack_tpu_torch/csrc/mm2_fft.cu",
+        "cfftpack_tpu/ops/pallas_stream.py:762", "K11", dense_err["K11"],
+        k11_ms[k11_at], k11_plain_ms[k11_at],
+        bound_ms(16 * k11_at[0] * k11_at[1], fft_flops(*k11_at)),
+        k11_lib_ms[k11_at]))
     kernels.sort(key=lambda e: int(e["name"].split("(K")[1].split(")")[0]))
     for e in kernels:
         print(f"  bound {e['name']}: {e['bound_ms']:.4f} ms by "

@@ -152,11 +152,111 @@ def test_fft_split_rejects_complex_planes():
 
 
 def test_pallas_impl_at_k10_length_raises():
-    x = torch.zeros((2, 4096))
-    with pytest.raises(NotImplementedError, match="K10"):
-        pt.fft_split(x, x, impl="pallas")
-    # other lengths run the default engine
-    y = torch.as_tensor(real_input((2, 60), np.float32, seed=11))
+    """impl="pallas" names a kernel: K10 at its lengths, else K1, else
+    ``ValueError`` where no kernel takes (n, dtype), in both packages."""
+    for n in (101, 131072):           # Bluestein; past both kernels' caps
+        z = np.zeros((1, n), np.float32)
+        for api, arg in ((jt, z), (pt, _t(z))):
+            for fn in (api.fft_split, api.ifft_split):
+                with pytest.raises(ValueError, match=f"n={n}"):
+                    fn(arg, arg, impl="pallas")
+    # past the port's K1 (one block's shared memory holds n <= 14528 in
+    # float32) and not a K10 length; the TPU kernel's cap is its own
+    z = torch.zeros((1, 32768))
+    with pytest.raises(ValueError, match="n=32768"):
+        pt.fft_split(z, z, impl="pallas")
+    with pytest.raises(ValueError, match="float64"):
+        pt.fft_split(z.double(), z.double(), impl="pallas")
+    # n = 60 is K1 under both engines; 4096 is K10 against K1
+    y = _t(real_input((2, 60), np.float32, seed=11))
     a = pt.fft_split(y, y, impl="pallas")
     b = pt.fft_split(y, y)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    y = _t(real_input((2, 4096), np.float32, seed=12))
+    a = pt.fft_split(y, y, impl="pallas", norm="ortho")
+    b = pt.fft_split(y, y, norm="ortho")
+    assert rel_err(to_np(a[0]) + 1j * to_np(a[1]),
+                   to_np(b[0]) + 1j * to_np(b[1])) < 1e-5
+    assert not torch.equal(a[0], b[0])            # another engine
+
+
+# ------------------------------------------------- shifts and grids
+
+GOLD = np.load(__file__.rsplit("/", 1)[0] + "/golden/golden.npz")
+
+
+@pytest.mark.parametrize("n", [8, 15])
+def test_shift_golden(n):
+    x = _t(GOLD[f"shift_in_{n}"])
+    assert np.array_equal(pt.fftshift(x).numpy(), GOLD[f"fftshift_{n}"])
+    assert np.array_equal(pt.ifftshift(x).numpy(), GOLD[f"ifftshift_{n}"])
+    assert torch.equal(pt.ifftshift(pt.fftshift(x)), x)
+
+
+@pytest.mark.parametrize("axes", [None, 0, (1,), (0, 2)])
+@pytest.mark.parametrize("dtype", [np.float32, np.complex128, np.int64])
+def test_shift_matches_reference(dtype, axes):
+    x = 10 * complex_input((4, 5, 6), np.complex128, seed=13)
+    x = (x if np.dtype(dtype).kind == "c" else x.real).astype(dtype)
+    for mine, ref, npf in ((pt.fftshift, jt.fftshift, np.fft.fftshift),
+                           (pt.ifftshift, jt.ifftshift, np.fft.ifftshift)):
+        got = mine(_t(x), axes=axes)
+        assert got.dtype == _t(x).dtype
+        assert np.array_equal(to_np(got), np.asarray(ref(x, axes=axes)))
+        assert np.array_equal(to_np(got), npf(x, axes=axes))
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 15, 60])
+@pytest.mark.parametrize("d", [1.0, 0.25])
+def test_fftfreq_rfftfreq(n, d):
+    f = pt.fftfreq(n, d, device="cpu")
+    r = pt.rfftfreq(n, d, device="cpu")
+    assert f.dtype == torch.float64 and r.dtype == torch.float64
+    # numpy multiplies by 1/(n*d) where both packages divide: one rounding
+    np.testing.assert_allclose(f.numpy(), np.fft.fftfreq(n, d), rtol=4e-16,
+                               atol=0)
+    np.testing.assert_allclose(r.numpy(), np.fft.rfftfreq(n, d), rtol=4e-16,
+                               atol=0)
+    assert np.array_equal(f.numpy(), np.asarray(jt.fftfreq(n, d)))
+    assert np.array_equal(r.numpy(), np.asarray(jt.rfftfreq(n, d)))
+
+
+def test_freq_grids_go_to_the_card_by_default():
+    if torch.cuda.is_available():
+        assert pt.fftfreq(8).is_cuda and pt.rfftfreq(8).is_cuda
+    else:
+        for fn in (pt.fftfreq, pt.rfftfreq):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn(8)
+
+
+def _direct_circular(a, b):
+    n = a.shape[-1]
+    idx = (np.arange(n)[:, None] - np.arange(n)[None, :]) % n
+    return np.einsum("...j,...kj->...k", a, b[..., idx])
+
+
+@pytest.mark.parametrize("n", [15, 60])
+@pytest.mark.parametrize("kind", ["real", "complex", "mixed"])
+def test_circular_convolve(kind, n):
+    a = complex_input((3, n), np.complex128, seed=n)
+    b = complex_input((3, n), np.complex128, seed=n + 1)
+    if kind == "real":
+        a, b = a.real.copy(), b.real.copy()
+    elif kind == "mixed":
+        b = b.real.copy()
+    got = pt.circular_convolve(_t(a), _t(b))
+    assert got.is_complex() == (kind != "real")
+    assert rel_err(got, _direct_circular(a, b)) < 1e-12
+    assert rel_err(got, np.asarray(jt.circular_convolve(a, b))) < 1e-12
+
+
+def test_circular_convolve_axis_and_errors():
+    a = real_input((12, 3), np.float32, seed=14)
+    b = real_input((12, 3), np.float32, seed=15)
+    got = pt.circular_convolve(_t(a), _t(b), axis=0)
+    want = _direct_circular(a.T.astype(np.float64), b.T.astype(np.float64)).T
+    assert got.dtype == torch.float32 and rel_err(got, want) < 1e-4
+    for api, x, y in ((jt, a, b[:5]), (pt, _t(a), _t(b[:5]))):
+        with pytest.raises(ValueError, match="lengths differ"):
+            api.circular_convolve(x, y, axis=0)

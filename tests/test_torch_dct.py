@@ -310,12 +310,6 @@ def test_errors():
     for bad in (0, 9):
         with pytest.raises(ValueError, match="1..8"):
             pt.dct(x, bad)
-    for t in (5, 6, 7, 8):
-        for fn in (pt.dct, pt.idct, pt.dst, pt.idst):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                fn(x, t)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            pt.dctn(x, t)
     with pytest.raises(ValueError, match="n >= 2"):
         pt.dct(torch.zeros((2, 1)), 1)
     with pytest.raises(ValueError, match="norm"):

@@ -21,7 +21,7 @@ from cfftpack_tpu_torch.config import resolve_device
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
-from cfftpack_tpu_torch.ops import colfft, fused_fft, stream_fft
+from cfftpack_tpu_torch.ops import colfft, fourstep_fft, fused_fft, stream_fft
 
 from torch_parity import rel_err, to_np
 
@@ -76,7 +76,10 @@ def test_pricer_mesh_waits_for_the_parallel_layer():
 def test_import_leaves_jax_out():
     code = ("import sys, cfftpack_tpu_torch, cfftpack_tpu_torch.models, "
             "cfftpack_tpu_torch.entry, cfftpack_tpu_torch.ops.stream_fft, "
-            "cfftpack_tpu_torch.ops.colfft; "
+            "cfftpack_tpu_torch.ops.colfft, "
+            "cfftpack_tpu_torch.ops.fourstep_fft, "
+            "cfftpack_tpu_torch.ops.gdft, cfftpack_tpu_torch.ops.oddtypes, "
+            "cfftpack_tpu_torch.ops.shift, cfftpack_tpu_torch.ops.freq; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'cfftpack_tpu.'))] ; "
             "assert not bad, bad")
@@ -93,8 +96,13 @@ def test_cpu_slice_never_launches_the_kernel():
                       grid_sigma=0.2, device="cpu")
     pt.fft2_split(torch.zeros((2, 64, 8)), torch.zeros((2, 64, 8)))
     pt.dctn(torch.zeros((2, 64, 8)), 2, axes=(-2, -1))
-    assert fused_fft.launches == 0
-    assert stream_fft.launches == {"K2": 0, "K3": 0, "K4": 0}
+    z = torch.zeros((2, 4096))
+    pt.fft_split(z, z, impl="pallas")
+    stream_fft.sfft_mm2(z, z, 4096, False)
+    pt.gdft(torch.zeros((2, 60), dtype=torch.complex64), 0.5, 0.25)
+    pt.dct(torch.zeros((2, 13)), 5)
+    assert fused_fft.launches == 0 and fourstep_fft.launches == 0
+    assert stream_fft.launches == {"K2": 0, "K3": 0, "K4": 0, "K11": 0}
     assert colfft.launches == {"K6": 0, "K9": 0}
 
 
@@ -111,6 +119,11 @@ DEFAULT_DEVICE_CALLS = {
         [1.0, 2.0, 3.0] if not kw else torch.tensor([1.0, 2.0, 3.0], **kw)),
     "dct of an ndarray": lambda **kw: pt.dct(
         np.ones(6) if not kw else torch.ones(6, **kw)),
+    "gdft of a list": lambda **kw: pt.gdft(
+        [1.0, 2.0, 3.0] if not kw else torch.tensor([1.0, 2.0, 3.0], **kw),
+        0.5, 0.25),
+    "fftfreq": lambda **kw: pt.fftfreq(8, **kw),
+    "rfftfreq": lambda **kw: pt.rfftfreq(8, **kw),
 }
 
 

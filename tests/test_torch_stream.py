@@ -266,7 +266,7 @@ def test_launch_refuses_what_the_kernel_does_not_take():
     meta = torch.empty((2, m, 128), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         sf.sfft_stream_permuted(meta, meta, 2048, False)      # no fallback
-    assert sf.launches == {"K2": 0, "K3": 0, "K4": 0}
+    assert sf.launches == {"K2": 0, "K3": 0, "K4": 0, "K11": 0}
 
 
 @pytest.mark.cuda
