@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # xr, xi, yr, yi, twr, twi, dr, di, B, n, nstages, factors, tw_offs,
 # dense_offs, inverse, tb, threads, stream
 _K1_ARGTYPES = [_P] * 8 + [_I, _I, _I] + [_P] * 3 + [_I, _I, _I, _P]
@@ -47,12 +48,15 @@ _RSTREAM_ARGTYPES = ([_P] * 2 + [ctypes.c_longlong] + [_P] * 8
 # lshift, scale, stream
 _COL_ARGTYPES = ([_P] * 6 + [_I, _P, _P] + [_P] * 3 + [_I] * 5
                  + [ctypes.c_float, _P])
-# xr, xi, yr, yi, sr, si, dr, di, t1r, t1i, twr, twi, nstages, fac, off,
+# xr, xi, yr, yi, sr, si, d4, t1r, t1i, twr, twi, nstages, fac, off,
 # b, n2, rshift, inverse, stream
-_FOURSTEP_ARGTYPES = [_P] * 12 + [_I, _P, _P] + [_I] * 4 + [_P]
-# xr, xi, yr, yi, sr, si, dmr, dmi, d1r, d1i, t1r, t1i, b, m, inverse,
-# natural, stream
+_FOURSTEP_ARGTYPES = [_P] * 11 + [_I, _P, _P] + [_I] * 4 + [_P]
+# xr, xi, yr, yi, sr, si (null in one pass), dmr, dmi, d1r, d1i, t1r, t1i,
+# b, m, inverse, natural, stream
 _MM2_ARGTYPES = [_P] * 12 + [_I] * 4 + [_P]
+# ar, ai, a_sb, a_si, a_sk, br, bi, b_sb, b_sk, b_sj, cr, ci, c_sb, c_si,
+# c_sj, tr, ti, M, N, K, batch, stream
+_CGEMM_ARGTYPES = (([_P] * 2 + [_L] * 3) * 3 + [_P] * 2 + [_I] * 4 + [_P])
 
 
 def _nvcc() -> str:
@@ -119,7 +123,8 @@ def load() -> ctypes.CDLL:
                         ("rstream_fft_f32", _RSTREAM_ARGTYPES),
                         ("col_fft_f32", _COL_ARGTYPES),
                         ("fourstep_fft_f32", _FOURSTEP_ARGTYPES),
-                        ("mm2_fft_f32", _MM2_ARGTYPES)):
+                        ("mm2_fft_f32", _MM2_ARGTYPES),
+                        ("cgemm_f32", _CGEMM_ARGTYPES)):
         fn = getattr(lib, name)
         fn.argtypes = types
         fn.restype = ctypes.c_int

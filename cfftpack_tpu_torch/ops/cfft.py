@@ -35,13 +35,17 @@ def _check_axis(x, axis: int) -> None:
         raise ValueError(f"axis {axis} out of range for rank-{x.ndim} input")
 
 
+def _check_length(n: int) -> None:
+    """Every entry point calls this before any table is built."""
+    if n < 1:
+        raise ValueError(f"transform length must be >= 1, got {n}")
+
+
 def _fft_impl(x, axis: int, norm: str, inverse: bool):
     x = as_tensor(x)
     _check_axis(x, axis)
     x = x.to(complex_dtype_of(x.dtype))
-    n = x.shape[axis]
-    if n < 1:
-        raise ValueError(f"transform length must be >= 1, got {n}")
+    _check_length(x.shape[axis])
     return torch.complex(*_split_pass(x.real, x.imag, axis, norm, inverse))
 
 
@@ -123,6 +127,7 @@ def _fft_split_impl(xr, xi, axis: int, norm: str, inverse: bool,
     if xi.dtype != xr.dtype:
         xi = xi.to(xr.dtype)
     _check_axis(xr, axis)
+    _check_length(xr.shape[axis])
     return _split_pass(xr, xi, axis, norm, inverse, impl)
 
 

@@ -36,7 +36,7 @@ import torch
 from ..config import DEFAULT_NORM, as_tensor, check_norm
 from .. import plan
 from . import colfft, core, fused_fft, oddtypes, rstream, stream_fft
-from .cfft import _apply_axis, _check_axis
+from .cfft import _apply_axis, _check_axis, _check_length
 
 __all__ = ["dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn"]
 
@@ -521,6 +521,7 @@ def _coldct(x, t: int, n: int, mode: int):
 def _run(table, t: int, x, axis: int, mode: int):
     _check_axis(x, axis)
     n = x.shape[axis]
+    _check_length(n)
     # the column route is the DCT's: the DST cores (flips and signs
     # around the DCT's) keep the moved axis
     if (table is _FWD and t in (2, 3) and axis % x.ndim == x.ndim - 2

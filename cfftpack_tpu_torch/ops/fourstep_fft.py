@@ -10,8 +10,12 @@ and k = k1 + 64*k2,
 stage A is a dense 64-point DFT over j1 as a matrix product, then the
 outer twiddle, then stage B, the n2-point radix-4 Stockham transform
 over j2; natural order in and out, both signs.  The CUDA kernels live in
-``csrc/fourstep_fft.cu``: two passes through scratch planes, the dense
-product in full float32 on the CUDA cores.
+``csrc/fourstep_fft.cu``: two passes through scratch planes (32 bytes an
+element, which bounds it), the dense product on the tensor cores in the
+float32-accurate 3xTF32 split of ``csrc/cgemm.cuh``, the DFT matrix
+split into its TF32 halves here (:func:`_tf32_split`) and resident in
+shared memory; below n2 = 128 a tile of that product spans several
+transforms of the batch (:func:`_column_groups`).
 
 On a CPU tensor :func:`sfft_fourstep` runs the plain PyTorch version
 (:func:`sfft_fourstep_plain`: ``torch.matmul`` on the same DFT matrix
@@ -37,6 +41,7 @@ launches = 0
 _N1 = 64           # the dense outer DFT's length
 _TAIL = 16
 _MAX_N2 = 4096     # the reference's cap, kept so the eligible lengths agree
+_TILE_COLS = 128   # columns of a tile of stage A's product (FS_TJ)
 
 
 def fourstep_eligible(n: int, dtype) -> bool:
@@ -50,6 +55,32 @@ def fourstep_eligible(n: int, dtype) -> bool:
     while n2 > _TAIL and n2 % 4 == 0:
         n2 //= 4
     return n2 == _TAIL
+
+
+def _column_groups(n2: int, b: int) -> tuple[int, int]:
+    """How the kernel's stage A tiles the columns of a batch (the rule
+    of ``fourstep_fft_f32`` in ``csrc/fourstep_fft.cu``, mirrored here to
+    be tested without the card): the transforms a 128-column tile spans
+    (8 at n2 = 16, 2 at n2 = 64, 1 from n2 = 256 up) and the number of
+    tiles over the batch; the last group is masked where the batch is
+    ragged."""
+    group = max(1, _TILE_COLS // n2)
+    if group > 1:
+        return group, -(-b // group)
+    return 1, b * (n2 // _TILE_COLS)
+
+
+def _tf32_split(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """A float32 array as hi + lo, both TF32 values (10 mantissa bits,
+    rounded to nearest, ties away from zero, as ``cvt.rna.tf32.f32``): hi
+    is a rounded, lo is the rounded rest.  a - hi is exact in float32."""
+    def rna(x):
+        bits = x.view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+            np.float32)
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    hi = rna(a)
+    return hi, rna(a - hi)
 
 
 @functools.lru_cache(maxsize=16)
@@ -73,6 +104,15 @@ def _tables(n: int, inverse: bool):
 @functools.lru_cache(maxsize=16)
 def _device_tables(n: int, inverse: bool, device):
     return tuple(torch.from_numpy(t).to(device) for t in _tables(n, inverse))
+
+
+@functools.lru_cache(maxsize=4)
+def _device_split_dft(inverse: bool, device):
+    """The kernel's DFT matrix: (4, 64, 64) float32, re and im of the hi
+    halves, then of the lo halves, of the matrix of :func:`_tables`."""
+    Dr, Di = _tables(_N1 * _TAIL, inverse)[:2]
+    (rh, rl), (ih, il) = _tf32_split(Dr), _tf32_split(Di)
+    return torch.from_numpy(np.stack([rh, ih, rl, il])).to(device)
 
 
 def sfft_fourstep_plain(xr, xi, n: int, inverse: bool):
@@ -114,7 +154,8 @@ def _launch(xr, xi, n: int, inverse: bool):
     sr = torch.empty_like(xr)
     si = torch.empty_like(xi)
     n2 = n // _N1
-    Dr, Di, t1r, t1i = _device_tables(n, inverse, xr.device)
+    t1r, t1i = _device_tables(n, inverse, xr.device)[2:]
+    d4 = _device_split_dft(inverse, xr.device)
     t = plan.device_tables(n2, xr.dtype, xr.device)
     fac = np.asarray(t.factors, dtype=np.int32)
     off = np.asarray(t.offs[:-1], dtype=np.int32)
@@ -126,7 +167,7 @@ def _launch(xr, xi, n: int, inverse: bool):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fourstep_fft_f32(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            sr.data_ptr(), si.data_ptr(), Dr.data_ptr(), Di.data_ptr(),
+            sr.data_ptr(), si.data_ptr(), d4.data_ptr(),
             t1r.data_ptr(), t1i.data_ptr(), t.twr.data_ptr(),
             t.twi.data_ptr(), len(fac), fac.ctypes.data, off.ctypes.data,
             b, n2, rshift, int(inverse), stream)

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_NORM, as_tensor, resolve_device
-from .cfft import fft, ifft
+from .cfft import _check_length, fft, ifft
 from .rfft import irfft, rfft
 
 __all__ = ["fftfreq", "rfftfreq", "circular_convolve"]
@@ -42,6 +42,7 @@ def circular_convolve(a, b, axis: int = -1):
     a = as_tensor(a)
     b = as_tensor(b, like=a)
     n = a.shape[axis]
+    _check_length(n)
     if b.shape[axis] != n:
         raise ValueError("circular_convolve: axis lengths differ")
     if not (a.is_complex() or b.is_complex()):

@@ -19,8 +19,8 @@ from ..config import (DEFAULT_NORM, as_tensor, check_norm, complex_dtype_of,
                       fwd_scale, inv_scale, real_dtype_of)
 from .. import plan
 from . import core, fused_fft, stream_fft
-from .cfft import (_apply_axis, _as_real_plane, _check_axis, _fft_impl,
-                   _fft_split_impl)
+from .cfft import (_apply_axis, _as_real_plane, _check_axis, _check_length,
+                   _fft_impl, _fft_split_impl)
 
 __all__ = ["rfft", "irfft", "rfft2", "irfft2", "rfft_split", "irfft_split",
            "rfft2_split", "irfft2_split", "rfilter_split"]
@@ -36,6 +36,7 @@ def rfft(x, axis: int = -1, norm: str = DEFAULT_NORM):
     x = _as_real_plane(as_tensor(x), "rfft")
     _check_axis(x, axis)
     n = x.shape[axis]
+    _check_length(n)
 
     def core_fn(v):
         yr, yi = core.srfft(v, n)
@@ -101,6 +102,7 @@ def rfft_split(x, axis: int = -1, norm: str = DEFAULT_NORM):
     x = _as_real_plane(as_tensor(x), "rfft_split")
     _check_axis(x, axis)
     n = x.shape[axis]
+    _check_length(n)
     yr, yi = core.srfft(x.movedim(axis, -1), n)
     s = fwd_scale(norm, n)
     if s != 1.0:
@@ -259,6 +261,7 @@ def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
         dtype=x.dtype, device=x.device)
     _check_axis(x, axis)
     n = x.shape[axis]
+    _check_length(n)
     if fr.shape[-1] != n // 2 + 1 or fi.shape[-1] != n // 2 + 1:
         raise ValueError(
             f"rfilter_split: filter must have n//2+1 = {n // 2 + 1} "

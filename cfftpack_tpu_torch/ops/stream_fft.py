@@ -385,14 +385,25 @@ def sfft_stream_split(xr, xi, n: int, inverse: bool):
 # tile x[q, r], for any integer m: S = D_m . x over q, Y = S * W_n^{r k2},
 # X = Y . D_128 over r, each a dense complex product in four real ones.
 # The inverse mirrors it: the conjugate outer product, the conjugate
-# twiddle, the conjugate inner product.
+# twiddle, the conjugate inner product.  The dense form does 20-40 times a
+# fast transform's operations, so the tensor cores' rate bounds it: the
+# kernel (csrc/mm2_fft.cu) runs both products in the float32-accurate
+# 3xTF32 split of csrc/cgemm.cuh, up to m = 64 in one pass with the
+# transform held in shared memory (16 bytes an element moved), past that
+# in two passes through scratch planes (32 bytes).
 
 _MM2_MAX_M = 256          # the reference's contraction-length cap for D_m
+_MM2_ONE_PASS_MAX_M = 64  # a block holds the transform (MM2_ONE_MAX_M)
 
 
 def mm2_eligible(n: int, dtype) -> bool:
     return (dtype == torch.float32 and n % _N1 == 0
             and 2 <= n // _N1 <= _MM2_MAX_M)
+
+
+def _mm2_one_pass(m: int) -> bool:
+    """Whether K11 runs m in one kernel, with no scratch."""
+    return m <= _MM2_ONE_PASS_MAX_M
 
 
 def _mm2_device_tables(n: int, inverse: bool, device):
@@ -433,7 +444,8 @@ def sfft_mm2_plain(xr, xi, n: int, inverse: bool, natural: bool = True):
 
 
 def _mm2_launch(xr, xi, n: int, inverse: bool, natural: bool):
-    """One direction through the CUDA kernels (both products)."""
+    """One direction through the CUDA kernel (both products: one pass,
+    or two through scratch past ``_MM2_ONE_PASS_MAX_M``)."""
     if not (xr.is_cuda and xi.is_cuda) or xr.device != xi.device:
         raise ValueError(f"K11 needs both planes on one CUDA device, got "
                          f"{xr.device} and {xi.device}")
@@ -452,16 +464,20 @@ def _mm2_launch(xr, xi, n: int, inverse: bool, natural: bool):
     b = xr.shape[0]
     if b == 0:
         return yr, yi
-    sr = torch.empty_like(xr)
-    si = torch.empty_like(xi)
+    if _mm2_one_pass(n // _N1):
+        scratch = (None, None)
+    else:
+        sr = torch.empty_like(xr)
+        si = torch.empty_like(xi)
+        scratch = (sr.data_ptr(), si.data_ptr())
     tabs = _mm2_device_tables(n, inverse, xr.device)
     lib = _build.load()
     with torch.cuda.device(xr.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mm2_fft_f32(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            sr.data_ptr(), si.data_ptr(), *(t.data_ptr() for t in tabs),
-            b, n // _N1, int(inverse), int(natural), stream)
+            *scratch, *(t.data_ptr() for t in tabs), b, n // _N1,
+            int(inverse), int(natural), stream)
     if err != 0:
         raise RuntimeError(f"K11 launch failed at n={n}, b={b}, "
                            f"inverse={inverse}, natural={natural}: CUDA "

@@ -26,8 +26,9 @@ and ``dctn``/``idctn`` at (64, 1024, 1024), ``fft_split`` and
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Prints CUDA-event times of the kernels, their plain
 versions and the PyTorch calls that compute the same functions, a
-profiler breakdown of the 2-D routes, one JSON line describing the
-kernels (each with its bound on this card), and as its last line
+profiler breakdown of the 2-D routes and of K10's and K11's passes, one
+JSON line describing the kernels (each with its bound on this card),
+and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
 exits non-zero; without a CUDA card it exits non-zero before printing a
 result.
@@ -74,17 +75,26 @@ RSTREAM_M = (16, 48, 80, 512, 4096)
 # cap; n1 = 513 is the packed width of rfft2 at 1024
 COL_N0 = (16, 48, 80, 1024, 4096)
 COL_N1 = (128, 513, 1024)
-# phase 3d: every K10 length, and K11 at the smallest m, odd and ragged
-# m, a tile's edge and the cap
+# phase 3d: every K10 length (ragged column groups at the two lengths
+# whose pass A tiles span several transforms), and K11 at the smallest m,
+# odd and ragged m, the edges of the one-pass kernel's three tile heights
+# (16, 32, 64 = the one-pass cap), cap + 1, 128 and the cap of the kernel
 K10_SIZES = (1024, 4096, 16384, 65536, 262144)
-K11_M = (2, 3, 16, 100, 255, 256)
+K10_RAGGED = {1024: (1, 5), 4096: (1, 5)}
+K11_M = (2, 3, 16, 17, 32, 33, 64, 65, 100, 128, 255, 256)
+# the product alone: (M, N, K) of K10's pass A, of K11's cap, and ragged
+PRODUCT_SHAPES = ((64, 1024, 64), (256, 128, 256), (3, 128, 3),
+                  (255, 128, 255))
 # (inverse, natural spectrum): K11's four forms
 K11_FORMS = ((False, True), (False, False), (True, True), (True, False))
 KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9", "K10", "K11")
-# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s
-# and float32 flop/s outside the tensor cores
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s,
+# float32 flop/s outside the tensor cores, and dense TF32 flop/s in them;
+# a float32-accurate 3xTF32 product does a third of that in useful work
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
+X3_FLOP_S = TF32_FLOP_S / 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -296,7 +306,8 @@ def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
           f"{kern_us:.1f} us, idle {idle:.3f}  [{card}]")
     for kname, us in sorted(rows.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us:9.1f} us  {kname[:90]}")
-    return {"event_us": event_ms * 1e3, "kernel_us": kern_us, "idle": idle}
+    return {"event_us": event_ms * 1e3, "kernel_us": kern_us, "idle": idle,
+            "rows": rows}
 
 
 def mm2_reference(x, n: int, inverse: bool, natural: bool):
@@ -318,6 +329,72 @@ def mm2_dense_flops(b: int, n: int) -> float:
     arithmetic: 8*128*m*(m + 128) a transform."""
     m = n // 128
     return 8.0 * b * 128 * m * (m + 128)
+
+
+def dense_rate(flops: float, us: float) -> str:
+    """A dense product's rate beside its two yardsticks."""
+    rate = flops / (us * 1e-6)
+    return (f"{rate / 1e12:.2f} TFLOP/s of useful work: "
+            f"{rate / X3_FLOP_S:.2f} of the 3xTF32 yardstick "
+            f"({X3_FLOP_S / 1e12:.0f} TFLOP/s on {TF32_FLOP_S / 1e12:.0f} "
+            f"TFLOP/s TF32), {rate / F32_FLOP_S:.2f} of the "
+            f"{F32_FLOP_S / 1e12:.0f} TFLOP/s float32 rate")
+
+
+def product_alone(lib, M: int, N: int, K: int, batch: int, case: str):
+    """The product of csrc/cgemm.cuh alone, in one stride case of K11's
+    callers, against a complex128 matmul: the error over max |C|."""
+    tw = None
+    if case == "A shared [k][i], B rows, C rows, twiddle":
+        # the DFT matrix read with i contiguous, as both kernels read it
+        ph = torch.rand(K, M, device=DEV) * 6.283185
+        Ar, Ai = torch.cos(ph).t()[None], torch.sin(ph).t()[None]
+        Br, Bi = pair((batch, K, N), torch.float32, seed=M + K)
+        tw = pair((M, N), torch.float32, seed=N)
+    else:
+        Br, Bi = pair((1, K, N), torch.float32, seed=N + K)
+        if case.startswith("A batch [k][i]"):
+            Ar, Ai = (v.transpose(1, 2) for v in
+                      pair((batch, K, M), torch.float32, seed=M))
+            tw = pair((M, N), torch.float32, seed=N)
+        else:
+            Ar, Ai = pair((batch, M, K), torch.float32, seed=M)
+    if case.endswith("C columns"):
+        Cr, Ci = (torch.empty(batch, N, M, device=DEV).transpose(1, 2)
+                  for _ in range(2))
+    else:
+        Cr, Ci = (torch.empty(batch, M, N, device=DEV) for _ in range(2))
+
+    def strides(v):
+        return (0 if v.shape[0] == 1 else v.stride(0), v.stride(1),
+                v.stride(2))
+
+    err = lib.cgemm_f32(
+        Ar.data_ptr(), Ai.data_ptr(), *strides(Ar), Br.data_ptr(),
+        Bi.data_ptr(), *strides(Br), Cr.data_ptr(), Ci.data_ptr(),
+        *Cr.stride(), *((None, None) if tw is None
+                        else (tw[0].data_ptr(), tw[1].data_ptr())),
+        M, N, K, batch, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cgemm_f32 failed: CUDA error {err}")
+    torch.cuda.synchronize()
+    want = torch.matmul(torch.complex(Ar.double(), Ai.double()),
+                        torch.complex(Br.double(), Bi.double()))
+    if tw is not None:
+        want = want * torch.complex(tw[0].double(), tw[1].double())
+    return rel_err(torch.complex(Cr, Ci), want)
+
+
+PRODUCT_CASES = ("A shared [k][i], B rows, C rows, twiddle",
+                 "A batch [i][k], B shared, C rows",
+                 "A batch [i][k], B shared, C columns",
+                 "A batch [k][i], B shared, C rows, twiddle")
+
+
+def pass_a_flops(b: int, n: int) -> float:
+    """Real flops of K10's dense DFT-64 in four-product complex
+    arithmetic: 8*64*n a transform."""
+    return 8.0 * b * 64 * n
 
 
 def bs_closed_form(S, K, sigma, t, r):
@@ -514,9 +591,9 @@ def main() -> None:
     print(f"  worst vs plain {worst['plain']:.3e}, vs torch.fft/scipy "
           f"{worst['oracle']:.3e}")
 
-    # ---- phase 3d: K10 and K11 against their plain versions and
-    # torch.fft (complex128), ragged and full batches, both signs, K11 in
-    # its four forms
+    # ---- phase 3d: the product under K10 and K11 alone, then K10 and K11
+    # against their plain versions and torch.fft (complex128), ragged and
+    # full batches, both signs, K11 in its four forms
     print("phase 3d: K10/K11 vs plain version and torch.fft")
     dense_err = {"K10": 0.0, "K11": 0.0}
     worst = {"plain": 0.0, "oracle": 0.0}
@@ -534,8 +611,18 @@ def main() -> None:
         worst["plain"] = max(worst["plain"], ep)
         worst["oracle"] = max(worst["oracle"], eo)
 
+    # the product alone, in each stride case of K11's two passes
+    worst_c = 0.0
+    for M, N, K in PRODUCT_SHAPES:
+        for batch in (1, 5):
+            for case in PRODUCT_CASES:
+                e = product_alone(_build.load(), M, N, K, batch, case)
+                check(e < 2e-6, f"product M={M} N={N} K={K} b={batch}, "
+                      f"{case}: vs complex128 matmul {e:.2e} < 2e-6")
+                worst_c = max(worst_c, e)
+    print(f"  product alone: worst vs complex128 matmul {worst_c:.3e}")
     for n in K10_SIZES:
-        for b in (3, (1 << 22) // n):
+        for b in (3, (1 << 22) // n) + K10_RAGGED.get(n, ()):
             xr, xi = pair((b, n), torch.float32, seed=n + b)
             x64 = torch.complex(xr.double(), xi.double())
             for inv in (False, True):
@@ -1318,12 +1405,22 @@ def main() -> None:
     rows.extend(two_d.items())
     for name, ms in rows:
         print(f"  time {name}: {ms:.4f} ms  [{card}]")
+    # the dense forms by event time (host time included; phase 25b has
+    # the device times): K11's two products, and K10's pass A within the
+    # whole of K10
     for sh in k11_shapes:
         fl = mm2_dense_flops(*sh)
         print(f"  K11 dense form {sh}: {fl / 1e9:.3f} GFLOP, "
-              f"{fl / F32_FLOP_S * 1e3:.4f} ms at the card's float32 peak, "
-              f"kernel at {fl / (k11_ms[sh] * 1e-3) / 1e12:.2f} TFLOP/s; the "
-              f"function's {fft_flops(*sh) / 1e9:.3f} GFLOP  [{card}]")
+              f"{fl / X3_FLOP_S * 1e3:.4f} ms at the 3xTF32 yardstick, "
+              f"{fl / F32_FLOP_S * 1e3:.4f} ms at the float32 peak; kernel "
+              f"at {dense_rate(fl, k11_ms[sh] * 1e3)}; the function's "
+              f"{fft_flops(*sh) / 1e9:.3f} GFLOP  [{card}]")
+    for n in K10_SIZES:
+        fl = pass_a_flops((1 << 22) // n, n)
+        print(f"  K10 pass A ({(1 << 22) // n}, {n}): {fl / 1e9:.3f} GFLOP, "
+              f"{fl / X3_FLOP_S * 1e3:.4f} ms at the 3xTF32 yardstick, "
+              f"{fl / F32_FLOP_S * 1e3:.4f} ms at the float32 peak; both "
+              f"passes at {dense_rate(fl, k10_ms[n] * 1e3)}  [{card}]")
 
     # ---- phase 25: where the 2-D routes' time goes (torch.profiler)
     print("phase 25: profile of the 2-D routes at (64, 1024, 1024) f32")
@@ -1338,7 +1435,7 @@ def main() -> None:
     del fr2, fi2
 
     # ---- phase 25b: device time of K10's and K11's passes, and of K1
-    # and K3 at the same shapes
+    # and K3 at the same shapes; the dense products' rates by device time
     print("phase 25b: profile of K10, K11, K1 and K3 at 2^22 elements "
           "(device time of each pass)")
     for b, n in sorted(rival_ms):
@@ -1351,9 +1448,23 @@ def main() -> None:
                  fused_fft.fused_eligible),
                 ("K3 sfft_stream", stream_fft.sfft_stream,
                  stream_fft.stream_eligible)):
-            if takes(n, torch.float32):
-                profile_route(f"{name} ({b}, {n})",
-                              lambda: fn(ar, ai, n, False), card)
+            if not takes(n, torch.float32):
+                continue
+            got = profile_route(f"{name} ({b}, {n})",
+                                lambda: fn(ar, ai, n, False), card)
+            if name.startswith("K10"):
+                us = sum(t for k, t in got["rows"].items() if "dft64" in k)
+                print(f"    K10 pass A alone, {us:.1f} us: "
+                      f"{dense_rate(pass_a_flops(b, n), us)}  [{card}]")
+            elif name.startswith("K11"):
+                passes = ("one pass" if stream_fft._mm2_one_pass(n // 128)
+                          else "two passes through scratch")
+                check(len(got["rows"]) == 1, f"K11 at n={n} is one kernel "
+                      f"name ({passes}: {sorted(got['rows'])})")
+                print(f"    K11 dense form, {got['kernel_us']:.1f} us in "
+                      f"{passes}: "
+                      f"{dense_rate(mm2_dense_flops(b, n), got['kernel_us'])}"
+                      f"  [{card}]")
         del ar, ai
 
     # each kernel's bound at the shape its times were taken at: every

@@ -260,3 +260,64 @@ def test_circular_convolve_axis_and_errors():
     for api, x, y in ((jt, a, b[:5]), (pt, _t(a), _t(b[:5]))):
         with pytest.raises(ValueError, match="lengths differ"):
             api.circular_convolve(x, y, axis=0)
+
+
+def _zero_length_cases():
+    """Every entry point with a transform axis, on a length-0 axis."""
+    real = lambda *s: torch.zeros(s)                                # noqa: E731
+    cplx = lambda *s: torch.zeros(s, dtype=torch.complex64)         # noqa: E731
+    one = torch.zeros(1)
+    cases = {
+        "fft": lambda: pt.fft(cplx(3, 0)),
+        "ifft": lambda: pt.ifft(cplx(3, 0)),
+        "fft axis 0": lambda: pt.fft(cplx(0, 3), axis=0),
+        "fft2": lambda: pt.fft2(cplx(2, 0, 3)),
+        "ifft2": lambda: pt.ifft2(cplx(2, 3, 0)),
+        "fftn": lambda: pt.fftn(cplx(2, 0, 3)),
+        "ifftn": lambda: pt.ifftn(cplx(0, 2, 3)),
+        "fft_split": lambda: pt.fft_split(real(3, 0), real(3, 0)),
+        "ifft_split": lambda: pt.ifft_split(real(3, 0), real(3, 0)),
+        "fft_split pallas": lambda: pt.fft_split(real(3, 0), real(3, 0),
+                                                 impl="pallas"),
+        "fft2_split": lambda: pt.fft2_split(real(2, 0, 3), real(2, 0, 3)),
+        "ifft2_split": lambda: pt.ifft2_split(real(2, 3, 0), real(2, 3, 0)),
+        "rfft": lambda: pt.rfft(real(3, 0)),
+        "rfft axis 0": lambda: pt.rfft(real(0, 3), axis=0),
+        "irfft": lambda: pt.irfft(cplx(3, 1), 0),
+        "rfft_split": lambda: pt.rfft_split(real(3, 0)),
+        "irfft_split": lambda: pt.irfft_split(real(3, 1), real(3, 1), 0),
+        "rfft2 last": lambda: pt.rfft2(real(2, 3, 0)),
+        "rfft2 first": lambda: pt.rfft2(real(2, 0, 4)),
+        "rfft2_split last": lambda: pt.rfft2_split(real(2, 3, 0)),
+        "rfft2_split first": lambda: pt.rfft2_split(real(2, 0, 4)),
+        "rfilter_split": lambda: pt.rfilter_split(real(3, 0), one, one),
+        "circular_convolve real": lambda: pt.circular_convolve(
+            real(3, 0), real(3, 0)),
+        "circular_convolve complex": lambda: pt.circular_convolve(
+            cplx(3, 0), cplx(3, 0)),
+        "gdft": lambda: pt.gdft(cplx(3, 0), 0.5, 0.25),
+        "igdft": lambda: pt.igdft(cplx(3, 0), 0.5, 0.25),
+    }
+    for t in range(1, 9):
+        for name in ("dct", "idct", "dst", "idst"):
+            cases[f"{name} type {t}"] = (
+                lambda name=name, t=t: getattr(pt, name)(real(3, 0), t))
+    for name in ("dctn", "idctn", "dstn", "idstn"):
+        for t in (2, 4, 5):
+            cases[f"{name} type {t}"] = (
+                lambda name=name, t=t: getattr(pt, name)(real(2, 0, 3), t))
+    cases["dct axis -2"] = lambda: pt.dct(real(2, 0, 4), 2, axis=-2)
+    return cases
+
+
+_ZERO_LENGTH = _zero_length_cases()
+
+
+@pytest.mark.parametrize("name", sorted(_ZERO_LENGTH))
+def test_zero_length_axis_raises_one_clear_error(name):
+    """A length-0 transform axis raises the same ValueError from every
+    entry point, before any table is built (the reference raises
+    ZeroDivisionError, IndexError or returns an empty array at these
+    places, so it is not the oracle here)."""
+    with pytest.raises(ValueError, match="transform length must be >= 1"):
+        _ZERO_LENGTH[name]()
