@@ -45,9 +45,68 @@
 // Offsets into the planes are 64-bit.  The pass bodies live in
 // stream_pass.cuh, shared with K7 and K8 (rstream_fft.cu); this file
 // gives them the IO of the five modes.
+//
+// K5, entry stream_split_f32: the natural-order FFT of n = s*n_in
+// points, n_in = 128*m, s = 2 or 4, past the one-transform cap.  Replaces
+// the TPU function cfftpack_tpu/ops/pallas_stream.py:sfft_stream_split
+// (:583), which runs the s-point butterfly, the split twiddle and the
+// digit riffle as XLA passes around K2.  Here they are the passes' loads
+// and stores, so a call is exactly two kernels between the caller's
+// planes:
+//
+// * column pass, block (b, group, k1): its load reads the s values
+//   x[b, j1*n_in + j] (j1 < s) through the input's row stride, keeps
+//   output k1 of their s-point DFT (a signed sum with factors +-1, +-i)
+//   and multiplies by the split twiddle W_n^{k1*j}; then the m-point DFT
+//   of sub-transform b*s + k1 runs as K2's, or at m = 4096 in K1's
+//   register passes (regfft.cuh) on 4 lanes a block in one buffer, which
+//   four lanes need (two buffers would not fit).  The s blocks that read the
+//   same inputs are adjacent in the grid (k1 fastest), so their extra
+//   reads hit L2 and device memory is read about once;
+// * row pass, block (b, g), in register passes: 16/s rows k2 of each of
+//   the s sub-transforms, so its store writes the natural spectrum
+//   X[k1 + s*k2 + s*m*c] as runs of 16 contiguous floats (the riffle),
+//   times `scale`, times a natural n-bin filter when one is given.
+//
+// The inverse cannot put the combine across sub-transforms into the last
+// pass's store (a block would hold all s sub-transforms, 16*s*m*L bytes
+// with two buffers: 256 KB at s = 4, m = 4096, L = 1), so it runs as the
+// conjugate of the forward, ifft(X) = conj(fft(conj(X))): flag bit 1
+// negates the imaginary plane in the first load, bit 2 in the last
+// store.  The streaming filter past the cap is two such calls: Y =
+// conj(fft(z) * F) with the filter in the first call's store, then
+// conj(fft(Y)) into the caller's paired rows.
 #include <cuda_runtime.h>
 
+#include "regfft.cuh"
 #include "stream_pass.cuh"
+
+#define SF_MAX_DEVICES 64
+// K5's column pass in register passes: the m it is compiled for, the
+// threads of one lane (16 elements a thread) and the lanes of a block
+// (1024 threads, 139 KB: on an H100 at (8, 2^20) 1, 2 and 4 lanes took
+// 911, 464 and 298 us a route, as the row segment a warp reads grows from
+// 4 to 16 bytes of a 32-byte sector)
+#define SF_REG_M 4096
+#define SF_REG_TPR 256
+#define SF_REG_LANES 4
+
+// Raises a kernel's cap on dynamic shared memory to SF_SMEM_MAX, once per
+// device: a launch asks only for what it uses.
+template <class Kernel>
+static cudaError_t sf_allow_smem(Kernel kernel, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= SF_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SF_SMEM_MAX);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
 
 // Column-pass IO: (b, m, 128) planes in and out.
 struct SFColIO {
@@ -140,15 +199,261 @@ __global__ void __launch_bounds__(SF_ROW_THREADS)
   sf_row_pass(io, sf_row_smem, twr, twi, inverse != 0, plan);
 }
 
-enum { SF_FWD = 0, SF_INV = 1, SF_FWD_NAT = 2, SF_INV_NAT = 3, SF_FILTER = 4 };
+// (vr, vi) times (-i)^p.
+__device__ __forceinline__ void sf_quarter(float& vr, float& vi, int p) {
+  const float r = vr, i = vi;
+  switch (p & 3) {
+    case 1: vr = i; vi = -r; break;
+    case 2: vr = -r; vi = -i; break;
+    case 3: vr = -i; vi = r; break;
+    default: break;
+  }
+}
 
-// Both passes of one mode on `stream`.  x and y are the input and output
-// planes, s the (b, m, 128) scratch planes; t1 the outer twiddle in the
-// mode's sign; (ctw, cfac, coff) the m-point plan of the column pass and
-// (rtw, rfac, roff) the 128-point plan of the row pass, both with
-// forward-sign twiddles; f the filter (mode 4 only).  Returns the first
-// CUDA error, or cudaErrorInvalidValue for arguments the kernels do not
-// take.
+// K5 column-pass IO: the load combines the s input rows into output k1 of
+// their s-point DFT and applies the split twiddle (s, n_in) at [k1, j];
+// the store writes sub-transform `row` = b*S + k1 of the (b*S, m, 128)
+// scratch.  `isgn` = -1 conjugates the input.
+template <int S>
+struct SFSplitColIO {
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  float* __restrict__ yr;
+  float* __restrict__ yi;
+  const float* __restrict__ spr;
+  const float* __restrict__ spi;
+  long long in_rs, n_in, b;
+  int k1;
+  float isgn;
+  __device__ __forceinline__ void load(long long, int j, float& vr,
+                                       float& vi) const {
+    const long long at = b * in_rs + j;
+    float ar = 0.0f, ai = 0.0f;
+#pragma unroll
+    for (int j1 = 0; j1 < S; ++j1) {
+      float ur = xr[at + j1 * n_in], ui = isgn * xi[at + j1 * n_in];
+      sf_quarter(ur, ui, j1 * k1 * (4 / S));
+      ar += ur;
+      ai += ui;
+    }
+    const long long t = k1 * n_in + j;
+    sf_cmul(ar, ai, spr[t], spi[t]);
+    vr = ar;
+    vi = ai;
+  }
+  __device__ __forceinline__ void store(long long row, int j, float vr,
+                                        float vi) const {
+    yr[row * n_in + j] = vr;
+    yi[row * n_in + j] = vi;
+  }
+};
+
+// K5's row pass in register passes: the 128-point DFT of 16 slots a block,
+// (4*4)(4*2), 8 threads a slot.  Slot k1*(16/S) + kk of block (b, g) holds
+// row k2 = g*(16/S) + kk of sub-transform b*S + k1.  The last pass leaves
+// the tile in shared memory, a slot every 137 words (the pad word after
+// every 16, and an odd stride, so the store's reads of 16 slots at one
+// lane hit 16 banks); the store writes X[k1 + S*k2 + S*m*c] =
+// X[c*S*m + 16*g + p], p = kk*S + k1, so each lane c is a run of 16
+// contiguous floats, times `scale` and the natural filter (when fr is
+// given), the imaginary plane times `osgn`.
+#define SF_ROW_REG_TPR 8
+#define SF_ROW_REG_RS 137
+
+template <int S>
+struct SFSplitRowIO {
+  static constexpr int K = SF_ROWS / S;
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  float* __restrict__ yr;
+  float* __restrict__ yi;
+  const float* __restrict__ fr;
+  const float* __restrict__ fi;
+  long long out_rs, b;
+  int g, m;
+  float scale, osgn;
+  __device__ __forceinline__ void store(const float* sr,
+                                        const float* si) const {
+    for (int e = threadIdx.x; e < SF_ROWS * SF_N1; e += blockDim.x) {
+      const int c = e >> 4, p = e & (SF_ROWS - 1);
+      const int at = ((p % S) * K + p / S) * SF_ROW_REG_RS + c + (c >> 4);
+      const long long k = (long long)c * S * m + (long long)g * SF_ROWS + p;
+      float vr = scale * sr[at], vi = scale * si[at];
+      if (fr != nullptr) sf_cmul(vr, vi, fr[k], fi[k]);
+      yr[b * out_rs + k] = vr;
+      yi[b * out_rs + k] = osgn * vi;
+    }
+  }
+};
+
+// The column pass of K5 at m other than SF_REG_M, in the stage loop:
+// block (b, group, k1), k1 fastest.
+template <int S>
+__global__ void __launch_bounds__(SF_COL_THREADS)
+    sf_split_col_kernel(SFSplitColIO<S> io, const float* __restrict__ t1r,
+                        const float* __restrict__ t1i,
+                        const float* __restrict__ twr,
+                        const float* __restrict__ twi, int m, int lshift,
+                        SFPlan plan) {
+  extern __shared__ __align__(16) float sf_split_smem[];
+  const int G = SF_N1 >> lshift;
+  const long long blk = blockIdx.x / S;
+  io.k1 = (int)(blockIdx.x % S);
+  io.b = blk / G;
+  sf_col_pass_at(io, sf_split_smem, t1r, t1i, twr, twi, m, lshift, false,
+                 plan, io.b * S + io.k1, (int)(blk % G) << lshift);
+}
+
+// K5's column pass at m = SF_REG_M in register passes (regfft.cuh, the
+// schedule (4*4)(4*4)(4*4) of K1 at 4096): SF_REG_LANES lanes a block,
+// lanes fastest in the thread index and in shared memory, one padded
+// buffer of both planes (4352 * SF_REG_LANES floats each); the split load
+// in the first pass, the outer twiddle and the scratch store in the last.
+template <int S>
+struct SFSplitColRegIO {
+  static constexpr bool last_in_smem = false;
+  SFSplitColIO<S> io;
+  const float* __restrict__ t1r;
+  const float* __restrict__ t1i;
+  float* sr;
+  float* si;
+  long long row;
+  int r, lane;
+  __device__ __forceinline__ int sidx(int e) const {
+    return (e + (e >> 4)) * SF_REG_LANES + lane;
+  }
+  __device__ __forceinline__ void gload(int e, float& vr, float& vi) const {
+    io.load(row, e * SF_N1 + r, vr, vi);
+  }
+  __device__ __forceinline__ void gstore(int e, float vr, float vi) const {
+    const int g = e * SF_N1 + r;
+    sf_cmul(vr, vi, t1r[g], t1i[g]);
+    io.store(row, g, vr, vi);
+  }
+};
+
+// Block (b, group, k1), k1 fastest.
+template <int S>
+__global__ void __launch_bounds__(SF_REG_TPR * SF_REG_LANES)
+    sf_split_col_reg_kernel(SFSplitColIO<S> io, const float* __restrict__ t1r,
+                            const float* __restrict__ t1i,
+                            const float* __restrict__ ptw) {
+  extern __shared__ __align__(16) float sf_split_reg_smem[];
+  constexpr int G = SF_N1 / SF_REG_LANES;
+  constexpr int RS = (SF_REG_M + (SF_REG_M >> 4)) * SF_REG_LANES;
+  const long long blk = blockIdx.x / S;
+  io.k1 = (int)(blockIdx.x % S);
+  io.b = blk / G;
+  const int lane = threadIdx.x % SF_REG_LANES;
+  const SFSplitColRegIO<S> rio{
+      io, t1r, t1i, sf_split_reg_smem, sf_split_reg_smem + RS,
+      io.b * S + io.k1, (int)(blk % G) * SF_REG_LANES + lane, lane};
+  rf_chain<float, SF_REG_M, SF_REG_TPR, 1, 0, true, SFSplitColRegIO<S>,
+           RfPass<4, 4>, RfPass<4, 4>, RfPass<4, 4>>(
+      rio, threadIdx.x / SF_REG_LANES, ptw, -1.0f);
+}
+
+// One slot's 128 points in the register passes.
+struct SFSplitRowRegIO {
+  static constexpr bool last_in_smem = true;
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  float* sr;
+  float* si;
+  long long at;
+  __device__ __forceinline__ int sidx(int e) const { return e + (e >> 4); }
+  __device__ __forceinline__ void gload(int e, float& vr, float& vi) const {
+    vr = xr[at + e];
+    vi = xi[at + e];
+  }
+  __device__ __forceinline__ void gstore(int, float, float) const {}
+};
+
+template <int S>
+__global__ void __launch_bounds__(SF_ROWS * SF_ROW_REG_TPR)
+    sf_split_row_kernel(SFSplitRowIO<S> io, const float* __restrict__ ptw) {
+  __shared__ __align__(16) float sm[2 * SF_ROWS * SF_ROW_REG_RS];
+  constexpr int K = SF_ROWS / S;
+  const int G = io.m * S / SF_ROWS;
+  io.b = blockIdx.x / G;
+  io.g = (int)(blockIdx.x % G);
+  const int sl = threadIdx.x / SF_ROW_REG_TPR;
+  const long long row = io.b * S + sl / K;
+  const SFSplitRowRegIO rio{
+      io.xr, io.xi, sm + sl * SF_ROW_REG_RS,
+      sm + (SF_ROWS + sl) * SF_ROW_REG_RS,
+      (row * io.m + (long long)io.g * K + sl % K) * SF_N1};
+  rf_chain<float, SF_N1, SF_ROW_REG_TPR, 1, 0, true, SFSplitRowRegIO,
+           RfPass<4, 4>, RfPass<4, 2>>(rio, threadIdx.x % SF_ROW_REG_TPR, ptw,
+                                       -1.0f);
+  io.store(sm, sm + SF_ROWS * SF_ROW_REG_RS);
+}
+
+enum { SF_FWD = 0, SF_INV = 1, SF_FWD_NAT = 2, SF_INV_NAT = 3, SF_FILTER = 4 };
+enum { SF_CONJ_IN = 1, SF_CONJ_OUT = 2 };
+
+static bool sf_col_ready[SF_MAX_DEVICES];
+
+// Both passes of K5 over b rows of n = S*128*m points: the column pass in
+// register passes at m = SF_REG_M (pass twiddles ptw), else in the stage
+// loop on 1 << lshift lanes; the row pass in register passes (rptw).
+template <int S>
+static int sf_split_run(const void* xr, const void* xi, void* yr, void* yi,
+                        void* sr, void* si, const void* t1r, const void* t1i,
+                        const void* ctwr, const void* ctwi,
+                        const SFPlan& cplan, const void* spr, const void* spi,
+                        const void* ptw, const void* rptw, const void* fr,
+                        const void* fi, int b, int m, int lshift,
+                        long long in_rs, long long out_rs, float scale,
+                        int conj, cudaStream_t st) {
+  static bool col_ready[SF_MAX_DEVICES], reg_ready[SF_MAX_DEVICES];
+  const long long rgrid = (long long)b * (m * S / SF_ROWS);
+  if (rgrid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const SFSplitColIO<S> cio{(const float*)xr, (const float*)xi, (float*)sr,
+                            (float*)si, (const float*)spr, (const float*)spi,
+                            in_rs, (long long)m * SF_N1, 0, 0,
+                            (conj & SF_CONJ_IN) ? -1.0f : 1.0f};
+  cudaError_t err;
+  if (m == SF_REG_M) {
+    const size_t smem = 2 * sizeof(float) * (SF_REG_M + (SF_REG_M >> 4)) *
+                        (size_t)SF_REG_LANES;
+    const long long grid = (long long)b * S * (SF_N1 / SF_REG_LANES);
+    if (ptw == nullptr || grid > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    err = sf_allow_smem(sf_split_col_reg_kernel<S>, reg_ready);
+    if (err != cudaSuccess) return (int)err;
+    sf_split_col_reg_kernel<S>
+        <<<(unsigned)grid, SF_REG_TPR * SF_REG_LANES, smem, st>>>(
+            cio, (const float*)t1r, (const float*)t1i, (const float*)ptw);
+  } else {
+    const size_t smem = 16 * (size_t)m * ((size_t)1 << lshift);
+    const long long grid = (long long)b * S * (SF_N1 >> lshift);
+    if (smem > SF_SMEM_MAX || grid > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    err = sf_allow_smem(sf_split_col_kernel<S>, col_ready);
+    if (err != cudaSuccess) return (int)err;
+    sf_split_col_kernel<S><<<(unsigned)grid, SF_COL_THREADS, smem, st>>>(
+        cio, (const float*)t1r, (const float*)t1i, (const float*)ctwr,
+        (const float*)ctwi, m, lshift, cplan);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const SFSplitRowIO<S> rio{(const float*)sr, (const float*)si, (float*)yr,
+                            (float*)yi, (const float*)fr, (const float*)fi,
+                            out_rs, 0, 0, m, scale,
+                            (conj & SF_CONJ_OUT) ? -1.0f : 1.0f};
+  sf_split_row_kernel<S><<<(unsigned)rgrid, SF_ROWS * SF_ROW_REG_TPR, 0, st>>>(
+      rio, (const float*)rptw);
+  return (int)cudaGetLastError();
+}
+
+// Both passes of one of K2-K4's modes on `stream`.  x and y are the input
+// and output planes, s the (b, m, 128) scratch planes; t1 the outer
+// twiddle in the mode's sign; (ctw, cfac, coff) the m-point plan of the
+// column pass and (rtw, rfac, roff) the 128-point plan of the row pass,
+// both with forward-sign twiddles; f the (nfilt, m, 128) permuted filter
+// slices of mode filter.  Returns the first CUDA error, or
+// cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int stream_fft_f32(
     const void* xr, const void* xi, void* yr, void* yi, void* sr, void* si,
     const void* t1r, const void* t1i, const void* ctwr, const void* ctwi,
@@ -169,8 +474,7 @@ extern "C" int stream_fft_f32(
   const long long rgrid = (long long)b * (m / SF_ROWS);
   if (csmem > SF_SMEM_MAX || cgrid > 0x7fffffffLL || rgrid > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sf_col_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
+  cudaError_t err = sf_allow_smem(sf_col_kernel, sf_col_ready);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const bool inv = mode != SF_FWD && mode != SF_FWD_NAT;
@@ -200,4 +504,39 @@ extern "C" int stream_fft_f32(
       (const float*)t1r, (const float*)t1i, (const float*)ctwr,
       (const float*)ctwi, m, lshift, 1, cplan);
   return (int)cudaGetLastError();
+}
+
+// K5 on `stream`: b rows of n = split*128*m points (split = 2 or 4), row
+// strides in_rs of x and out_rs of y, the (b*split, m, 128) scratch s.
+// t1 is the forward outer twiddle of n/split points, (ctw, cfac, coff) the
+// m-point plan of the stage-loop column pass (m other than 4096), sp the
+// (split, m, 128) split twiddle, ptw the register pass twiddles of the
+// column pass at m = 4096 (else null) and rptw those of the 128-point row
+// pass; f a natural n-bin filter or null; the row pass's store multiplies
+// by scale; conj bit 1 negates the imaginary plane of the load, bit 2 of
+// the store.  Returns the first CUDA error, or cudaErrorInvalidValue for
+// arguments the kernels do not take.
+extern "C" int stream_split_f32(
+    const void* xr, const void* xi, void* yr, void* yi, void* sr, void* si,
+    const void* t1r, const void* t1i, const void* ctwr, const void* ctwi,
+    int cstages, const int* cfac, const int* coff, const void* spr,
+    const void* spi, int split, const void* ptw, const void* rptw,
+    const void* fr, const void* fi, int b, int m, int lshift, long long in_rs,
+    long long out_rs, float scale, int conj, void* stream) {
+  SFPlan cplan;
+  const long long n = (long long)split * m * SF_N1;
+  if (b < 1 || m < SF_ROWS || m % SF_ROWS || lshift < 0 || lshift > 7 ||
+      !sf_make_plan(&cplan, m, cstages, cfac, coff) ||
+      (split != 2 && split != 4) || spr == nullptr || spi == nullptr ||
+      rptw == nullptr || in_rs < n || out_rs < n ||
+      (fr == nullptr) != (fi == nullptr) || conj < 0 || conj > 3)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return split == 2
+             ? sf_split_run<2>(xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi,
+                               cplan, spr, spi, ptw, rptw, fr, fi, b, m,
+                               lshift, in_rs, out_rs, scale, conj, st)
+             : sf_split_run<4>(xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi,
+                               cplan, spr, spi, ptw, rptw, fr, fi, b, m,
+                               lshift, in_rs, out_rs, scale, conj, st);
 }

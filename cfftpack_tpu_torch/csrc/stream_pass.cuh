@@ -141,20 +141,16 @@ __device__ void sf_stages(float* ar, float* ai, float* br, float* bi,
   *outi = ai;
 }
 
-// Column pass of block (row, group): lanes [group*L, group*L + L) of
-// transform `row`, L = 1 << lshift; `smem` holds 4*m*L floats.  The outer
-// twiddle table t1 is (m, 128) in the transform's sign, read at the same
-// in-transform index as the data.
+// Column pass of lanes [r0, r0 + L) of transform `row`, L = 1 << lshift;
+// `smem` holds 4*m*L floats.  The outer twiddle table t1 is (m, 128) in
+// the transform's sign, read at the same in-transform index as the data.
 template <class IO>
-__device__ __forceinline__ void sf_col_pass(
+__device__ __forceinline__ void sf_col_pass_at(
     const IO& io, float* smem, const float* __restrict__ t1r,
     const float* __restrict__ t1i, const float* __restrict__ twr,
     const float* __restrict__ twi, int m, int lshift, bool inverse,
-    const SFPlan& plan) {
+    const SFPlan& plan, long long row, int r0) {
   const int L = 1 << lshift;
-  const int G = SF_N1 >> lshift;
-  const long long row = blockIdx.x / G;
-  const int r0 = (int)(blockIdx.x % G) * L;
   const int cnt = m * L;
   float* ar = smem;
   float* ai = ar + cnt;
@@ -181,6 +177,20 @@ __device__ __forceinline__ void sf_col_pass(
     if (!inverse) sf_cmul(vr, vi, t1r[g], t1i[g]);
     io.store(row, g, vr, vi);
   }
+}
+
+// Column pass of block (row, group) = (blockIdx.x / G, blockIdx.x % G):
+// lanes [group*L, group*L + L) of transform `row`.
+template <class IO>
+__device__ __forceinline__ void sf_col_pass(
+    const IO& io, float* smem, const float* __restrict__ t1r,
+    const float* __restrict__ t1i, const float* __restrict__ twr,
+    const float* __restrict__ twi, int m, int lshift, bool inverse,
+    const SFPlan& plan) {
+  const int G = SF_N1 >> lshift;
+  sf_col_pass_at(io, smem, t1r, t1i, twr, twi, m, lshift, inverse, plan,
+                 (long long)(blockIdx.x / G),
+                 (int)(blockIdx.x % G) << lshift);
 }
 
 // Load-loop and store-loop order of the row pass: element e is slot s,

@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "cfftpack_tpu_torch")
@@ -30,14 +32,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# xr, xi, yr, yi, twr, twi, dr, di, B, n, nstages, factors, tw_offs,
-# dense_offs, inverse, tb, threads, stream
-_K1_ARGTYPES = [_P] * 8 + [_I, _I, _I] + [_P] * 3 + [_I, _I, _I, _P]
+# xr, xi, yr, yi, twr, twi, dr, di, ptw, B, n, nstages, factors,
+# tw_offs, dense_offs, npass, pass_len, inverse, tb, threads, scale, stream
+_K1_ARGTYPES = ([_P] * 9 + [_I, _I, _I] + [_P] * 3 + [_I, _P, _I, _I, _I,
+                                                      ctypes.c_double, _P])
 # xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
 # rtwr, rtwi, rstages, rfac, roff, fr, fi, nfilt, b, m, mode, lshift,
 # stream
 _STREAM_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
                     + [_P] * 2 + [_I] * 5 + [_P])
+# xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff, spr,
+# spi, split, ptw, rptw, fr, fi, b, m, lshift, in_rs, out_rs, scale, conj,
+# stream
+_SPLIT_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I] + [_P] * 4
+                   + [_I] * 3 + [_L, _L, ctypes.c_float, _I, _P])
 # xr, xi, xs, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
 # rtwr, rtwi, rstages, rfac, roff, par, pai, pbr, pbi, b, m, mode, lshift,
 # stream
@@ -120,6 +128,7 @@ def load() -> ctypes.CDLL:
     for name, types in (("cfft_stockham_f32", _K1_ARGTYPES),
                         ("cfft_stockham_f64", _K1_ARGTYPES),
                         ("stream_fft_f32", _STREAM_ARGTYPES),
+                        ("stream_split_f32", _SPLIT_ARGTYPES),
                         ("rstream_fft_f32", _RSTREAM_ARGTYPES),
                         ("col_fft_f32", _COL_ARGTYPES),
                         ("fourstep_fft_f32", _FOURSTEP_ARGTYPES),
@@ -129,3 +138,18 @@ def load() -> ctypes.CDLL:
         fn.argtypes = types
         fn.restype = ctypes.c_int
     return lib
+
+
+def call(fn, device, *args) -> int:
+    """Call a kernel's C entry with PyTorch's current stream on ``device``
+    as its last argument and ``device`` as the current CUDA device;
+    returns the entry's CUDA error code."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+def ints(values) -> ctypes.Array:
+    """A C int array of ``values``, for an entry's small host tables."""
+    return (ctypes.c_int * max(1, len(values)))(*values)

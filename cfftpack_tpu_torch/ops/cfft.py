@@ -79,15 +79,19 @@ def _as_real_plane(x, name: str):
     return x
 
 
-def _kernel_engine(xr, xi, n: int, inverse: bool):
-    """The unscaled transform of ``impl="pallas"``: K10 where it takes
-    (n, dtype), else K1 called directly, else ``ValueError``, as the
-    reference raises when neither of its kernels takes the length.  No
-    Bluestein, no stream kernel, no in-core four-step."""
+def _kernel_engine(xr, xi, n: int, inverse: bool, scale: float = 1.0):
+    """The transform of ``impl="pallas"``: K10 where it takes (n, dtype),
+    else K1 called directly, else ``ValueError``, as the reference raises
+    when neither of its kernels takes the length.  No Bluestein, no
+    stream kernel, no in-core four-step.  K1 applies ``scale`` in its
+    store, K10 takes one multiply after it."""
     if fourstep_fft.fourstep_eligible(n, xr.dtype):
-        return fourstep_fft.sfft_fourstep(xr, xi, n, inverse)
+        yr, yi = fourstep_fft.sfft_fourstep(xr, xi, n, inverse)
+        if scale != 1.0:
+            yr, yi = yr * scale, yi * scale
+        return yr, yi
     if fused_fft.fused_eligible(n, xr.dtype):
-        return fused_fft.sfft_fused(xr, xi, n, inverse)
+        return fused_fft.sfft_fused(xr, xi, n, inverse, scale)
     raise ValueError(
         f"impl='pallas' unsupported for n={n}, dtype={xr.dtype}: the "
         "four-step kernel takes float32 n in {1024, 4096, 16384, 65536, "
@@ -100,19 +104,16 @@ def _split_pass(xr, xi, axis: int, norm: str, inverse: bool,
     """One scaled pass over ``axis`` of same-dtype real planes.  The
     default engine: K6 in the natural layout for an eligible axis -2,
     else ``core.sfft`` on the axis moved last.  ``impl="pallas"``: the
-    axis moved last, :func:`_kernel_engine`, and the scale as a separate
-    pass, as the reference has it."""
+    axis moved last and :func:`_kernel_engine`.  The norm scale goes to
+    the engine, which applies it in a kernel's store where it can (K6,
+    K1, K5) and with one multiply otherwise."""
     n = xr.shape[axis]
     s = inv_scale(norm, n) if inverse else fwd_scale(norm, n)
     if (impl == "xla" and xr.ndim >= 2 and axis % xr.ndim == xr.ndim - 2
             and colfft.colfft_eligible(n, xr.shape[-1], xr.dtype)):
-        # the norm scale rides in the kernel's store
         return colfft.scolfft(xr, xi, inverse, scale=s)
     engine = _kernel_engine if impl == "pallas" else core.sfft
-    yr, yi = engine(xr.movedim(axis, -1), xi.movedim(axis, -1), n, inverse)
-    if s != 1.0:
-        yr = yr * s
-        yi = yi * s
+    yr, yi = engine(xr.movedim(axis, -1), xi.movedim(axis, -1), n, inverse, s)
     return yr.movedim(-1, axis), yi.movedim(-1, axis)
 
 

@@ -9,13 +9,14 @@ real transforms built on the complex one.  Host tables are float64
 
 Dispatch depends only on (n, dtype): Bluestein, else K1
 (``fused_fft.sfft_fused``), else for float32 the stream kernel K3 or,
-past its cap, the s-way split K5 around K2
-(``stream_fft.sfft_stream_split``), else the four-step whose row
-transforms recurse here.  Real transforms of float32 stream lengths
-with an even batch past K1's half length take the real-stream kernel
-(K7, ``rstream``).  The device decides one thing only, inside
-the kernels' wrappers: a CPU tensor runs the plain version
-(``_stockham`` below for K1), a CUDA tensor launches the kernel.
+past its cap, the s-way split K5 (``stream_fft.sfft_stream_split``),
+else the four-step whose row transforms recurse here.  ``sfft`` takes
+an optional scale, which K1 and K5 apply in their store.  Real
+transforms of float32 stream lengths with an even batch past K1's half
+length take the real-stream kernel (K7, ``rstream``).  The device
+decides one thing only, inside the kernels' wrappers: a CPU tensor runs
+the plain version (``_stockham`` below for K1), a CUDA tensor launches
+the kernel.
 """
 from __future__ import annotations
 
@@ -207,7 +208,7 @@ def _fourstep_local(xr, xi, n: int, inverse: bool):
     return Yr, Yi
 
 
-def _bluestein(xr, xi, n: int, inverse: bool):
+def _bluestein(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     m, cr, ci, br, bi = plan.device_tables(n, xr.dtype, xr.device).bluestein
     if inverse:
         ci = -ci
@@ -218,29 +219,36 @@ def _bluestein(xr, xi, n: int, inverse: bool):
     Ar, Ai = _fft_any(ar, ai, m, inverse=False)
     Cr, Ci = _cmul_tab(Ar, Ai, br, bi)
     Er, Ei = _fft_any(Cr, Ci, m, inverse=True)
-    s = 1.0 / m
+    s = scale / m
     Er = Er[..., :n] * s
     Ei = Ei[..., :n] * s
     return _cmul_tab(Er, Ei, cr, ci)
 
 
-def _fft_any(xr, xi, n: int, inverse: bool):
-    """Engine dispatch on (n, dtype) only."""
-    if n == 1:
-        return xr, xi
+def _fft_any(xr, xi, n: int, inverse: bool, scale: float = 1.0):
+    """Engine dispatch on (n, dtype) only.  K1 and the K5 split apply
+    ``scale`` in their store, Bluestein in its own 1/m multiply, every
+    other engine with one multiply at the end."""
     if plan.needs_bluestein(n):
-        return _bluestein(xr, xi, n, inverse)
+        return _bluestein(xr, xi, n, inverse, scale)
     if fused_fft.fused_eligible(n, xr.dtype):
-        return fused_fft.sfft_fused(xr, xi, n, inverse)
+        return fused_fft.sfft_fused(xr, xi, n, inverse, scale)
     if stream_fft.stream_filter_eligible(n, xr.dtype):
-        # K3, or past its cap (2^20, 2^21) the K5 split around K2
-        return stream_fft.sfft_stream_split(xr, xi, n, inverse)
-    return _fourstep_local(xr, xi, n, inverse)
+        # K3, or past its cap (2^20, 2^21) the K5 split
+        return stream_fft.sfft_stream_split(xr, xi, n, inverse, scale)
+    if n == 1:
+        yr, yi = xr, xi
+    else:
+        yr, yi = _fourstep_local(xr, xi, n, inverse)
+    if scale != 1.0:
+        yr, yi = yr * scale, yi * scale
+    return yr, yi
 
 
-def sfft(xr, xi, n: int, inverse: bool):
-    """Unscaled mixed-radix DFT over the last axis of an (re, im) pair."""
-    return _fft_any(xr, xi, n, inverse)
+def sfft(xr, xi, n: int, inverse: bool, scale: float = 1.0):
+    """Mixed-radix DFT over the last axis of an (re, im) pair, unscaled
+    unless ``scale`` is given."""
+    return _fft_any(xr, xi, n, inverse, scale)
 
 
 # ------------------------------------------------------- real transforms

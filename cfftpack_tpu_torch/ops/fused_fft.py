@@ -2,18 +2,27 @@
 
 Counterpart of ``cfftpack_tpu/ops/pallas_fft.py`` (the Pallas kernel
 ``_make_kernel`` behind ``sfft_pallas``).  A block of the CUDA kernel
-in ``csrc/stockham_fft.cu`` holds whole rows in shared memory and runs
-every stage there, so the transform reads and writes device memory
-once.  Eligible: n > 1 with no prime factor above 32, float32 or
-float64, and two ping-pong buffers of both planes of one row within
-the shared memory one block may use.
+in ``csrc/stockham_fft.cu`` holds whole rows on chip and runs every
+stage there, so the transform reads and writes device memory once, and
+applies an optional scale in its store.  Eligible: n > 1 with no prime
+factor above 32, float32 or float64, and two ping-pong buffers of both
+planes of one row within the shared memory one block may use.
+
+The lengths of :data:`REG_LENGTHS` run the register-pass kernel: the
+stages of ``plan.factor(n)`` grouped into passes (``plan.reg_passes``)
+that a thread runs in registers, one shared-memory exchange a pass.
+Every other length runs the stage loop.  The choice is by length alone.
 
 On a CPU tensor :func:`sfft_fused` runs the plain PyTorch version
 (``core._stockham``, the same stage schedule and tables); on a CUDA
-tensor it launches the kernel or raises.  ``launches`` counts kernel
-launches.
+tensor it launches the kernel or raises.  A launch plan per (n, dtype,
+inverse, device) holds what the C entry takes besides the data, so a
+launch is the checks, two ``torch.empty`` and one C call.  ``launches``
+counts kernel launches.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -21,15 +30,23 @@ import torch
 from .. import plan
 from . import _build, core
 
-__all__ = ["fused_eligible", "sfft_fused", "sfft_plain"]
+__all__ = ["fused_eligible", "sfft_fused", "sfft_plain", "REG_LENGTHS"]
 
 launches = 0
 
 # Shared memory one block may use on sm_90 (227 KB).
 _SMEM_BUDGET = 232448
-# Rows per block are sized to this much, so two blocks share an SM.
+# The stage loop: rows per block are sized to this much, so two blocks
+# share an SM.
 _SMEM_TARGET = 96 * 1024
 _THREADS = 512
+
+# The register kernel: the lengths it is compiled for and the elements a
+# thread holds in a pass.
+REG_LENGTHS = {torch.float32: (480, 512, 960, 1024, 2048, 4096, 8192),
+               torch.float64: (480, 512, 960, 1024, 2048, 4096)}
+_REG_ELEMS = 16
+_REG_MAX_THREADS = {torch.float32: 512, torch.float64: 256}
 
 
 def fused_eligible(n: int, dtype: torch.dtype) -> bool:
@@ -41,9 +58,23 @@ def fused_eligible(n: int, dtype: torch.dtype) -> bool:
 
 
 def _tile_rows(n: int, dtype: torch.dtype) -> int:
-    """Rows T per block: floor(target / (2 buffers * 2 planes * n * size))."""
+    """Rows T per block of the stage loop: floor(target / (2 buffers *
+    2 planes * n * size))."""
     per_row = 4 * n * dtype.itemsize
     return max(1, min(_SMEM_BUDGET, _SMEM_TARGET) // per_row)
+
+
+def _reg_threads_per_row(n: int) -> int:
+    return -(-n // _REG_ELEMS)
+
+
+def _reg_tile_rows(n: int, dtype: torch.dtype) -> int:
+    """Rows a block of the register kernel: one, or two where a row is one
+    warp (n = 512).  Measured on an H100 at 2^22 elements, 1, 2 and 4
+    rows a block (``chip_smoke.py`` phase 25c, PERF.md): one was fastest
+    or within 2% at every length in both dtypes but 512 float32 (32.5
+    against 34.0 us)."""
+    return 2 if _reg_threads_per_row(n) == 32 else 1
 
 
 def _flat_twiddles(tabs):
@@ -62,7 +93,60 @@ def sfft_plain(xr, xi, n: int, inverse: bool):
     return core._stockham(xr, xi, n, inverse)
 
 
-def _launch(xr, xi, n: int, inverse: bool):
+@dataclass(frozen=True)
+class LaunchPlan:
+    """What a K1 launch of one (n, dtype, inverse, device) passes to the
+    C entry besides the data: the C function, the table pointers, the C
+    arrays of the stage schedule and of the register passes (``passes``
+    empty for the stage loop), rows a block and threads."""
+    fn: object
+    tables: tuple
+    passes: tuple
+    tile_rows: int
+    threads: int
+    keep: tuple
+    version: int
+
+
+_PLANS: dict = {}
+
+
+def launch_plan(n: int, dtype: torch.dtype, inverse: bool,
+                device) -> LaunchPlan:
+    """The cached launch plan of (n, dtype, inverse, device), built on
+    first use and again after ``plan`` replaces a table."""
+    key = (n, dtype, inverse, device)
+    lp = _PLANS.get(key)
+    if lp is not None and lp.version == plan.VERSION:
+        return lp
+    t = plan.device_tables(n, dtype, device)
+    lib = _build.load()
+    fn = lib.cfft_stockham_f32 if dtype == torch.float32 else \
+        lib.cfft_stockham_f64
+    keep = (t,)
+    if n in REG_LENGTHS[dtype]:
+        passes = plan.reg_passes(n)
+        ptw = plan.to_device(plan.reg_twiddles(n), dtype, device)
+        keep += (ptw,)
+        tb = _reg_tile_rows(n, dtype)
+        threads = tb * _reg_threads_per_row(n)
+        reg = (ptw.data_ptr(), passes, len(passes),
+               _build.ints([len(q) for q in passes]))
+    else:
+        tb, threads = _tile_rows(n, dtype), _THREADS
+        reg = (None, (), 0, _build.ints([]))
+    tables = (t.twr.data_ptr(), t.twi.data_ptr(), t.dr.data_ptr(),
+              t.di.data_ptr(), reg[0])
+    stages = (len(t.factors), _build.ints(t.factors),
+              _build.ints(t.offs[:-1]), _build.ints(t.dense_offs), reg[2],
+              reg[3])
+    lp = LaunchPlan(fn, tables + stages, reg[1], tb, threads, keep,
+                    plan.VERSION)
+    _PLANS[key] = lp
+    return lp
+
+
+def _launch(xr, xi, n: int, inverse: bool, scale: float):
     global launches
     if not (xr.is_cuda and xi.is_cuda) or xr.device != xi.device:
         raise ValueError(f"K1 needs both planes on one CUDA device, got "
@@ -72,29 +156,20 @@ def _launch(xr, xi, n: int, inverse: bool):
                         f"got {xr.dtype} and {xi.dtype}")
     if not fused_eligible(n, xr.dtype):
         raise ValueError(f"K1 does not take n={n} in {xr.dtype}")
-    if xr.shape[0] >= 2 ** 31:
-        raise ValueError(f"K1 takes fewer than 2^31 rows, got {xr.shape[0]}")
+    rows = xr.shape[0]
+    if rows >= 2 ** 31:
+        raise ValueError(f"K1 takes fewer than 2^31 rows, got {rows}")
     xr = xr.contiguous()
     xi = xi.contiguous()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
-    rows = xr.shape[0]
     if rows == 0:
         return yr, yi
-    t = plan.device_tables(n, xr.dtype, xr.device)
-    facs = np.asarray(t.factors, dtype=np.int32)
-    tw_offs = np.asarray(t.offs[:-1], dtype=np.int32)
-    dense_offs = np.asarray(t.dense_offs, dtype=np.int32)
-    lib = _build.load()
-    fn = (lib.cfft_stockham_f32 if xr.dtype == torch.float32
-          else lib.cfft_stockham_f64)
-    with torch.cuda.device(xr.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                 t.twr.data_ptr(), t.twi.data_ptr(), t.dr.data_ptr(),
-                 t.di.data_ptr(), rows, n, len(facs), facs.ctypes.data,
-                 tw_offs.ctypes.data, dense_offs.ctypes.data, int(inverse),
-                 _tile_rows(n, xr.dtype), _THREADS, stream)
+    lp = launch_plan(n, xr.dtype, inverse, xr.device)
+    err = _build.call(lp.fn, xr.device, xr.data_ptr(), xi.data_ptr(),
+                      yr.data_ptr(), yi.data_ptr(), *lp.tables[:5], rows, n,
+                      *lp.tables[5:], int(inverse), lp.tile_rows, lp.threads,
+                      scale)
     if err != 0:
         raise RuntimeError(f"K1 launch failed at n={n}, rows={rows}, "
                            f"{xr.dtype}: CUDA error {err}")
@@ -102,8 +177,9 @@ def _launch(xr, xi, n: int, inverse: bool):
     return yr, yi
 
 
-def sfft_fused(xr, xi, n: int, inverse: bool):
-    """Unscaled DFT over the last axis through K1.
+def sfft_fused(xr, xi, n: int, inverse: bool, scale: float = 1.0):
+    """DFT over the last axis through K1, times ``scale`` (applied in the
+    kernel's store).
 
     Same contract as ``core.sfft``; the caller guarantees
     ``fused_eligible(n, dtype)``.
@@ -113,6 +189,8 @@ def sfft_fused(xr, xi, n: int, inverse: bool):
     xi2 = xi.reshape(-1, n)
     if xr.device.type == "cpu":
         yr, yi = sfft_plain(xr2, xi2, n, inverse)
+        if scale != 1.0:
+            yr, yi = yr * scale, yi * scale
     else:
-        yr, yi = _launch(xr2, xi2, n, inverse)
+        yr, yi = _launch(xr2, xi2, n, inverse, scale)
     return yr.reshape(shape), yi.reshape(shape)

@@ -10,10 +10,14 @@ tile x[q, r] (flat j = 128*q + r) transforms as
 K2 runs it natural -> permuted (X[k2 + m*k1] at [k2, k1] of an
 (m, 128) tile) and back; K3 natural -> natural, with the transpose done
 on chip; K4 is the inverse with a spectral multiply fused into its
-load.  K5 (:func:`sfft_stream_split`) splits lengths past m = 4096
-s = 2 or 4 ways around K2.  The CUDA kernels live in
-``csrc/stream_fft.cu``; each direction is two passes there (an m-point
-column pass and a 128-point row pass through scratch planes).
+load.  K5 (:func:`sfft_stream_split`, :func:`sfilter_stream`) splits
+lengths past m = 4096 s = 2 or 4 ways: mode "split" of the same passes,
+with the s-point DFT and the split twiddle in the column pass's load and
+the digit riffle (natural order), the norm scale and an optional filter
+in the row pass's store; the inverse is the conjugated forward.  The
+CUDA kernels live in ``csrc/stream_fft.cu``; each call is two passes
+there (an m-point column pass and a 128-point row pass through scratch
+planes).
 
 K11 (:func:`sfft_mm2`, :func:`sfft_mm2_permuted`; the reference's
 ``_mm2_2d``) computes the same formula for any integer 2 <= m <= 256
@@ -29,6 +33,7 @@ per kernel.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -57,9 +62,18 @@ _MIN_LANES = 2
 _MAX_LANES = 32
 
 _MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
+# K5's modes (the C entry stream_split_f32): the forward, the inverse as
+# conj(fft(conj(x))) and the conjugated forward conj(fft(x)) of the split
+# filter; the value is the entry's conj flags (1 conjugates the load, 2
+# the store)
+_SPLIT_MODES = {"split": 0, "split_inv": 3, "split_conj": 2}
 _KERNEL = {"fwd": "K2", "inv": "K2", "fwd_nat": "K3", "inv_nat": "K3",
-           "filter": "K4"}
-launches = {"K2": 0, "K3": 0, "K4": 0, "K11": 0}
+           "filter": "K4", "split": "K5", "split_inv": "K5",
+           "split_conj": "K5"}
+launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0, "K11": 0}
+# K5's column pass at this m runs in register passes (the engine of K1,
+# csrc/regfft.cuh, compiled for it alone); other m take the stage loop
+_SPLIT_REG_M = 4096
 
 
 def _stage_ok(m: int) -> bool:
@@ -152,14 +166,50 @@ def _dft_rows(xr, xi, m: int, inverse: bool):
     return yr.transpose(1, 2), yi.transpose(1, 2)
 
 
-def stream_plain(xr, xi, n: int, mode: str, fr=None, fi=None):
+def _split_plain(xr, xi, n: int, mode: str, fr, fi, scale: float, out):
+    """K5's plain version: the split twiddle after the s-point DFT, K2's
+    plain version at s-fold batch, the riffle, then the filter, the scale
+    and the conjugation of the mode."""
+    s = _filter_split_factor(n)
+    n_in = n // s
+    m = n_in // _N1
+    b = xr.shape[0]
+    if mode == "split_inv":
+        xi = -xi
+    zr, zi = _split_pre(xr.reshape(b, s, n_in), xi.reshape(b, s, n_in), n, s)
+    Cr, Ci = stream_plain(zr.reshape(b * s, m, _N1),
+                          zi.reshape(b * s, m, _N1), n_in, "fwd")
+    # natural order: X[k1 + s*k2 + s*m*lane] -> (b, lane, k2, k1)
+    yr = Cr.reshape(b, s, m, _N1).permute(0, 3, 2, 1).reshape(b, n)
+    yi = Ci.reshape(b, s, m, _N1).permute(0, 3, 2, 1).reshape(b, n)
+    if fr is not None:
+        yr, yi = core._cmul_tab(yr, yi, fr, fi)
+    if scale != 1.0:
+        yr, yi = yr * scale, yi * scale
+    if mode != "split":
+        yi = -yi
+    if out is None:
+        return yr, yi
+    out[0].copy_(yr)
+    out[1].copy_(yi)
+    return out
+
+
+def stream_plain(xr, xi, n: int, mode: str, fr=None, fi=None, *,
+                 scale: float = 1.0, out=None):
     """The plain PyTorch version of every mode, on any device.
 
     Planes are (b, m, 128), except the natural spectrum of fwd_nat's
     output and inv_nat's input, (b, 128, m).  ``(fr, fi)`` is the
     (s, m, 128) permuted filter of mode "filter"; batch row i takes
-    slice i % s.
+    slice i % s.  K5's modes take (b, n) planes of the full length n
+    and give natural-order (b, n) planes (into ``out`` when given):
+    "split" scale * fft(x) * F, "split_inv" scale * conj(fft(conj(x))),
+    "split_conj" conj(scale * fft(x) * F), F the natural n-bin filter
+    ``(fr, fi)`` or 1.
     """
+    if mode in _SPLIT_MODES:
+        return _split_plain(xr, xi, n, mode, fr, fi, scale, out)
     m = n // _N1
     if mode in ("fwd", "fwd_nat"):
         t1r, t1i = _device_outer(n, False, xr.device)
@@ -181,18 +231,144 @@ def stream_plain(xr, xi, n: int, mode: str, fr=None, fi=None):
 
 # ------------------------------------------------------------ launch
 
-def _launch(xr, xi, n: int, mode: str, fr=None, fi=None):
-    """One mode through the CUDA kernels (both passes)."""
+@dataclass(frozen=True)
+class _LaunchPlan:
+    """What a launch of one (stream length, direction, split, device)
+    passes to a C entry besides the data: the column pass's table
+    pointers and C arrays, then the row pass's (s = 1) or K5's split
+    twiddle and register-pass tables (s > 1); the column pass's lanes,
+    and the tensors behind the pointers."""
+    col: tuple
+    rest: tuple
+    lshift: int
+    keep: tuple
+    version: int
+
+
+_PLANS: dict = {}
+
+
+def _launch_plan(n_in: int, inverse: bool, s: int, device) -> _LaunchPlan:
+    key = (n_in, inverse, s, device)
+    lp = _PLANS.get(key)
+    if lp is not None and lp.version == plan.VERSION:
+        return lp
+    m = n_in // _N1
+    t1r, t1i = _device_outer(n_in, inverse, device)
+    ct = plan.device_tables(m, torch.float32, device)
+    col = (t1r.data_ptr(), t1i.data_ptr(), ct.twr.data_ptr(),
+           ct.twi.data_ptr(), len(ct.factors), _build.ints(ct.factors),
+           _build.ints(ct.offs[:-1]))
+    keep = (t1r, t1i, ct)
+    if s == 1:
+        rt = plan.device_tables(_N1, torch.float32, device)
+        rest = (rt.twr.data_ptr(), rt.twi.data_ptr(), len(rt.factors),
+                _build.ints(rt.factors), _build.ints(rt.offs[:-1]))
+        keep += (rt,)
+    else:
+        spr, spi = _device_split(n_in * s, s, device)
+        rptw = plan.to_device(plan.reg_twiddles(_N1), torch.float32, device)
+        ptw = (plan.to_device(plan.reg_twiddles(m), torch.float32, device)
+               if m == _SPLIT_REG_M else None)
+        rest = (spr.data_ptr(), spi.data_ptr(), s,
+                None if ptw is None else ptw.data_ptr(), rptw.data_ptr())
+        keep += (spr, spi, rptw, ptw)
+    lp = _LaunchPlan(col, rest, _col_lanes(m).bit_length() - 1, keep,
+                     plan.VERSION)
+    _PLANS[key] = lp
+    return lp
+
+
+def _check_dtype(xr, xi):
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
         raise TypeError(f"the stream kernel takes float32 planes, got "
                         f"{xr.dtype} and {xi.dtype}")
+
+
+def _check_device(xr, xi, what: str):
+    if not (xr.is_cuda and xi.is_cuda) or xr.device != xi.device:
+        raise ValueError(f"the stream kernel needs both {what} planes on one "
+                         f"CUDA device, got {xr.device} and {xi.device}")
+
+
+def _rows(xr, xi, n: int):
+    """(b, n) planes with unit element stride and one row stride, copied
+    only when they are not."""
+    if (xr.stride(-1) != 1 or xi.stride(-1) != 1
+            or xr.stride(0) != xi.stride(0) or xr.stride(0) < n):
+        xr, xi = xr.contiguous(), xi.contiguous()
+    return xr, xi, xr.stride(0)
+
+
+def _split_launch(xr, xi, n: int, mode: str, fr, fi, scale: float, out):
+    """K5: both passes of one split mode."""
+    s = _filter_split_factor(n)
+    _check_dtype(xr, xi)
+    if s not in (2, 4):
+        raise ValueError(f"K5 does not take n={n}")
+    _check_device(xr, xi, "input")
+    b = xr.shape[0]
+    if xr.dim() != 2 or tuple(xr.shape) != (b, n) or xi.shape != xr.shape:
+        raise ValueError(f"mode {mode} takes (b, {n}) planes, got "
+                         f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+    if fr is not None and (
+            fi is None or tuple(fr.shape) != (n,) or fi.shape != fr.shape
+            or fr.dtype != torch.float32 or fi.dtype != torch.float32
+            or fr.device != xr.device or fi.device != xr.device):
+        raise ValueError(f"mode {mode} takes a float32 ({n},) filter on "
+                         f"{xr.device}")
+    if out is None:
+        out = (torch.empty((b, n), dtype=xr.dtype, device=xr.device),
+               torch.empty((b, n), dtype=xr.dtype, device=xr.device))
+    yr, yi = out
+    _check_dtype(yr, yi)
+    _check_device(yr, yi, "output")
+    if tuple(yr.shape) != (b, n) or yi.shape != yr.shape:
+        raise ValueError(f"mode {mode} writes (b, {n}) planes, got "
+                         f"{tuple(yr.shape)} and {tuple(yi.shape)}")
+    if (yr.stride(-1) != 1 or yi.stride(-1) != 1
+            or yr.stride(0) != yi.stride(0) or yr.stride(0) < n):
+        raise ValueError(f"mode {mode} writes planes with unit element "
+                         f"stride and one row stride of at least {n}")
+    if b == 0:
+        return out
+    xr, xi, in_rs = _rows(xr, xi, n)
+    fptr = (None, None)
+    if fr is not None:
+        fr, fi = fr.contiguous(), fi.contiguous()
+        fptr = (fr.data_ptr(), fi.data_ptr())
+    n_in = n // s
+    m = n_in // _N1
+    sr = torch.empty((b * s, m, _N1), dtype=xr.dtype, device=xr.device)
+    si = torch.empty_like(sr)
+    lp = _launch_plan(n_in, False, s, xr.device)
+    err = _build.call(
+        _build.load().stream_split_f32, xr.device, xr.data_ptr(),
+        xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), sr.data_ptr(),
+        si.data_ptr(), *lp.col, *lp.rest, *fptr, b, m, lp.lshift, in_rs,
+        yr.stride(0), scale, _SPLIT_MODES[mode])
+    if err != 0:
+        raise RuntimeError(f"K5 launch failed at n={n}, b={b}, mode={mode}: "
+                           f"CUDA error {err}")
+    launches["K5"] += 1
+    return out
+
+
+def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
+            scale: float = 1.0, out=None):
+    """One mode through the CUDA kernels (both passes), in
+    :func:`stream_plain`'s contract."""
+    if mode in _SPLIT_MODES:
+        return _split_launch(xr, xi, n, mode, fr, fi, scale, out)
+    _check_dtype(xr, xi)
     if not stream_eligible(n, xr.dtype):
         raise ValueError(f"the stream kernel does not take n={n}")
     if mode not in _MODES:
-        raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
-    if not (xr.is_cuda and xi.is_cuda) or xr.device != xi.device:
-        raise ValueError(f"the stream kernel needs both planes on one CUDA "
-                         f"device, got {xr.device} and {xi.device}")
+        raise ValueError(f"mode must be one of {_MODES + tuple(_SPLIT_MODES)}"
+                         f", got {mode!r}")
+    if scale != 1.0 or out is not None:
+        raise ValueError(f"mode {mode} takes no scale and no output planes")
+    _check_device(xr, xi, "input")
     m = n // _N1
     b = xr.shape[0]
     shape_in = (b, _N1, m) if mode == "inv_nat" else (b, m, _N1)
@@ -200,6 +376,7 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None):
         raise ValueError(f"mode {mode} takes planes of shape {shape_in}, "
                          f"got {tuple(xr.shape)}")
     nfilt = 1
+    fptr = (None, None)
     if mode == "filter":
         if (fr is None or fi is None or fr.dim() != 3
                 or tuple(fr.shape[1:]) != (m, _N1) or fi.shape != fr.shape
@@ -210,6 +387,7 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None):
         fr = fr.contiguous()
         fi = fi.contiguous()
         nfilt = fr.shape[0]
+        fptr = (fr.data_ptr(), fi.data_ptr())
     xr = xr.contiguous()
     xi = xi.contiguous()
     shape_out = (b, _N1, m) if mode == "fwd_nat" else (b, m, _N1)
@@ -219,28 +397,12 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None):
         return yr, yi
     sr = torch.empty((b, m, _N1), dtype=xr.dtype, device=xr.device)
     si = torch.empty_like(sr)
-    inverse = mode not in ("fwd", "fwd_nat")
-    t1r, t1i = _device_outer(n, inverse, xr.device)
-    ct = plan.device_tables(m, xr.dtype, xr.device)
-    rt = plan.device_tables(_N1, xr.dtype, xr.device)
-    cfac = np.asarray(ct.factors, dtype=np.int32)
-    coff = np.asarray(ct.offs[:-1], dtype=np.int32)
-    rfac = np.asarray(rt.factors, dtype=np.int32)
-    roff = np.asarray(rt.offs[:-1], dtype=np.int32)
-    lshift = _col_lanes(m).bit_length() - 1
-    fptr = (fr.data_ptr(), fi.data_ptr()) if mode == "filter" else (None,
-                                                                    None)
-    lib = _build.load()
-    with torch.cuda.device(xr.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.stream_fft_f32(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            sr.data_ptr(), si.data_ptr(), t1r.data_ptr(), t1i.data_ptr(),
-            ct.twr.data_ptr(), ct.twi.data_ptr(), len(cfac),
-            cfac.ctypes.data, coff.ctypes.data, rt.twr.data_ptr(),
-            rt.twi.data_ptr(), len(rfac), rfac.ctypes.data,
-            roff.ctypes.data, *fptr, nfilt, b, m, _MODES.index(mode),
-            lshift, stream)
+    lp = _launch_plan(n, mode not in ("fwd", "fwd_nat"), 1, xr.device)
+    err = _build.call(
+        _build.load().stream_fft_f32, xr.device, xr.data_ptr(),
+        xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), sr.data_ptr(),
+        si.data_ptr(), *lp.col, *lp.rest, *fptr, nfilt, b, m,
+        _MODES.index(mode), lp.lshift)
     if err != 0:
         raise RuntimeError(f"stream kernel launch failed at n={n}, b={b}, "
                            f"mode={mode}: CUDA error {err}")
@@ -248,10 +410,10 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None):
     return yr, yi
 
 
-def _run(xr, xi, n: int, mode: str, fr=None, fi=None):
+def _run(xr, xi, n: int, mode: str, fr=None, fi=None, **kw):
     if xr.device.type == "cpu":
-        return stream_plain(xr, xi, n, mode, fr, fi)
-    return _launch(xr, xi, n, mode, fr, fi)
+        return stream_plain(xr, xi, n, mode, fr, fi, **kw)
+    return _launch(xr, xi, n, mode, fr, fi, **kw)
 
 
 # ---------------------------------------------------------- wrappers
@@ -296,25 +458,19 @@ def _split_pre(zr, zi, n: int, s: int):
     return core._cmul_tab(zr, zi, twr.reshape(s, -1), twi.reshape(s, -1))
 
 
-def _split_post(wr, wi, n: int, s: int):
-    """The conjugate split twiddle, then the inverse s-point DFT over
-    axis 1 of (b, s, n/s) planes."""
-    twr, twi = _device_split(n, s, wr.device)
-    ur, ui = core._cmul_tab(wr, wi, twr.reshape(s, -1), -twi.reshape(s, -1))
-    return core._butterfly(ur, ui, s, inverse=True)
-
-
 def sfilter_stream(x, ffr, ffi, n: int):
     """``sirfft(srfft(x) * F)`` (n times the filtered x, unscaled) for real
-    x with an even flat batch, through K2 and K4.
+    x with an even flat batch.
 
     ``(ffr, ffi)`` is the full n-bin conjugate-symmetric extension of the
     filter.  Adjacent rows pack as z = x[2p] + i*x[2p+1]; since the
     extension is conjugate-symmetric, the filtered pair decodes to the
-    filtered rows exactly.  Past the kernel's cap (m > 4096, e.g. the
-    2^20 pricer grid) the transform splits s ways: an s-point DFT and
-    the split twiddle before K2 at batch P*s, filter slice k1 = row % s
-    in K4, and the mirror after.
+    filtered rows exactly.  Within the kernel's cap this is K2 forward to
+    the permuted spectrum and K4, whose load multiplies by the permuted
+    filter.  Past it (m > 4096, e.g. the 2^20 pricer grid) it is two K5
+    calls: Y = conj(fft(z) * F), the filter in the first call's store,
+    then conj(fft(Y)) = ifft(fft(z) * F) written straight into the rows;
+    both read and write the pairs through their row stride.
     """
     lead = x.shape[:-1]
     B = lead.numel()
@@ -323,33 +479,30 @@ def sfilter_stream(x, ffr, ffi, n: int):
     s = _filter_split_factor(n)
     if s is None:
         raise ValueError(f"sfilter_stream: n={n} not eligible")
-    n_in = n // s
-    m = n_in // _N1
     P = B // 2
-    xp = x.reshape(P, 2, s, n_in)
-    zr, zi = xp[:, 0], xp[:, 1]
+    xp = x.reshape(P, 2, n)
     if s > 1:
-        zr, zi = _split_pre(zr, zi, n, s)
-    Zr, Zi = _run(zr.reshape(P * s, m, _N1), zi.reshape(P * s, m, _N1),
-                  n_in, "fwd")
-    # filter slices: k = k1 + s*(k2 + m*lane) -> (s, m, 128)
-    fpr = ffr.reshape(_N1, m, s).permute(2, 1, 0).contiguous()
-    fpi = ffi.reshape(_N1, m, s).permute(2, 1, 0).contiguous()
-    wr, wi = _stream_filter_inv(Zr, Zi, fpr, fpi, n_in)
-    wr = wr.reshape(P, s, n_in)
-    wi = wi.reshape(P, s, n_in)
-    if s > 1:
-        wr, wi = _split_post(wr, wi, n, s)
+        yr, yi = _run(xp[:, 0], xp[:, 1], n, "split_conj", ffr, ffi)
+        out = torch.empty((P, 2, n), dtype=x.dtype, device=x.device)
+        _run(yr, yi, n, "split_conj", out=(out[:, 0], out[:, 1]))
+        return out.reshape(lead + (n,))
+    m = n // _N1
+    Zr, Zi = _run(xp[:, 0].reshape(P, m, _N1), xp[:, 1].reshape(P, m, _N1),
+                  n, "fwd")
+    # the filter in the permuted layout: k = k2 + m*lane -> (1, m, 128)
+    fpr = ffr.reshape(1, _N1, m).transpose(1, 2).contiguous()
+    fpi = ffi.reshape(1, _N1, m).transpose(1, 2).contiguous()
+    wr, wi = _stream_filter_inv(Zr, Zi, fpr, fpi, n)
     out = torch.stack([wr.reshape(P, n), wi.reshape(P, n)], dim=1)
     return out.reshape(lead + (n,))
 
 
-def sfft_stream_split(xr, xi, n: int, inverse: bool):
+def sfft_stream_split(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     """Natural-order FFT for n past the kernel's cap (K5): n = s * n_in
-    with s = ``_filter_split_factor(n)``, an s-point butterfly and the
-    split twiddle around K2 at s-fold batch, and one digit-riffle
-    transpose on the spectrum side.  The ``core.sfft`` contract; s = 1
-    is K3."""
+    with s = ``_filter_split_factor(n)``; the s-point DFT and the split
+    twiddle in the column pass's load, the riffle and ``scale`` in the
+    row pass's store, two kernels a call.  The ``core.sfft`` contract
+    times ``scale``; s = 1 is K3, with the scale as one multiply."""
     s = _filter_split_factor(n)
     if s is None:
         raise ValueError(
@@ -357,26 +510,14 @@ def sfft_stream_split(xr, xi, n: int, inverse: bool):
             f"n = s*128*m with s in {{1,2,4}}, m <= {_MAX_M} a 5-smooth "
             f"multiple of {_TAIL})")
     if s == 1:
-        return sfft_stream(xr, xi, n, inverse)
-    n_in = n // s
-    m = n_in // _N1
-    shape = xr.shape
-    b = shape[:-1].numel()
-    if not inverse:
-        zr, zi = _split_pre(xr.reshape(b, s, n_in), xi.reshape(b, s, n_in),
-                            n, s)
-        Cr, Ci = _run(zr.reshape(b * s, m, _N1), zi.reshape(b * s, m, _N1),
-                      n_in, "fwd")
-        # natural assembly: X[k1 + s*k2 + s*m*lane] -> (b, lane, k2, k1)
-        yr = Cr.reshape(b, s, m, _N1).permute(0, 3, 2, 1).reshape(shape)
-        yi = Ci.reshape(b, s, m, _N1).permute(0, 3, 2, 1).reshape(shape)
+        yr, yi = sfft_stream(xr, xi, n, inverse)
+        if scale != 1.0:
+            yr, yi = yr * scale, yi * scale
         return yr, yi
-    # inverse: decode the natural spectrum into (k1, permuted k2) tiles
-    Cr = xr.reshape(b, _N1, m, s).permute(0, 3, 2, 1).reshape(b * s, m, _N1)
-    Ci = xi.reshape(b, _N1, m, s).permute(0, 3, 2, 1).reshape(b * s, m, _N1)
-    wr, wi = _run(Cr, Ci, n_in, "inv")
-    zr, zi = _split_post(wr.reshape(b, s, n_in), wi.reshape(b, s, n_in), n, s)
-    return zr.reshape(shape), zi.reshape(shape)
+    shape = xr.shape
+    yr, yi = _run(xr.reshape(-1, n), xi.reshape(-1, n), n,
+                  "split_inv" if inverse else "split", scale=scale)
+    return yr.reshape(shape), yi.reshape(shape)
 
 
 # --------------------------------------------- two-matmul kernel (K11)

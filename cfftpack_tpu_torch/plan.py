@@ -15,6 +15,7 @@ the working dtype on the working device and caches them.
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -24,6 +25,9 @@ import torch
 # Largest prime factor handled by a direct in-line DFT stage; beyond it
 # Bluestein's chirp-z algorithm runs.
 MAX_DIRECT_RADIX = 32
+# The largest radix of a register pass (K1 and K5, csrc/regfft.cuh): a
+# thread holds one pass's R elements of a butterfly in registers.
+REG_MAX_RADIX = 16
 
 
 def _factor_py(n: int) -> tuple[int, ...]:
@@ -246,11 +250,56 @@ class DeviceTables:
     rfilter: tuple | None
 
 
+@functools.lru_cache(maxsize=None)
+def reg_passes(n: int) -> tuple[tuple[int, ...], ...]:
+    """:func:`factor`'s stages grouped, in order, into the passes of the
+    register kernels (``csrc/regfft.cuh``): each pass takes stages while
+    their radices multiply to at most ``REG_MAX_RADIX``."""
+    passes, cur = [], []
+    for p in factor(n):
+        if cur and math.prod(cur) * p > REG_MAX_RADIX:
+            passes.append(tuple(cur))
+            cur = []
+        cur.append(p)
+    passes.append(tuple(cur))
+    return tuple(passes)
+
+
+def reg_twiddles(n: int) -> np.ndarray:
+    """The register kernels' pass twiddles, float64 (re, im) pairs.
+
+    For each pass of sub-radices q_1..q_g (R = q_1*...*q_g) with
+    MN = n / (L*R) > 1, L the product of the earlier passes' radices: for
+    j < MN, digit i < g and 1 <= d < q_i, the forward W_{R*MN}^{d*h_i*j}
+    with h_i = q_1*...*q_{i-1}; pass after pass.  A butterfly's twiddle
+    for output u = sum_i d_i*h_i is the product of its digits' entries,
+    so it reads sum(q_i - 1) pairs instead of R - 1.
+    """
+    out, L = [], 1
+    for q in reg_passes(n):
+        R = math.prod(q)
+        mn = n // (L * R)
+        if mn > 1:
+            k = np.array([d * math.prod(q[:i]) for i, qi in enumerate(q)
+                          for d in range(1, qi)])
+            j = np.arange(mn)[:, None]
+            out.append(np.exp(-2j * np.pi * j * k[None, :] / (R * mn)).ravel())
+        L *= R
+    w = np.concatenate(out) if out else np.zeros(1, dtype=np.complex128)
+    return np.stack([w.real, w.imag], axis=-1)
+
+
 _DEVICE_TABLES: dict = {}
+# Bumped whenever a cached plan is replaced or dropped, so that launch
+# plans holding pointers into the tables (``fused_fft``, ``stream_fft``)
+# know to rebuild.
+VERSION = 0
 
 
 def clear_device_tables() -> None:
+    global VERSION
     _DEVICE_TABLES.clear()
+    VERSION += 1
 
 
 def to_device(a, dtype, device) -> torch.Tensor:
@@ -314,6 +363,7 @@ def device_tables(n: int, dtype: torch.dtype, device, source: dict | None
     every transform that follows reads it; :func:`clear_device_tables`
     drops it again.
     """
+    global VERSION
     device = torch.device(device)
     key = (n, dtype, device)
     if source is None:
@@ -321,6 +371,8 @@ def device_tables(n: int, dtype: torch.dtype, device, source: dict | None
         if hit is not None:
             return hit
         source = host_tables(n)
+    elif key in _DEVICE_TABLES:
+        VERSION += 1
     tables = _build(n, source, dtype, device)
     _DEVICE_TABLES[key] = tables
     return tables

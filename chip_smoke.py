@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the checkout (K1,
-``cfftpack_tpu_torch/csrc/stockham_fft.cu``; K2, K3 and K4,
+``cfftpack_tpu_torch/csrc/stockham_fft.cu``; K2, K3, K4 and K5,
 ``csrc/stream_fft.cu``; K7 and K8, ``csrc/rstream_fft.cu``; K6 and K9,
 ``csrc/col_fft.cu``; K10, ``csrc/fourstep_fft.cu``; K11,
 ``csrc/mm2_fft.cu``), holds each against its plain PyTorch version and
@@ -12,7 +12,9 @@ path through the public entry points (the bench headline ``fft_split``
 at n = 1024 x 4096, the flagship rfft -> multiply -> irfft step, the
 conv option pricer in float64 and in float32 at the 2^20 grid,
 Bluestein and four-step lengths, ``fft_split`` through the stream
-kernel at 65536 and its split at 2^20 and 2^21, the streaming filter,
+kernel at 65536 and its split (K5) at 2^20 and 2^21 under every norm
+and at 786432 and 1572864 (the stage-loop column pass),
+the streaming filter at 65536 and at 2^20,
 ``rfft_split``/``irfft_split`` and the DCT/DST types 2-4 at
 (64, 65536), ``dct`` at (4096, 1024), ``dctn`` at (4, 1024, 1024), a
 float64 DCT round trip, and the 2-D path through the column kernels:
@@ -25,8 +27,9 @@ and ``dctn``/``idctn`` at (64, 1024, 1024), ``fft_split`` and
 5-8 and ``circular_convolve`` at (4096, 1024)) and checks each result.
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Prints CUDA-event times of the kernels, their plain
-versions and the PyTorch calls that compute the same functions, a
-profiler breakdown of the 2-D routes and of K10's and K11's passes, one
+versions and the PyTorch calls that compute the same functions, the
+measurements behind K1's rows a block, a profiler breakdown of the 2-D routes, of K10's and K11's passes and of
+K1 and K5 with their kernel rows a call, one
 JSON line describing the kernels (each with its bound on this card),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
@@ -62,9 +65,18 @@ DEV = "cuda"
 # the reference binary's conv price at N = 2^16 (tests/test_models.py)
 VG = dict(S=100.0, K=98.0, sigma=0.12, theta=-0.14, kappa=0.2, t=1.0, r=0.05)
 VG_CONV = 9.342473370823516
-# phase 2: the CPU test's lengths plus 4096, ragged and full batches
-K1_SIZES = (4, 8, 60, 64, 243, 899, 960, 1024, 4096)
+# phase 2: the CPU test's lengths plus every length of the register
+# kernel (480 .. 8192; 8192 is float32 only), ragged and full batches
+K1_SIZES = (4, 8, 60, 64, 243, 480, 512, 899, 960, 1024, 2048, 4096, 8192)
 K1_BATCHES = (37, 4096)
+# the worst errors of the previous version of this script on an H100
+# (700 W), before K1's register passes and the fused K5 route, printed
+# beside this run's: phase 2, K1 vs plain and torch.fft per dtype; phase 9,
+# the K5 route vs plain (the backward forward) and torch.fft (that and the
+# forward-norm inverse; that version checked fewer norms)
+BEFORE_WORST = {"K1 float32": (3.200e-07, 2.815e-07),
+                "K1 float64": (5.532e-16, 9.266e-15),
+                "K5": (4.93e-07, 1.98e-07)}
 # phase 3: m = 16, 32, 48 (radix 3), 80 (radix 5), 512, 768, 4096 (the cap)
 STREAM_SIZES = (2048, 4096, 6144, 10240, 65536, 98304, 524288)
 STREAM_MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
@@ -87,7 +99,8 @@ PRODUCT_SHAPES = ((64, 1024, 64), (256, 128, 256), (3, 128, 3),
                   (255, 128, 255))
 # (inverse, natural spectrum): K11's four forms
 K11_FORMS = ((False, True), (False, False), (True, True), (True, False))
-KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9", "K10", "K11")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
+           "K11")
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s,
 # float32 flop/s outside the tensor cores, and dense TF32 flop/s in them;
 # a float32-accurate 3xTF32 product does a third of that in useful work
@@ -101,6 +114,10 @@ def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
     print(f"  ok  {what}")
+
+
+def fmt_pair(was) -> str:
+    return ", ".join("not measured" if v is None else f"{v:.3e}" for v in was)
 
 
 def rel_err(got, want) -> float:
@@ -161,11 +178,11 @@ def plain_engine():
     rstream_launch, col_launch = rstream.launch, colfft._launch
     four_launch, mm2_launch = fourstep_fft._launch, stream_fft._mm2_launch
 
-    def plain(xr, xi, n, inverse):
+    def plain(xr, xi, n, inverse, scale=1.0):
         shape = xr.shape
         yr, yi = fused_fft.sfft_plain(xr.reshape(-1, n), xi.reshape(-1, n),
                                       n, inverse)
-        return yr.reshape(shape), yi.reshape(shape)
+        return (yr * scale).reshape(shape), (yi * scale).reshape(shape)
 
     fused_fft.sfft_fused = plain
     stream_fft._launch = stream_fft.stream_plain
@@ -208,6 +225,19 @@ def no_rstream():
         yield
     finally:
         core._use_rstream, dct_ops._dct4_stream_ok = use, ok
+
+
+@contextlib.contextmanager
+def k1_rows(tb: int):
+    """K1's register kernel at tb rows a block, for timing."""
+    rule = fused_fft._reg_tile_rows
+    fused_fft._reg_tile_rows = lambda n, dtype: tb
+    fused_fft._PLANS.clear()
+    try:
+        yield
+    finally:
+        fused_fft._reg_tile_rows = rule
+        fused_fft._PLANS.clear()
 
 
 @contextlib.contextmanager
@@ -265,6 +295,19 @@ def stream_reference(x, n: int, mode: str, f=None):
     return (torch.fft.ifft(xc.reshape(b, n)) * n).reshape(b, m, 128)
 
 
+def host_us(fn, reps: int = 30) -> float:
+    """Host time a call: the wall time of ``reps`` calls enqueued back to
+    back (no synchronisation between them) over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def median_ms(fn, reps: int = 30, warm: int = 3) -> float:
     for _ in range(warm):
         fn()
@@ -285,29 +328,37 @@ def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
     """torch.profiler over ``calls`` calls of fn after 3 warm-up calls:
     device time per call by kernel (kernel rows only), the CUDA-event
     time per call without the profiler, and the idle share
-    1 - kernel time / event time."""
+    1 - kernel time / event time.  A trace that records no device row at
+    all (the profiler on the card has dropped a whole trace) is taken
+    again, up to twice."""
     from torch.profiler import ProfilerActivity, profile
     event_ms = median_ms(fn, reps=calls, warm=3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = {}
-    for k in prof.key_averages():
-        if k.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(k, "self_device_time_total", None)
-            if t is None:
-                t = k.self_cuda_time_total
-            rows[k.key] = t / calls
+    rows, per_call = {}, 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for k in prof.key_averages():
+            if k.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(k, "self_device_time_total", None)
+                if t is None:
+                    t = k.self_cuda_time_total
+                rows[k.key] = t / calls
+                per_call += k.count
+        if rows:
+            break
+        print(f"  profile {name}: no device rows in the trace, taken again")
     kern_us = sum(rows.values())
     idle = 1.0 - kern_us / (event_ms * 1e3)
     print(f"  profile {name}: {event_ms * 1e3:.1f} us per call, kernels "
-          f"{kern_us:.1f} us, idle {idle:.3f}  [{card}]")
+          f"{kern_us:.1f} us in {per_call / calls:g} kernel rows a call, "
+          f"idle {idle:.3f}  [{card}]")
     for kname, us in sorted(rows.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us:9.1f} us  {kname[:90]}")
     return {"event_us": event_ms * 1e3, "kernel_us": kern_us, "idle": idle,
-            "rows": rows}
+            "rows": rows, "launches": per_call / calls}
 
 
 def mm2_reference(x, n: int, inverse: bool, natural: bool):
@@ -397,6 +448,47 @@ def pass_a_flops(b: int, n: int) -> float:
     return 8.0 * b * 64 * n
 
 
+def k5_before(xr, xi, n: int):
+    """The unfused K5 route, timed beside the fused one: the s-point DFT
+    and the split twiddle as torch ops, K2 at s-fold batch, the riffle as
+    a torch permute copy."""
+    s = stream_fft._filter_split_factor(n)
+    n_in, b = n // s, xr.shape[0]
+    m = n_in // 128
+    zr, zi = stream_fft._split_pre(xr.reshape(b, s, n_in),
+                                   xi.reshape(b, s, n_in), n, s)
+    Cr, Ci = stream_fft._launch(zr.reshape(b * s, m, 128),
+                                zi.reshape(b * s, m, 128), n_in, "fwd")
+    return (Cr.reshape(b, s, m, 128).permute(0, 3, 2, 1).reshape(b, n),
+            Ci.reshape(b, s, m, 128).permute(0, 3, 2, 1).reshape(b, n))
+
+
+def k5_filter_before(x, fr, fi, n: int):
+    """The unfused streaming filter past the cap, timed beside the fused one:
+    the filter's extension and permuted slices, the split pre-pass as
+    torch ops, K2 forward and K4 at s-fold batch through copies of the
+    paired rows, the conjugate twiddle and inverse butterfly as torch ops,
+    and the stack of the two planes."""
+    h = n // 2
+    ffr = torch.cat([fr, fr[1:h].flip(-1)])
+    ffi = torch.cat([fi, -fi[1:h].flip(-1)])
+    s = stream_fft._filter_split_factor(n)
+    n_in, P = n // s, x.shape[0] // 2
+    m = n_in // 128
+    xp = x.reshape(P, 2, s, n_in)
+    zr, zi = stream_fft._split_pre(xp[:, 0], xp[:, 1], n, s)
+    Zr, Zi = stream_fft._launch(zr.reshape(P * s, m, 128),
+                                zi.reshape(P * s, m, 128), n_in, "fwd")
+    fpr = ffr.reshape(128, m, s).permute(2, 1, 0).contiguous()
+    fpi = ffi.reshape(128, m, s).permute(2, 1, 0).contiguous()
+    wr, wi = stream_fft._launch(Zr, Zi, n_in, "filter", fpr, fpi)
+    twr, twi = stream_fft._device_split(n, s, x.device)
+    ur, ui = core._cmul_tab(wr.reshape(P, s, n_in), wi.reshape(P, s, n_in),
+                            twr.reshape(s, -1), -twi.reshape(s, -1))
+    wr, wi = core._butterfly(ur, ui, s, inverse=True)
+    return torch.stack([wr.reshape(P, n), wi.reshape(P, n)], dim=1)
+
+
 def bs_closed_form(S, K, sigma, t, r):
     from scipy.special import ndtr
     d1 = (np.log(S / K) + t * (r + 0.5 * sigma * sigma)) / (sigma * np.sqrt(t))
@@ -428,7 +520,7 @@ def main() -> None:
           "float32 matmul runs without TF32")
     t0 = time.perf_counter()
     _build.load()
-    print(f"  K1-K4, K6-K11 built and loaded in "
+    print(f"  K1-K11 built and loaded in "
           f"{time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
     for line in _build.library_path().with_suffix(".log").read_text(
@@ -436,29 +528,42 @@ def main() -> None:
         if "registers" in line or "spill" in line or "entry function" in line:
             print(f"  {line.strip()}")
 
-    # ---- phase 2: K1 against its plain version and torch.fft
+    # ---- phase 2: K1 against its plain version and torch.fft, both
+    # directions unscaled and the forward with a scale in its store, ragged
+    # and full batches, and rows that start 4 or 8 bytes past an alignment
     print("phase 2: K1 vs plain version and torch.fft")
     bars = {torch.float32: 1e-5, torch.float64: 1e-12}
     for dt in (torch.float32, torch.float64):
         worst_p = worst_o = 0.0
         for n in K1_SIZES:
-            for b in K1_BATCHES:
+            if not fused_fft.fused_eligible(n, dt):
+                continue
+            reg = n in fused_fft.REG_LENGTHS[dt]
+            for b in K1_BATCHES + ((5,) if reg else ()):
                 xr, xi = pair((b, n), dt, seed=n + b)
-                ref = torch.fft.fft(torch.complex(xr.double(), xi.double()))
-                for inv in (False, True):
-                    yr, yi = fused_fft.sfft_fused(xr, xi, n, inv)
+                if b == 5:
+                    # an unaligned view: the planes start one element in
+                    buf = real((2, b * n + 1), dt, seed=n)
+                    xr, xi = (v[1:].view(b, n) for v in buf)
+                x64 = torch.complex(xr.double(), xi.double())
+                for inv, sc in ((False, 1.0), (True, 1.0), (False, 0.125)):
+                    yr, yi = fused_fft.sfft_fused(xr, xi, n, inv, sc)
                     pr, pi = fused_fft.sfft_plain(xr, xi, n, inv)
                     torch.cuda.synchronize()
-                    want = (torch.conj(torch.fft.fft(torch.conj(torch.complex(
-                        xr.double(), xi.double())))) if inv else ref)
-                    ep = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+                    want = (torch.fft.ifft(x64) * n if inv
+                            else torch.fft.fft(x64)) * sc
+                    ep = rel_err(torch.complex(yr, yi),
+                                 torch.complex(pr, pi) * sc)
                     eo = rel_err(torch.complex(yr, yi), want)
                     check(ep < bars[dt] and eo < bars[dt],
-                          f"K1 {dt} n={n} b={b} inv={inv}: vs plain {ep:.2e}"
-                          f", vs torch.fft {eo:.2e} < {bars[dt]:g}")
+                          f"K1 {dt} n={n} b={b} inv={inv} scale={sc} "
+                          f"({'register passes' if reg else 'stage loop'}):"
+                          f" vs plain {ep:.2e}, vs torch.fft {eo:.2e} < "
+                          f"{bars[dt]:g}")
                     worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
+        was = BEFORE_WORST[f"K1 {str(dt).split('.')[-1]}"]
         print(f"  {dt}: worst vs plain {worst_p:.3e}, vs torch.fft "
-              f"{worst_o:.3e}")
+              f"{worst_o:.3e} (before: {fmt_pair(was)})")
 
     # ---- phase 3: K2, K3, K4 against their plain versions and torch.fft
     print("phase 3: K2/K3/K4 vs plain version and torch.fft")
@@ -764,28 +869,83 @@ def main() -> None:
     e_r = rel_err(torch.complex(zr, zi), torch.complex(xr, xi))
     check(e_r < 1e-5, f"ifft_split(fft_split(x)) vs x {e_r:.2e} < 1e-5")
 
-    # ---- phase 9: fft_split past the cap: K5 splits s = 2 and 4 ways
+    # ---- phase 9: fft_split and ifft_split past the cap: K5 splits s = 2
+    # and 4 ways, two kernels a call, under every norm, against the plain
+    # route and torch.fft in complex128 (fftpack is torch's "forward")
+    k5_err, worst_k5 = 0.0, [0.0, 0.0]
     for n, b in ((1 << 20, 8), (1 << 21, 4)):
         s = stream_fft._filter_split_factor(n)
-        print(f"phase 9: fft_split n={n} batch={b} f32 (split s={s})")
         xr, xi = pair((b, n), torch.float32, seed=9 + s)
-        (yr, yi), got = drive(lambda: ct.fft_split(xr, xi, norm="backward"),
-                              total)
-        check(got["K2"] > 0, f"K2 launched through K5 ({got})")
         x64 = torch.complex(xr.double(), xi.double())
-        e_o = rel_err(torch.complex(yr, yi), torch.fft.fft(x64))
-        check(bool(torch.isfinite(yr).all()), "output finite")
-        check(e_o < 1e-4, f"vs torch.fft f64 {e_o:.2e} < 1e-4")
-        with plain_engine():
-            pr, pi = ct.fft_split(xr, xi, norm="backward")
-        e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
-        check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
-        (zr, zi), got = drive(lambda: ct.ifft_split(xr, xi, norm="forward"),
-                              total)
-        check(got["K2"] > 0, f"K2 launched by the inverse ({got})")
-        e_i = rel_err(torch.complex(zr, zi),
-                      torch.fft.ifft(x64, norm="forward"))
-        check(e_i < 1e-4, f"ifft_split vs torch.fft f64 {e_i:.2e} < 1e-4")
+        for norm in ("fftpack", "ortho", "backward", "forward"):
+            tnorm = "forward" if norm == "fftpack" else norm
+            for name, fn, ref in (("fft_split", ct.fft_split, torch.fft.fft),
+                                  ("ifft_split", ct.ifft_split,
+                                   torch.fft.ifft)):
+                print(f"phase 9: {name} n={n} batch={b} f32 norm={norm} "
+                      f"(split s={s})")
+                (yr, yi), got = drive(lambda: fn(xr, xi, norm=norm), total)
+                check(got["K5"] > 0 and got["K2"] + got["K3"] == 0,
+                      f"K5 launched, no K2 or K3 ({got})")
+                with plain_engine():
+                    pr, pi = fn(xr, xi, norm=norm)
+                e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+                e_o = rel_err(torch.complex(yr, yi), ref(x64, norm=tnorm))
+                check(tuple(yr.shape) == (b, n)
+                      and bool(torch.isfinite(yr).all())
+                      and bool(torch.isfinite(yi).all()),
+                      "output shape and finite")
+                check(e_p < 1e-5 and e_o < 1e-5, f"vs plain {e_p:.2e}, vs "
+                      f"torch.fft complex128 {e_o:.2e} < 1e-5")
+                worst_k5 = [max(worst_k5[0], e_p), max(worst_k5[1], e_o)]
+                if norm == "backward":
+                    k5_err = max(k5_err, float(max((yr - pr).abs().max(),
+                                                   (yi - pi).abs().max())))
+    # K5's stage-loop column pass (every m but 4096; here m = 3072) at
+    # s = 2 and 4: each mode with a scale (and a natural filter where the
+    # filter route uses one) against its plain version and torch.fft in
+    # complex128, then fft_split/ifft_split at those lengths
+    for n, b in ((786432, 3), (1572864, 2)):
+        s = stream_fft._filter_split_factor(n)
+        print(f"phase 9: K5 modes n={n} batch={b} f32 (split s={s}, "
+              f"m={n // s // 128}: the stage-loop column pass)")
+        xr, xi = pair((b, n), torch.float32, seed=90 + s)
+        f9 = pair((n,), torch.float32, seed=91 + s)
+        x64 = torch.complex(xr.double(), xi.double())
+        for mode, f, scale in (("split", f9, 0.5), ("split", None, 1.0),
+                               ("split_inv", None, 0.25),
+                               ("split_conj", f9, 2.0)):
+            yr, yi = stream_fft._launch(xr, xi, n, mode, *(f or (None, None)),
+                                        scale=scale)
+            pr, pi = stream_fft.stream_plain(xr, xi, n, mode,
+                                             *(f or (None, None)), scale=scale)
+            want = (torch.fft.ifft(x64) * n if mode == "split_inv"
+                    else torch.fft.fft(x64)) * scale
+            if f is not None:
+                want = want * torch.complex(f[0].double(), f[1].double())
+            if mode == "split_conj":
+                want = want.conj()
+            e_p = rel_err(torch.complex(yr, yi), torch.complex(pr, pi))
+            e_o = rel_err(torch.complex(yr, yi), want)
+            check(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all())
+                  and e_p < 1e-5 and e_o < 1e-5,
+                  f"{mode} scale={scale} filter={f is not None}: vs plain "
+                  f"{e_p:.2e}, vs torch.fft complex128 {e_o:.2e} < 1e-5")
+            worst_k5 = [max(worst_k5[0], e_p), max(worst_k5[1], e_o)]
+        for name, fn, ref in (("fft_split", ct.fft_split, torch.fft.fft),
+                              ("ifft_split", ct.ifft_split, torch.fft.ifft)):
+            print(f"phase 9: {name} n={n} batch={b} f32 norm=ortho "
+                  f"(split s={s})")
+            (yr, yi), got = drive(lambda: fn(xr, xi, norm="ortho"), total)
+            check(got["K5"] > 0 and got["K2"] + got["K3"] == 0,
+                  f"K5 launched, no K2 or K3 ({got})")
+            e_o = rel_err(torch.complex(yr, yi), ref(x64, norm="ortho"))
+            check(tuple(yr.shape) == (b, n) and e_o < 1e-5,
+                  f"shape, vs torch.fft complex128 {e_o:.2e} < 1e-5")
+            worst_k5[1] = max(worst_k5[1], e_o)
+    print(f"  K5 route: worst vs plain {worst_k5[0]:.3e}, vs torch.fft "
+          f"{worst_k5[1]:.3e} (before: {fmt_pair(BEFORE_WORST['K5'])})")
+    del x64, yr, yi, pr, pi
 
     # ---- phase 10: the streaming filter at (64, 65536)
     print("phase 10: rfilter_split n=65536 batch=64 f32")
@@ -809,11 +969,33 @@ def main() -> None:
     check(e_c < 1e-4, f"vs rfft_split -> multiply -> irfft_split {e_c:.2e} "
           f"< 1e-4")
 
-    # ---- phase 11: the pricer in float32 at the 2^20 grid (K4, s = 2)
+    # ---- phase 10b: the streaming filter past the cap, (16, 2^20): two K5
+    # calls through the paired rows, the filter in the first call's store
+    print("phase 10b: rfilter_split n=2^20 batch=16 f32")
+    xf = real((16, 1 << 20), torch.float32, seed=12)
+    ff = pair(((1 << 19) + 1,), torch.float32, seed=13)
+    ff[1][0] = 0.0
+    ff[1][-1] = 0.0
+    out, got = drive(lambda: ct.rfilter_split(xf, *ff), total)
+    check(got["K5"] == 2 and got["K2"] + got["K4"] == 0,
+          f"two K5 calls, no K2 or K4 ({got})")
+    with plain_engine():
+        want = ct.rfilter_split(xf, *ff)
+    e_p = rel_err(out, want)
+    f64 = torch.complex(*(f.double() for f in ff))
+    e_o = rel_err(out, torch.fft.irfft(torch.fft.rfft(xf.double()) * f64,
+                                       n=1 << 20))
+    check(tuple(out.shape) == (16, 1 << 20)
+          and bool(torch.isfinite(out).all()), "output shape and finite")
+    check(e_p < 1e-5 and e_o < 1e-5, f"vs plain {e_p:.2e}, vs torch.fft "
+          f"rfft -> multiply -> irfft in float64 {e_o:.2e} < 1e-5")
+    del xf, out, want
+
+    # ---- phase 11: the pricer in float32 at the 2^20 grid (K5, s = 2)
     print("phase 11: conv_option_price 80 strikes n=2^20 f32")
     p32, got = drive(lambda: price(1 << 20, torch.float32), total)
-    check(got["K2"] > 0 and got["K4"] > 0,
-          f"K2 and K4 launched by the pricer ({got})")
+    check(got["K5"] > 0 and got["K2"] + got["K4"] == 0,
+          f"K5 launched by the pricer, no K2 or K4 ({got})")
     e_bs = float(np.abs(p32 - bs).max())
     check(p32.shape == (80,) and bool(np.isfinite(p32).all()),
           "prices shape and finite")
@@ -1183,10 +1365,24 @@ def main() -> None:
     xc = torch.complex(xr, xi)
     fs_cufft_ms = median_ms(lambda: torch.fft.fft(xc, norm="ortho"))
     k3_cufft_ms = median_ms(lambda: torch.fft.fft(xc))
-    xs, ys = pair((8, 1 << 20), torch.float32, seed=15)
-    split_ms = median_ms(lambda: ct.fft_split(xs, ys), reps=10)
-    xs, ys = pair((4, 1 << 21), torch.float32, seed=16)
-    split4_ms = median_ms(lambda: ct.fft_split(xs, ys), reps=10)
+    # the K5 route at its two shapes: the kernel (mode split), its plain
+    # version, fft_split over it, and the unfused route (plain-torch passes
+    # around K2) beside them
+    k5_ms, k5_plain_ms, k5_path_ms, k5_before_ms = {}, {}, {}, {}
+    for sh, seed in (((8, 1 << 20), 15), ((4, 1 << 21), 16)):
+        xs, ys = pair(sh, torch.float32, seed=seed)
+        k5_ms[sh] = median_ms(
+            lambda: stream_fft._launch(xs, ys, sh[1], "split"), reps=10)
+        k5_plain_ms[sh] = median_ms(
+            lambda: stream_fft.stream_plain(xs, ys, sh[1], "split"), reps=5,
+            warm=1)
+        k5_path_ms[sh] = median_ms(lambda: ct.fft_split(xs, ys), reps=10)
+        k5_path_ms[sh, "inverse"] = median_ms(lambda: ct.ifft_split(xs, ys),
+                                              reps=10)
+        k5_before_ms[sh] = median_ms(lambda: k5_before(xs, ys, sh[1]),
+                                     reps=10)
+        del xs, ys
+    split_ms, split4_ms = k5_path_ms[8, 1 << 20], k5_path_ms[4, 1 << 21]
     rf_ms = median_ms(lambda: ct.rfilter_split(x, fr, fi))
     use = rfft_ops._use_stream_filter
     rfft_ops._use_stream_filter = lambda *a: False
@@ -1199,6 +1395,8 @@ def main() -> None:
     fi32[0] = 0.0
     fi32[-1] = 0.0
     rf_pricer_ms = median_ms(lambda: ct.rfilter_split(pay32, fr32, fi32))
+    rf_pricer_before_ms = median_ms(
+        lambda: k5_filter_before(pay32, fr32, fi32, 1 << 20))
     pricer_ms = median_ms(lambda: price(1 << 20, torch.float32), reps=5,
                           warm=1)
     # K7 and K8 at (64, 65536) f32, and the routes they replace
@@ -1351,11 +1549,21 @@ def main() -> None:
         ("fft_split stream path K3 (64, 65536) f32 ortho", fs_ms),
         ("fft_split four-step path (64, 65536) f32 ortho", fs_four_ms),
         ("cuFFT torch.fft.fft (64, 65536) complex64 ortho", fs_cufft_ms),
+        *[(f"K5 split {sh} f32 (the kernel, mode split)", k5_ms[sh])
+          for sh in k5_ms],
+        *[(f"plain K5 split {sh} f32", k5_plain_ms[sh]) for sh in k5_ms],
         ("fft_split K5 split s=2 (8, 2^20) f32", split_ms),
         ("fft_split K5 split s=4 (4, 2^21) f32", split4_ms),
+        *[(f"ifft_split K5 split {sh} f32", k5_path_ms[sh, "inverse"])
+          for sh in k5_ms],
+        *[(f"unfused K5 route {sh} f32 (torch passes around K2)",
+           k5_before_ms[sh]) for sh in k5_ms],
         ("rfilter_split stream path K2+K4 (64, 65536) f32", rf_ms),
         ("rfilter_split half-length path (64, 65536) f32", rf_half_ms),
-        ("rfilter_split stream path s=2 (80, 2^20) f32", rf_pricer_ms),
+        ("rfilter_split stream path s=2 (80, 2^20) f32 (two K5 calls)",
+         rf_pricer_ms),
+        ("rfilter_split (80, 2^20) f32 by the unfused route (K2 and K4, torch "
+         "passes)", rf_pricer_before_ms),
         ("conv_option_price 80 strikes n=2^20 f32 (whole call)", pricer_ms),
         *[(f"K7 {md} (64, 65536) f32", rs_ms[md]) for md in rs_args],
         *[(f"plain K7 {md} (64, 65536) f32", rs_plain_ms[md])
@@ -1405,6 +1613,19 @@ def main() -> None:
     rows.extend(two_d.items())
     for name, ms in rows:
         print(f"  time {name}: {ms:.4f} ms  [{card}]")
+    # host time a call of the two redesigned kernels and their routes
+    xr, xi = pair((4096, 1024), torch.float32, seed=7)
+    xs, ys = pair((8, 1 << 20), torch.float32, seed=15)
+    for name, fn in (
+            ("K1 sfft_fused (4096, 1024)",
+             lambda: fused_fft.sfft_fused(xr, xi, 1024, False)),
+            ("fft_split ortho (4096, 1024)",
+             lambda: ct.fft_split(xr, xi, norm="ortho")),
+            ("K5 stream_fft._launch split (8, 2^20)",
+             lambda: stream_fft._launch(xs, ys, 1 << 20, "split")),
+            ("fft_split (8, 2^20)", lambda: ct.fft_split(xs, ys))):
+        print(f"  host time a call, {name}: {host_us(fn):.1f} us  [{card}]")
+    del xs, ys
     # the dense forms by event time (host time included; phase 25b has
     # the device times): K11's two products, and K10's pass A within the
     # whole of K10
@@ -1467,6 +1688,56 @@ def main() -> None:
                       f"  [{card}]")
         del ar, ai
 
+    # ---- phase 25c: K1 and the K5 route by device time, with their
+    # kernel rows a call, and the measurements behind K1's rows a block
+    # (fused_fft._reg_tile_rows)
+    print("phase 25c: profile of K1 and the K5 route")
+    xr, xi = pair((4096, 1024), torch.float32, seed=104)
+    got = profile_route("fft_split norm=ortho (4096, 1024)",
+                        lambda: ct.fft_split(xr, xi, norm="ortho"), card)
+    check(got["launches"] == 1
+          and all(k.startswith("void k1_reg_kernel") for k in got["rows"]),
+          f"fft_split ortho is one K1 row a call, the scale in its store "
+          f"({got['launches']:g}: {sorted(got['rows'])})")
+    for sh in ((8, 1 << 20), (4, 1 << 21)):
+        xs, ys = pair(sh, torch.float32, seed=105)
+        for name, fn in (("fft_split", ct.fft_split),
+                         ("ifft_split", ct.ifft_split)):
+            for norm in ("ortho", "backward"):
+                got = profile_route(f"{name} norm={norm} {sh} (K5)",
+                                    lambda: fn(xs, ys, norm=norm), card)
+                check(got["launches"] == 2
+                      and all("sf_split" in k for k in got["rows"]),
+                      f"{name} {sh} is two K5 rows a call "
+                      f"({got['launches']:g}: {sorted(got['rows'])})")
+        profile_route(f"unfused K5 route {sh} (torch passes around K2)",
+                      lambda: k5_before(xs, ys, sh[1]), card)
+        del xs, ys
+    got = profile_route("rfilter_split (80, 2^20) f32 (two K5 calls)",
+                        lambda: ct.rfilter_split(pay32, fr32, fi32), card)
+    check(sum(v for k, v in got["rows"].items() if "sf_split" in k)
+          >= 0.9 * got["kernel_us"], "the K5 passes take 90% of the filter's "
+          "kernel time (the rest is the O(n) filter extension)")
+    profile_route("rfilter_split (80, 2^20) f32 by the unfused route",
+                  lambda: k5_filter_before(pay32, fr32, fi32, 1 << 20), card)
+    for dt in (torch.float32, torch.float64):
+        for n in (480, 512, 960, 1024, 2048, 4096, 8192):
+            if n not in fused_fft.REG_LENGTHS[dt]:
+                continue
+            b = (1 << 22) // n
+            xr, xi = pair((b, n), dt, seed=106)
+            tpr = fused_fft._reg_threads_per_row(n)
+            rule = fused_fft._reg_tile_rows(n, dt)
+            for tb in (1, 2, 4):
+                if tb * tpr > fused_fft._REG_MAX_THREADS[dt]:
+                    continue
+                with k1_rows(tb):
+                    profile_route(f"K1 {dt} ({b}, {n}) at {tb} rows a block "
+                                  f"(the rule takes {rule})",
+                                  lambda: fused_fft.sfft_fused(xr, xi, n,
+                                                               False), card)
+    del xr, xi
+
     # each kernel's bound at the shape its times were taken at: every
     # input read once and every output written once (the data planes; the
     # twiddle and phase tables are under 1% of them) and 5 n log2 n
@@ -1483,7 +1754,13 @@ def main() -> None:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library}
 
+    k5_at = (8, 1 << 20)
     kernels = [entry_of(
+        "stream_fft split (K5), times of the forward", src,
+        "cfftpack_tpu/ops/pallas_stream.py:583", "K5", k5_err, k5_ms[k5_at],
+        k5_plain_ms[k5_at], bound_ms(16 * k5_at[0] * k5_at[1],
+                                     fft_flops(*k5_at)), k5_lib_ms[k5_at])]
+    kernels += [entry_of(
         "stockham_fft (K1)", "cfftpack_tpu_torch/csrc/stockham_fft.cu",
         "cfftpack_tpu/ops/pallas_fft.py:90", "K1", kern_err, k1_ms, plain_ms,
         bound_ms(16 * 4096 * 1024, fft_flops(4096, 1024)), cufft_ms)]

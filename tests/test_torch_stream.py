@@ -7,6 +7,9 @@ PyTorch versions on CPU tensors.  The bar is the reference's own in
 test_pallas.py: 5e-6 of max |X|.  The CUDA kernels themselves are
 checked on the card (``-m cuda`` here, and chip_smoke.py).
 """
+import contextlib
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,7 @@ import cfftpack_tpu as jt
 import cfftpack_tpu.ops.pallas_stream as ps
 
 import cfftpack_tpu_torch as pt
+from cfftpack_tpu_torch.config import fwd_scale, inv_scale
 from cfftpack_tpu_torch.ops import fused_fft
 from cfftpack_tpu_torch.ops import stream_fft as sf
 
@@ -179,6 +183,66 @@ def test_split_filter_matches_pallas(small_cap, n):
     assert _err(to_np(got), np.asarray(want)) < TOL
 
 
+@functools.lru_cache(maxsize=None)
+def _split_reference(n: int, inverse: bool):
+    """The Pallas split route in interpret mode on a seeded (3, n) pair,
+    once per (n, direction): (input, unscaled output)."""
+    xr, xi = _pair((3, n), seed=n + 7 * inverse)
+    with _cap(16):
+        wr, wi = ps.sfft_stream_split(jnp.asarray(xr), jnp.asarray(xi), n,
+                                      inverse)
+    return (xr, xi), np.asarray(wr) + 1j * np.asarray(wi)
+
+
+@contextlib.contextmanager
+def _cap(m: int):
+    old = ps._MAX_M
+    ps._MAX_M = m
+    try:
+        yield
+    finally:
+        ps._MAX_M = old
+
+
+@pytest.mark.parametrize("norm", ["fftpack", "ortho", "backward", "forward"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,s", [(4096, 2), (8192, 4)])
+def test_split_modes_match_pallas(small_cap, n, s, inverse, norm):
+    """K5's plain version (mode split, or split_inv as the conjugated
+    forward) with the norm's scale in it, against the Pallas route times
+    the same scale."""
+    (xr, xi), want = _split_reference(n, inverse)
+    scale = inv_scale(norm, n) if inverse else fwd_scale(norm, n)
+    yr, yi = sf.stream_plain(torch.as_tensor(xr), torch.as_tensor(xi), n,
+                             "split_inv" if inverse else "split", scale=scale)
+    assert _err(to_np(yr) + 1j * to_np(yi), want * scale) < TOL
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_split_conj_mode_with_filter(small_cap, n):
+    """Mode split_conj: conj(scale * fft(x) * F), F natural n bins, into
+    given output planes with a row stride (the filter route's layout)."""
+    xr, xi = _pair((2, n), seed=n + 3)
+    F = complex_input((n,), np.complex64, seed=n + 4)
+    out = torch.zeros((2, 2, n))
+    sf.stream_plain(torch.as_tensor(xr), torch.as_tensor(xi), n, "split_conj",
+                    torch.as_tensor(F.real.copy()),
+                    torch.as_tensor(F.imag.copy()), scale=0.5,
+                    out=(out[:, 0], out[:, 1]))
+    want = np.conj(0.5 * np.fft.fft(xr.astype(np.float64) + 1j * xi) * F)
+    assert _err(to_np(out[:, 0]) + 1j * to_np(out[:, 1]), want) < TOL
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_split_scale_is_the_unscaled_result_times_the_scale(small_cap, n):
+    xr, xi = (torch.as_tensor(v) for v in _pair((2, n), seed=n + 5))
+    for inverse in (False, True):
+        ur, ui = sf.sfft_stream_split(xr, xi, n, inverse)
+        yr, yi = sf.sfft_stream_split(xr, xi, n, inverse, scale=0.125)
+        assert torch.allclose(yr, ur * 0.125, rtol=1e-6, atol=1e-6)
+        assert torch.allclose(yi, ui * 0.125, rtol=1e-6, atol=1e-6)
+
+
 # ------------------------------------------------- the public routes
 
 def _spy(monkeypatch, name, n_at=2):
@@ -225,6 +289,30 @@ def test_fft_split_takes_the_split_route(monkeypatch):
     assert calls == [n, n]
 
 
+@pytest.mark.parametrize("norm", ["ortho", "forward"])
+def test_fft_split_scale_rides_in_the_split(monkeypatch, norm):
+    """fft_split at a K5 length hands its norm scale to the split, whose
+    result is the unscaled one times the scale."""
+    monkeypatch.setattr(sf, "_MAX_M", 16)
+    monkeypatch.setattr(fused_fft, "_SMEM_BUDGET", 8192)
+    scales = []
+    real = sf.sfft_stream_split
+
+    def spy(xr, xi, n, inverse, scale=1.0):
+        scales.append(scale)
+        return real(xr, xi, n, inverse, scale)
+
+    monkeypatch.setattr(sf, "sfft_stream_split", spy)
+    n = 8192
+    xr, xi = (torch.as_tensor(v) for v in _pair((2, n), seed=47))
+    yr, yi = pt.fft_split(xr, xi, norm=norm)
+    ur, ui = pt.fft_split(xr, xi, norm="backward")
+    s = fwd_scale(norm, n)
+    assert scales == [s, 1.0]
+    assert torch.allclose(yr, ur * s, rtol=1e-6, atol=1e-7)
+    assert torch.allclose(yi, ui * s, rtol=1e-6, atol=1e-7)
+
+
 def test_rfilter_split_takes_the_stream_route(monkeypatch):
     calls = _spy(monkeypatch, "sfilter_stream", n_at=3)
     n = 65536
@@ -266,7 +354,7 @@ def test_launch_refuses_what_the_kernel_does_not_take():
     meta = torch.empty((2, m, 128), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         sf.sfft_stream_permuted(meta, meta, 2048, False)      # no fallback
-    assert sf.launches == {"K2": 0, "K3": 0, "K4": 0, "K11": 0}
+    assert sf.launches == {"K2": 0, "K3": 0, "K4": 0, "K5": 0, "K11": 0}
 
 
 @pytest.mark.cuda
@@ -290,3 +378,41 @@ def test_kernels_match_plain_on_card():
             torch.cuda.synchronize()
             assert _err(to_np(yr) + 1j * to_np(yi),
                         to_np(pr) + 1j * to_np(pi)) < 1e-5, (n, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(1 << 20, 2), (786432, 3), (1 << 21, 1),
+                                 (1572864, 2)])
+def test_split_kernels_match_plain_on_card(n, b):
+    """K5 on both of its column passes, the register passes at m = 4096
+    (2^20, 2^21) and the stage loop at m = 3072 (s = 2 and 4): every mode,
+    with a filter and a scale, against its plain version and torch.fft in
+    complex128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x = complex_input((b, n), np.complex64, seed=n + b)
+    xr = torch.as_tensor(x.real.copy(), device="cuda")
+    xi = torch.as_tensor(x.imag.copy(), device="cuda")
+    F = complex_input((n,), np.complex64, seed=n)
+    f = (torch.as_tensor(F.real.copy(), device="cuda"),
+         torch.as_tensor(F.imag.copy(), device="cuda"))
+    x64 = x.astype(np.complex128)
+    for mode, filt, scale in (("split", f, 0.5), ("split", None, 1.0),
+                              ("split_inv", None, 0.25),
+                              ("split_conj", f, 2.0)):
+        before = sf.launches["K5"]
+        yr, yi = sf._launch(xr, xi, n, mode, *(filt or (None, None)),
+                            scale=scale)
+        assert sf.launches["K5"] == before + 1
+        pr, pi = sf.stream_plain(xr, xi, n, mode, *(filt or (None, None)),
+                                 scale=scale)
+        torch.cuda.synchronize()
+        want = (np.fft.ifft(x64) * n if mode == "split_inv"
+                else np.fft.fft(x64)) * scale
+        if filt is not None:
+            want = want * F
+        if mode == "split_conj":
+            want = np.conj(want)
+        got = to_np(yr) + 1j * to_np(yi)
+        assert _err(got, to_np(pr) + 1j * to_np(pi)) < 1e-5, (n, mode)
+        assert _err(got, want) < 1e-5, (n, mode)
