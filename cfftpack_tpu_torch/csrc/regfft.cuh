@@ -41,9 +41,14 @@
 // of this thread's transform (device memory; they mask what is not
 // there), and sr, si, sidx(e), where element e sits in shared memory.
 // With last_in_smem the last pass writes shared memory too (gstore is not
-// called), for a store that needs the whole block's results.
+// called), for a store that needs the whole block's results.  An IO
+// object with a member after_load() has it called by every thread
+// between the first pass's loads and its first writes (the cluster
+// engine, cluster_pass.cuh, waits there until every block of its
+// cluster has read the shared memory it is about to overwrite).
 #pragma once
 
+#include <type_traits>
 #include <utility>
 
 #include "butterfly.cuh"
@@ -212,6 +217,12 @@ __device__ __forceinline__ void rf_dft(T* vr, T* vi, T sgn) {
   });
 }
 
+template <class IO, class = void>
+struct RfAfterLoad : std::false_type {};
+template <class IO>
+struct RfAfterLoad<IO, std::void_t<decltype(&IO::after_load)>>
+    : std::true_type {};
+
 template <typename T> struct RfVec;
 template <> struct RfVec<float> { using type = float2; };
 template <> struct RfVec<double> { using type = double2; };
@@ -244,6 +255,7 @@ __device__ __forceinline__ void rf_pass(const IO& io, int tid,
     }
   });
   if constexpr (!FIRST) __syncthreads();
+  if constexpr (FIRST && RfAfterLoad<IO>::value) io.after_load();
   rf_for<NB>([&](auto bI) {
     constexpr int b = decltype(bI)::value;
     const int beta = tid + b * TPR;
@@ -295,6 +307,18 @@ __device__ __forceinline__ void rf_chain(const IO& io, int tid,
   if constexpr (sizeof...(Rest) > 0)
     rf_chain<T, N, TPR, L * P::R, TWOFF + (MN > 1 ? MN * P::NW : 0), false,
              IO, Rest...>(io, tid, ptw, sgn);
+}
+
+// A schedule as a type: the passes of one length, outer to inner.
+template <class... Ps>
+struct RfList {};
+
+// Every pass of a schedule, the first reading device memory.
+template <typename T, int N, int TPR, class IO, class... Ps>
+__device__ __forceinline__ void rf_run(const IO& io, int tid,
+                                       const T* __restrict__ ptw, T sgn,
+                                       RfList<Ps...>) {
+  rf_chain<T, N, TPR, 1, 0, true, IO, Ps...>(io, tid, ptw, sgn);
 }
 
 // Whether the passes P... are the plan's stages `factors` grouped by

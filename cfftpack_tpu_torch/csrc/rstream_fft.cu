@@ -51,9 +51,14 @@
 // per pass) and nothing else: no deinterleave, merge, transpose or
 // riffle pass.  Strided gathers and scatters (Makhoul, DCT-IV pairs) are
 // scalar accesses, and the packed (n/2 + 1)-float rows are stored as
-// scalars (every other row breaks 16-byte alignment).
+// scalars (every other row breaks 16-byte alignment).  At m = 128, 256,
+// 512 and 1024 (n = 16384 .. 131072) K7's four modes run in one pass
+// instead, on a thread-block cluster (cluster_pass.cuh, ClRsMode below):
+// 16 bytes an element, the same loads and stores on the natural index,
+// and the norm's scale (and the ortho weight of bin 0) in them.
 #include <cuda_runtime.h>
 
+#include "cluster_pass.cuh"
 #include "stream_pass.cuh"
 
 enum { RS_RFFT = 0, RS_IRFFT = 1, RS_DCT2 = 2, RS_DCT3 = 3, RS_DCT4 = 4 };
@@ -327,10 +332,18 @@ static int rs_run(const RSArgs& a, const void* ctwr, const void* ctwi,
   const long long rgrid = b * (a.m / SF_ROWS);
   if (csmem > SF_SMEM_MAX || cgrid > 0x7fffffffLL || rgrid > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      rs_col_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)csmem);
+  static bool ready[CL_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= CL_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(rs_col_kernel<MODE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SF_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
   for (int pass = 0; pass < 2; ++pass) {
     if ((pass == 0) == rs_forward(MODE)) {
       rs_col_kernel<MODE><<<(unsigned)cgrid, SF_COL_THREADS, csmem, st>>>(
@@ -345,26 +358,253 @@ static int rs_run(const RSArgs& a, const void* ctwr, const void* ctwi,
   return 0;
 }
 
+// K7 on the cluster engine (cluster_pass.cuh) at m = 128, 256, 512 and
+// 1024: pair p (rows 2p, 2p+1) is one cluster's transform of N = 128*M
+// points, natural order throughout.  The loads and stores are those of
+// the two-pass modes above, on the natural index; the mirror of bin
+// (k2, k1) and dct3's partner of output t sit in rows another block
+// owns, read through the cluster's shared memory between two barriers.
+//
+// rfft   load z = x[2p][j] + i*x[2p+1][j]; store the merge of bins
+//        k = k2 + M*k1 < n/2 (k1 < 64) with their mirrors, as runs of m/C
+//        bins of U (row 2p) and V (row 2p+1), the Nyquist bin from row 0,
+//        lane 64, imag(DC) and imag(Nyquist) exact zeros;
+// dct2   load the Makhoul gather v[j] = x[2j] (j < N/2), x[2N-1-2j]: scalar
+//        stride-2 reads, whose other half the same block reads for the
+//        rows q >= m/2 moments later (from L2); store the merge and
+//        Re(ph_k U_k), Re(ph_k V_k) with the natural phase table, bin 0
+//        times w0;
+// irfft  load conj(Z[j]), Z = U + iV from the packed rows (bins past n/2
+//        from bin n - j); store zr to row 2p and zi to row 2p+1 (the
+//        conjugated forward: z = conj(X));
+// dct3   load conj(Z[k]), U_k = conj(ph_k)(y_k - i*y_{(n-k)%n}) for both
+//        rows, U_0 = w0*y_0, U_{n/2} = sqrt(2)*y_{n/2}; store 0.5*z through
+//        the inverse Makhoul permutation: the pair (2t, 2t+1) is v[t] and
+//        v[N-1-t], N-1-t at row m-1-k2, lane 127-k1 of another block, one
+//        8-byte store.
+// Every store multiplies by `scale`.
+template <int M, int MODE>
+struct ClRsMode {
+  static constexpr long long N = (long long)M * SF_N1;
+  const float* __restrict__ xr;  // input rows, or the packed re plane
+  const float* __restrict__ xi;  // irfft: the packed im plane
+  long long xs;                  // input row stride
+  float* __restrict__ yr;        // output rows, or rfft's re plane
+  float* __restrict__ yi;        // rfft: the im plane
+  const float* __restrict__ phr;  // dct2/dct3: e^{-i pi k/(2n)}, natural
+  const float* __restrict__ phi;
+  int cshift;                     // pair p = blockIdx.x >> cshift
+  float scale, w0;
+  __device__ __forceinline__ long long pair() const {
+    return blockIdx.x >> cshift;
+  }
+  __device__ __forceinline__ void col_load(int q, int r, float& vr,
+                                           float& vi) const {
+    const long long p = pair();
+    const long long j = (long long)q * SF_N1 + r;
+    if constexpr (MODE == RS_RFFT) {
+      const float* x = xr + 2 * p * xs;
+      vr = x[j];
+      vi = x[xs + j];
+    } else if constexpr (MODE == RS_DCT2) {
+      const float* x = xr + 2 * p * xs;
+      const long long src = j < N / 2 ? 2 * j : 2 * N - 1 - 2 * j;
+      vr = x[src];
+      vi = x[xs + src];
+    } else if constexpr (MODE == RS_IRFFT) {
+      const float* ur = xr + 2 * p * xs;
+      const float* ui = xi + 2 * p * xs;
+      if (j <= N / 2) {
+        vr = ur[j] - ui[xs + j];
+        vi = -(ui[j] + ur[xs + j]);
+      } else {
+        const long long kk = N - j;
+        vr = ur[kk] + ui[xs + kk];
+        vi = -(ur[xs + kk] - ui[kk]);
+      }
+    } else {
+      // RS_DCT3
+      const float* yu = xr + 2 * p * xs;
+      float Ur, Ui, Vr, Vi;
+      if (j == 0 || j == N / 2) {
+        const float w = j == 0 ? w0 : 1.41421356237309515f;
+        Ur = w * yu[j];
+        Vr = w * yu[xs + j];
+        Ui = Vi = 0.0f;
+      } else {
+        const long long jm = N - j;
+        const float pr = phr[j], pi = phi[j];
+        const float tu = yu[j], tum = yu[jm];
+        const float tv = yu[xs + j], tvm = yu[xs + jm];
+        Ur = tu * pr - tum * pi;
+        Ui = -(tu * pi + tum * pr);
+        Vr = tv * pr - tvm * pi;
+        Vi = -(tv * pi + tvm * pr);
+      }
+      vr = Ur - Vi;
+      vi = -(Ui + Vr);
+    }
+  }
+  // U = (Z + conj(Zm))/2, V = -i(Z - conj(Zm))/2 at bin (k2, k1), slot s
+  __device__ __forceinline__ void merge(const ClTile& t, int s, int k2,
+                                        int k1, float& Ur, float& Ui,
+                                        float& Vr, float& Vi) const {
+    float Zr, Zi, Zmr, Zmi;
+    t.own(s, k1, Zr, Zi);
+    t.any((M - k2) & (M - 1),
+          k2 == 0 ? (SF_N1 - k1) & (SF_N1 - 1) : SF_N1 - 1 - k1, Zmr, Zmi);
+    Ur = 0.5f * (Zr + Zmr);
+    Ui = 0.5f * (Zi - Zmi);
+    Vr = 0.5f * (Zi + Zmi);
+    Vi = 0.5f * (Zmr - Zr);
+  }
+  template <int>
+  __device__ __forceinline__ void store(const ClTile& t) const {
+    const long long p = pair();
+    const int rows = 1 << t.sh.rshift;
+    const int k20 = t.sh.c << t.sh.rshift;
+    if constexpr (MODE == RS_RFFT) {
+      const long long h1 = N / 2 + 1;
+      float* ur = yr + 2 * p * h1;
+      float* ui = yi + 2 * p * h1;
+      for (int e = threadIdx.x; e < rows * (SF_N1 / 2); e += blockDim.x) {
+        int s, k1;
+        cl_tile(e, t.sh.rshift, s, k1);
+        const int k2 = k20 + s;
+        float Ur, Ui, Vr, Vi;
+        merge(t, s, k2, k1, Ur, Ui, Vr, Vi);
+        const long long k = k2 + (long long)M * k1;
+        if (k == 0) Ui = Vi = 0.0f;
+        ur[k] = scale * Ur;
+        ui[k] = scale * Ui;
+        ur[h1 + k] = scale * Vr;
+        ui[h1 + k] = scale * Vi;
+      }
+      if (t.sh.c == 0 && threadIdx.x == 0) {
+        // Nyquist: row 0, lane 64, its own mirror
+        float Zr, Zi;
+        t.own(0, SF_N1 / 2, Zr, Zi);
+        ur[N / 2] = scale * Zr;
+        ui[N / 2] = 0.0f;
+        ur[h1 + N / 2] = scale * Zi;
+        ui[h1 + N / 2] = 0.0f;
+      }
+    } else if constexpr (MODE == RS_DCT2) {
+      float* yu = yr + 2 * p * N;
+      for (int e = threadIdx.x; e < rows * SF_N1; e += blockDim.x) {
+        int s, k1;
+        cl_tile(e, t.sh.rshift, s, k1);
+        const int k2 = k20 + s;
+        float Ur, Ui, Vr, Vi;
+        merge(t, s, k2, k1, Ur, Ui, Vr, Vi);
+        const long long k = k2 + (long long)M * k1;
+        const float pr = phr[k], pi = phi[k];
+        const float w = k == 0 ? scale * w0 : scale;
+        yu[k] = w * (Ur * pr - Ui * pi);
+        yu[N + k] = w * (Vr * pr - Vi * pi);
+      }
+    } else if constexpr (MODE == RS_IRFFT) {
+      float* y = yr + 2 * p * N;
+      for (int e = threadIdx.x; e < rows * SF_N1; e += blockDim.x) {
+        const int s = e & (rows - 1), k1 = e >> t.sh.rshift;
+        float Xr, Xi;
+        t.own(s, k1, Xr, Xi);
+        const long long k = k20 + s + (long long)M * k1;
+        y[k] = scale * Xr;
+        y[N + k] = -scale * Xi;
+      }
+    } else {
+      // RS_DCT3: t = k2 + M*k1 < N/2, its partner N-1-t
+      float* y = yr + 2 * p * N;
+      const float f = 0.5f * scale;
+      for (int e = threadIdx.x; e < rows * (SF_N1 / 2); e += blockDim.x) {
+        int s, k1;
+        cl_tile(e, t.sh.rshift, s, k1);
+        const int k2 = k20 + s;
+        float Xr, Xi, Pr, Pi;
+        t.own(s, k1, Xr, Xi);
+        t.any(M - 1 - k2, SF_N1 - 1 - k1, Pr, Pi);
+        const long long at = 2 * (k2 + (long long)M * k1);
+        *reinterpret_cast<float2*>(y + at) = make_float2(f * Xr, f * Pr);
+        *reinterpret_cast<float2*>(y + N + at) =
+            make_float2(-f * Xi, -f * Pi);
+      }
+    }
+  }
+};
+
+// One cluster of C = 128 >> lshift blocks a pair (md.cshift = log2 C).
+// The modes whose store reads other blocks' rows (rfft, dct2, dct3) wait
+// for the whole cluster before it, and again after it, so no block's
+// shared memory goes while another still reads it.
+template <int M, int MODE>
+__global__ void __launch_bounds__(CL_MAX_THREADS)
+    cl_rs_kernel(ClRsMode<M, MODE> md, const float* __restrict__ t1r,
+                 const float* __restrict__ t1i,
+                 const float* __restrict__ cptw,
+                 const float* __restrict__ rptw, int lshift) {
+  extern __shared__ __align__(16) float cl_rs_smem[];
+  constexpr bool remote = MODE != RS_IRFFT;
+  const ClShape sh = cl_fft<M>(md, cl_rs_smem, t1r, t1i, cptw, rptw, lshift);
+  if constexpr (remote) cooperative_groups::this_cluster().sync();
+  md.template store<M>(ClTile{cl_rs_smem, sh});
+  if constexpr (remote) cooperative_groups::this_cluster().sync();
+}
+
+template <int M, int MODE>
+static int cl_rs_run(const RSArgs& a, const void* cptw, const void* rptw,
+                     long long b, int C, float scale, float w0,
+                     cudaStream_t st) {
+  static ClReady ready;
+  const ClRsMode<M, MODE> md{a.xr, a.xi, a.xs, a.yr, a.yi, a.par, a.pai,
+                             cl_log2(C), scale, w0};
+  cudaError_t err =
+      cl_launch(cl_rs_kernel<M, MODE>, ready, M, C, b, st, md, a.t1r, a.t1i,
+                (const float*)cptw, (const float*)rptw, cl_log2(SF_N1 / C));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+static int cl_rs_mode(const RSArgs& a, const void* cptw, const void* rptw,
+                      long long b, int C, float scale, float w0,
+                      cudaStream_t st) {
+  switch (a.m) {
+    case 128:
+      return cl_rs_run<128, MODE>(a, cptw, rptw, b, C, scale, w0, st);
+    case 256:
+      return cl_rs_run<256, MODE>(a, cptw, rptw, b, C, scale, w0, st);
+    case 512:
+      return cl_rs_run<512, MODE>(a, cptw, rptw, b, C, scale, w0, st);
+    default:
+      return cl_rs_run<1024, MODE>(a, cptw, rptw, b, C, scale, w0, st);
+  }
+}
+
 // One mode over b transforms of N = 128*m points on `stream` (b = B/2
 // pairs for K7, B rows for K8).  x is the input (xi the im plane of
-// irfft), xs its row stride; y the output (yi the im plane of rfft), s
-// the (b, m, 128) scratch planes; t1 the outer twiddle in the mode's
-// direction; (ctw, cfac, coff) the m-point and (rtw, rfac, roff) the
-// 128-point plans with forward-sign twiddles; pa and pb the mode's
-// tables (see RSArgs).  Returns the first CUDA error, or
-// cudaErrorInvalidValue for arguments the kernels do not take.
+// irfft), xs its row stride; y the output (yi the im plane of rfft).
+// K7's modes at m = 128, 256, 512, 1024 run on clusters of `csize` blocks
+// (cluster_pass.cuh): t1 the forward outer twiddle, (cptw, rptw) the
+// register pass twiddles of m and 128, pa the natural phase table
+// (dct2/dct3), times `scale` in the store and w0 on bin 0 (dct2's store,
+// dct3's load).  Every other (mode, m) runs the two stage-loop passes
+// through the (b, m, 128) scratch s: t1 in the mode's direction,
+// (ctw, cfac, coff) the m-point and (rtw, rfac, roff) the 128-point plans
+// with forward-sign twiddles, pa and pb the mode's tables (see RSArgs);
+// they take scale = w0 = 1 only (the caller multiplies).  Returns the
+// first CUDA error, or cudaErrorInvalidValue for arguments the kernels do
+// not take.
 extern "C" int rstream_fft_f32(
     const void* xr, const void* xi, long long xs, void* yr, void* yi,
     void* sr, void* si, const void* t1r, const void* t1i, const void* ctwr,
     const void* ctwi, int cstages, const int* cfac, const int* coff,
     const void* rtwr, const void* rtwi, int rstages, const int* rfac,
     const int* roff, const void* par, const void* pai, const void* pbr,
-    const void* pbi, int b, int m, int mode, int lshift, void* stream) {
-  SFPlan cplan, rplan;
+    const void* pbi, const void* cptw, const void* rptw, int b, int m,
+    int mode, int csize, int lshift, float scale, float w0, void* stream) {
   if (b < 1 || m < SF_ROWS || m % SF_ROWS || mode < RS_RFFT ||
-      mode > RS_DCT4 || lshift < 0 || lshift > 7 || xs < 1 ||
-      !sf_make_plan(&cplan, m, cstages, cfac, coff) ||
-      !sf_make_plan(&rplan, SF_N1, rstages, rfac, roff))
+      mode > RS_DCT4 || xs < 1)
     return (int)cudaErrorInvalidValue;
   if ((mode == RS_IRFFT && xi == nullptr) || (mode == RS_RFFT && yi == nullptr) ||
       ((mode == RS_DCT2 || mode == RS_DCT3 || mode == RS_DCT4) &&
@@ -376,6 +616,24 @@ extern "C" int rstream_fft_f32(
                  (const float*)t1i, (const float*)par, (const float*)pai,
                  (const float*)pbr, (const float*)pbi, m};
   cudaStream_t st = (cudaStream_t)stream;
+  if (mode != RS_DCT4 && cl_takes(m)) {
+    if (cptw == nullptr || rptw == nullptr) return (int)cudaErrorInvalidValue;
+    switch (mode) {
+      case RS_RFFT:
+        return cl_rs_mode<RS_RFFT>(a, cptw, rptw, b, csize, scale, w0, st);
+      case RS_IRFFT:
+        return cl_rs_mode<RS_IRFFT>(a, cptw, rptw, b, csize, scale, w0, st);
+      case RS_DCT2:
+        return cl_rs_mode<RS_DCT2>(a, cptw, rptw, b, csize, scale, w0, st);
+      default:
+        return cl_rs_mode<RS_DCT3>(a, cptw, rptw, b, csize, scale, w0, st);
+    }
+  }
+  SFPlan cplan, rplan;
+  if (lshift < 0 || lshift > 7 || scale != 1.0f || w0 != 1.0f ||
+      !sf_make_plan(&cplan, m, cstages, cfac, coff) ||
+      !sf_make_plan(&rplan, SF_N1, rstages, rfac, roff))
+    return (int)cudaErrorInvalidValue;
   switch (mode) {
     case RS_RFFT:
       return rs_run<RS_RFFT>(a, ctwr, ctwi, cplan, rtwr, rtwi, rplan, b,

@@ -37,8 +37,10 @@
 //
 // The forward runs column then row pass, the inverse row then column.
 // That moves 32 bytes per complex element instead of the one-pass 16.
-// A one-pass design (thread-block clusters with distributed shared
-// memory, or TMA) is left for later.  Butterflies are the closed forms
+// K3 (entry stream_nat_f32, at the end of this file) runs one pass on a
+// thread-block cluster at m = 128 .. 1024 (cluster_pass.cuh) and K5's
+// register-pass kernels at s = 1 at m = 2048 and 4096; only its other m
+// take these two passes.  Butterflies are the closed forms
 // of radix 2/3/4/5 in full float32 (no tensor cores); stage twiddles
 // and the outer twiddle are float64-built tables cast to float32.  The
 // ragged batch needs no mask and no pad: every block owns whole rows.
@@ -78,18 +80,36 @@
 // conj(fft(Y)) into the caller's paired rows.
 #include <cuda_runtime.h>
 
+#include "cluster_pass.cuh"
 #include "regfft.cuh"
 #include "stream_pass.cuh"
 
 #define SF_MAX_DEVICES 64
-// K5's column pass in register passes: the m it is compiled for, the
-// threads of one lane (16 elements a thread) and the lanes of a block
-// (1024 threads, 139 KB: on an H100 at (8, 2^20) 1, 2 and 4 lanes took
-// 911, 464 and 298 us a route, as the row segment a warp reads grows from
-// 4 to 16 bytes of a 32-byte sector)
-#define SF_REG_M 4096
-#define SF_REG_TPR 256
-#define SF_REG_LANES 4
+
+// K5's column pass in register passes at m = 2048 and 4096: the schedule
+// (plan.reg_passes(m)), 16 elements a thread, m/16 threads a lane, and
+// lanes a block such that it has 1024 threads in one padded buffer of
+// 139 KB: 8 lanes at 2048, 4 at 4096 (on an H100 at (8, 2^20) 1, 2 and 4
+// lanes took 911, 464 and 298 us a route, as the row segment a warp reads
+// grows from 4 to 16 bytes of a 32-byte sector).
+template <int M>
+struct SfRegCol;
+template <>
+struct SfRegCol<2048> {
+  using type = RfList<RfPass<4, 4>, RfPass<4, 4>, RfPass<4, 2>>;
+};
+template <>
+struct SfRegCol<4096> {
+  using type = RfList<RfPass<4, 4>, RfPass<4, 4>, RfPass<4, 4>>;
+};
+#define SF_REG_THREADS 1024
+
+__host__ __device__ constexpr bool sf_reg_takes(int m) {
+  return m == 2048 || m == 4096;
+}
+__host__ __device__ constexpr int sf_reg_lanes(int m) {
+  return SF_REG_THREADS * 16 / m;
+}
 
 // Raises a kernel's cap on dynamic shared memory to SF_SMEM_MAX, once per
 // device: a launch asks only for what it uses.
@@ -213,7 +233,8 @@ __device__ __forceinline__ void sf_quarter(float& vr, float& vi, int p) {
 // K5 column-pass IO: the load combines the s input rows into output k1 of
 // their s-point DFT and applies the split twiddle (s, n_in) at [k1, j];
 // the store writes sub-transform `row` = b*S + k1 of the (b*S, m, 128)
-// scratch.  `isgn` = -1 conjugates the input.
+// scratch.  `isgn` = -1 conjugates the input.  At S = 1 (K3's register
+// route) the load is the input alone.
 template <int S>
 struct SFSplitColIO {
   const float* __restrict__ xr;
@@ -228,18 +249,23 @@ struct SFSplitColIO {
   __device__ __forceinline__ void load(long long, int j, float& vr,
                                        float& vi) const {
     const long long at = b * in_rs + j;
-    float ar = 0.0f, ai = 0.0f;
+    if constexpr (S == 1) {
+      vr = xr[at];
+      vi = isgn * xi[at];
+    } else {
+      float ar = 0.0f, ai = 0.0f;
 #pragma unroll
-    for (int j1 = 0; j1 < S; ++j1) {
-      float ur = xr[at + j1 * n_in], ui = isgn * xi[at + j1 * n_in];
-      sf_quarter(ur, ui, j1 * k1 * (4 / S));
-      ar += ur;
-      ai += ui;
+      for (int j1 = 0; j1 < S; ++j1) {
+        float ur = xr[at + j1 * n_in], ui = isgn * xi[at + j1 * n_in];
+        sf_quarter(ur, ui, j1 * k1 * (4 / S));
+        ar += ur;
+        ai += ui;
+      }
+      const long long t = k1 * n_in + j;
+      sf_cmul(ar, ai, spr[t], spi[t]);
+      vr = ar;
+      vi = ai;
     }
-    const long long t = k1 * n_in + j;
-    sf_cmul(ar, ai, spr[t], spi[t]);
-    vr = ar;
-    vi = ai;
   }
   __device__ __forceinline__ void store(long long row, int j, float vr,
                                         float vi) const {
@@ -286,7 +312,7 @@ struct SFSplitRowIO {
   }
 };
 
-// The column pass of K5 at m other than SF_REG_M, in the stage loop:
+// The column pass of K5 at m other than 2048 and 4096, in the stage loop:
 // block (b, group, k1), k1 fastest.
 template <int S>
 __global__ void __launch_bounds__(SF_COL_THREADS)
@@ -304,12 +330,12 @@ __global__ void __launch_bounds__(SF_COL_THREADS)
                  plan, io.b * S + io.k1, (int)(blk % G) << lshift);
 }
 
-// K5's column pass at m = SF_REG_M in register passes (regfft.cuh, the
-// schedule (4*4)(4*4)(4*4) of K1 at 4096): SF_REG_LANES lanes a block,
-// lanes fastest in the thread index and in shared memory, one padded
-// buffer of both planes (4352 * SF_REG_LANES floats each); the split load
-// in the first pass, the outer twiddle and the scratch store in the last.
-template <int S>
+// K5's column pass at m = 2048 and 4096 in register passes (regfft.cuh,
+// the schedule SfRegCol<M>): sf_reg_lanes(M) lanes a block, lanes fastest
+// in the thread index and in shared memory, one padded buffer of both
+// planes ((M + M/16) * lanes floats each); the split load in the first
+// pass, the outer twiddle and the scratch store in the last.
+template <int S, int LANES>
 struct SFSplitColRegIO {
   static constexpr bool last_in_smem = false;
   SFSplitColIO<S> io;
@@ -320,7 +346,7 @@ struct SFSplitColRegIO {
   long long row;
   int r, lane;
   __device__ __forceinline__ int sidx(int e) const {
-    return (e + (e >> 4)) * SF_REG_LANES + lane;
+    return (e + (e >> 4)) * LANES + lane;
   }
   __device__ __forceinline__ void gload(int e, float& vr, float& vi) const {
     io.load(row, e * SF_N1 + r, vr, vi);
@@ -333,24 +359,24 @@ struct SFSplitColRegIO {
 };
 
 // Block (b, group, k1), k1 fastest.
-template <int S>
-__global__ void __launch_bounds__(SF_REG_TPR * SF_REG_LANES)
+template <int S, int M>
+__global__ void __launch_bounds__(SF_REG_THREADS)
     sf_split_col_reg_kernel(SFSplitColIO<S> io, const float* __restrict__ t1r,
                             const float* __restrict__ t1i,
                             const float* __restrict__ ptw) {
   extern __shared__ __align__(16) float sf_split_reg_smem[];
-  constexpr int G = SF_N1 / SF_REG_LANES;
-  constexpr int RS = (SF_REG_M + (SF_REG_M >> 4)) * SF_REG_LANES;
+  constexpr int LANES = sf_reg_lanes(M);
+  constexpr int G = SF_N1 / LANES;
+  constexpr int RS = (M + (M >> 4)) * LANES;
   const long long blk = blockIdx.x / S;
   io.k1 = (int)(blockIdx.x % S);
   io.b = blk / G;
-  const int lane = threadIdx.x % SF_REG_LANES;
-  const SFSplitColRegIO<S> rio{
+  const int lane = threadIdx.x % LANES;
+  const SFSplitColRegIO<S, LANES> rio{
       io, t1r, t1i, sf_split_reg_smem, sf_split_reg_smem + RS,
-      io.b * S + io.k1, (int)(blk % G) * SF_REG_LANES + lane, lane};
-  rf_chain<float, SF_REG_M, SF_REG_TPR, 1, 0, true, SFSplitColRegIO<S>,
-           RfPass<4, 4>, RfPass<4, 4>, RfPass<4, 4>>(
-      rio, threadIdx.x / SF_REG_LANES, ptw, -1.0f);
+      io.b * S + io.k1, (int)(blk % G) * LANES + lane, lane};
+  rf_run<float, M, M / 16>(rio, threadIdx.x / LANES, ptw, -1.0f,
+                           typename SfRegCol<M>::type{});
 }
 
 // One slot's 128 points in the register passes.
@@ -394,9 +420,27 @@ enum { SF_CONJ_IN = 1, SF_CONJ_OUT = 2 };
 
 static bool sf_col_ready[SF_MAX_DEVICES];
 
-// Both passes of K5 over b rows of n = S*128*m points: the column pass in
-// register passes at m = SF_REG_M (pass twiddles ptw), else in the stage
-// loop on 1 << lshift lanes; the row pass in register passes (rptw).
+// The column pass of K5 in register passes at m = M.
+template <int S, int M>
+static cudaError_t sf_split_col_reg(const SFSplitColIO<S>& cio,
+                                    const void* t1r, const void* t1i,
+                                    const void* ptw, int b, cudaStream_t st) {
+  static bool ready[SF_MAX_DEVICES];
+  constexpr int LANES = sf_reg_lanes(M);
+  const size_t smem = 2 * sizeof(float) * (M + (M >> 4)) * (size_t)LANES;
+  const long long grid = (long long)b * S * (SF_N1 / LANES);
+  if (ptw == nullptr || grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err = sf_allow_smem(sf_split_col_reg_kernel<S, M>, ready);
+  if (err != cudaSuccess) return err;
+  sf_split_col_reg_kernel<S, M><<<(unsigned)grid, SF_REG_THREADS, smem, st>>>(
+      cio, (const float*)t1r, (const float*)t1i, (const float*)ptw);
+  return cudaSuccess;
+}
+
+// Both passes of K5 over b rows of n = S*128*m points (S = 1 is K3's
+// register route): the column pass in register passes at m = 2048 and
+// 4096 (pass twiddles ptw), else in the stage loop on 1 << lshift lanes;
+// the row pass in register passes (rptw).
 template <int S>
 static int sf_split_run(const void* xr, const void* xi, void* yr, void* yi,
                         void* sr, void* si, const void* t1r, const void* t1i,
@@ -406,7 +450,7 @@ static int sf_split_run(const void* xr, const void* xi, void* yr, void* yi,
                         const void* fi, int b, int m, int lshift,
                         long long in_rs, long long out_rs, float scale,
                         int conj, cudaStream_t st) {
-  static bool col_ready[SF_MAX_DEVICES], reg_ready[SF_MAX_DEVICES];
+  static bool col_ready[SF_MAX_DEVICES];
   const long long rgrid = (long long)b * (m * S / SF_ROWS);
   if (rgrid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const SFSplitColIO<S> cio{(const float*)xr, (const float*)xi, (float*)sr,
@@ -414,17 +458,10 @@ static int sf_split_run(const void* xr, const void* xi, void* yr, void* yi,
                             in_rs, (long long)m * SF_N1, 0, 0,
                             (conj & SF_CONJ_IN) ? -1.0f : 1.0f};
   cudaError_t err;
-  if (m == SF_REG_M) {
-    const size_t smem = 2 * sizeof(float) * (SF_REG_M + (SF_REG_M >> 4)) *
-                        (size_t)SF_REG_LANES;
-    const long long grid = (long long)b * S * (SF_N1 / SF_REG_LANES);
-    if (ptw == nullptr || grid > 0x7fffffffLL)
-      return (int)cudaErrorInvalidValue;
-    err = sf_allow_smem(sf_split_col_reg_kernel<S>, reg_ready);
+  if (sf_reg_takes(m)) {
+    err = m == 2048 ? sf_split_col_reg<S, 2048>(cio, t1r, t1i, ptw, b, st)
+                    : sf_split_col_reg<S, 4096>(cio, t1r, t1i, ptw, b, st);
     if (err != cudaSuccess) return (int)err;
-    sf_split_col_reg_kernel<S>
-        <<<(unsigned)grid, SF_REG_TPR * SF_REG_LANES, smem, st>>>(
-            cio, (const float*)t1r, (const float*)t1i, (const float*)ptw);
   } else {
     const size_t smem = 16 * (size_t)m * ((size_t)1 << lshift);
     const long long grid = (long long)b * S * (SF_N1 >> lshift);
@@ -539,4 +576,135 @@ extern "C" int stream_split_f32(
              : sf_split_run<4>(xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi,
                                cplan, spr, spi, ptw, rptw, fr, fi, b, m,
                                lshift, in_rs, out_rs, scale, conj, st);
+}
+
+// K3 on the cluster engine (cluster_pass.cuh): transform blockIdx.x >>
+// cshift (one a cluster of 1 << cshift blocks) of the (b, n) natural
+// planes, the imaginary plane times isgn in the load and times osgn in
+// the store (-1 both ways for the inverse, the conjugated forward), the
+// store times `scale`.  The kernel keeps it as it came (no field is
+// written), so its fields stay kernel parameters, not registers.
+struct ClNatMode {
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  float* __restrict__ yr;
+  float* __restrict__ yi;
+  long long n;
+  int cshift;
+  float isgn, scale, oscale;  // oscale = osgn * scale
+  __device__ __forceinline__ long long at() const {
+    return (long long)(blockIdx.x >> cshift) * n;
+  }
+  __device__ __forceinline__ void col_load(int q, int r, float& vr,
+                                           float& vi) const {
+    const long long g = at() + q * SF_N1 + r;
+    vr = xr[g];
+    vi = isgn * xi[g];
+  }
+  // for each k1 a run of m/C contiguous k2: X[k2 + M*k1]
+  template <int M>
+  __device__ __forceinline__ void store(const ClTile& t) const {
+    const int rows = 1 << t.sh.rshift;
+    const long long k20 = at() + ((long long)t.sh.c << t.sh.rshift);
+    for (int e = threadIdx.x; e < rows * SF_N1; e += blockDim.x) {
+      const int s = e & (rows - 1), k1 = e >> t.sh.rshift;
+      float vr, vi;
+      t.own(s, k1, vr, vi);
+      yr[k20 + (long long)k1 * M + s] = scale * vr;
+      yi[k20 + (long long)k1 * M + s] = oscale * vi;
+    }
+  }
+};
+
+// One cluster of C = 128 >> lshift blocks a transform.  After the row
+// phase's exchange no block reads another's shared memory, so the store
+// needs no cluster barrier.
+template <int M>
+__global__ void __launch_bounds__(CL_MAX_THREADS)
+    cl_nat_kernel(ClNatMode md, const float* __restrict__ t1r,
+                  const float* __restrict__ t1i,
+                  const float* __restrict__ cptw,
+                  const float* __restrict__ rptw, int lshift) {
+  extern __shared__ __align__(16) float cl_nat_smem[];
+  const ClShape sh =
+      cl_fft<M>(md, cl_nat_smem, t1r, t1i, cptw, rptw, lshift);
+  md.template store<M>(ClTile{cl_nat_smem, sh});
+}
+
+template <int M>
+static cudaError_t cl_nat_run(const ClNatMode& md, const void* t1r,
+                              const void* t1i, const void* cptw,
+                              const void* rptw, int b, int C,
+                              cudaStream_t st) {
+  static ClReady ready;
+  return cl_launch(cl_nat_kernel<M>, ready, M, C, b, st, md,
+                   (const float*)t1r, (const float*)t1i, (const float*)cptw,
+                   (const float*)rptw, cl_log2(SF_N1 / C));
+}
+
+// K3 on `stream`: the natural-order FFT of b rows of n = 128*m points,
+// natural (b, n) planes in and out (the inverse unscaled), times `scale`.
+// The route is m's:
+//
+// * m = 128, 256, 512, 1024: one kernel on clusters of `csize` blocks
+//   (cluster_pass.cuh), no scratch; t1 is the forward outer twiddle, cptw
+//   and rptw the register pass twiddles of m and 128;
+// * m = 2048, 4096: K5's two register-pass kernels at S = 1 through the
+//   (b, n) scratch s; t1 forward, cptw and rptw as above;
+// * every other m: the stage-loop passes of stream_fft_f32 (modes fwd_nat,
+//   inv_nat) through the (b, m, 128) scratch s, on 1 << lshift lanes, t1
+//   in the direction's sign with the stage plans (ctw, cfac, coff) and
+//   (rtw, rfac, roff); it takes scale = 1 only (the caller multiplies).
+//
+// Returns the first CUDA error, or cudaErrorInvalidValue for arguments
+// the kernels do not take.
+extern "C" int stream_nat_f32(
+    const void* xr, const void* xi, void* yr, void* yi, void* sr, void* si,
+    const void* t1r, const void* t1i, const void* ctwr, const void* ctwi,
+    int cstages, const int* cfac, const int* coff, const void* rtwr,
+    const void* rtwi, int rstages, const int* rfac, const int* roff,
+    const void* cptw, const void* rptw, int b, int m, int inverse, int csize,
+    int lshift, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (b < 1 || (inverse != 0 && inverse != 1))
+    return (int)cudaErrorInvalidValue;
+  const int conj = inverse ? SF_CONJ_IN | SF_CONJ_OUT : 0;
+  if (cl_takes(m)) {
+    if (cptw == nullptr || rptw == nullptr || !cl_config_ok(m, csize))
+      return (int)cudaErrorInvalidValue;
+    const float sgn = inverse ? -1.0f : 1.0f;
+    const ClNatMode md{(const float*)xr, (const float*)xi, (float*)yr,
+                       (float*)yi, (long long)m * SF_N1, cl_log2(csize), sgn,
+                       scale, sgn * scale};
+    cudaError_t err;
+    switch (m) {
+      case 128:
+        err = cl_nat_run<128>(md, t1r, t1i, cptw, rptw, b, csize, st);
+        break;
+      case 256:
+        err = cl_nat_run<256>(md, t1r, t1i, cptw, rptw, b, csize, st);
+        break;
+      case 512:
+        err = cl_nat_run<512>(md, t1r, t1i, cptw, rptw, b, csize, st);
+        break;
+      default:
+        err = cl_nat_run<1024>(md, t1r, t1i, cptw, rptw, b, csize, st);
+        break;
+    }
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  if (sf_reg_takes(m)) {
+    const long long n = (long long)m * SF_N1;
+    if (cptw == nullptr || rptw == nullptr) return (int)cudaErrorInvalidValue;
+    SFPlan none{};
+    return sf_split_run<1>(xr, xi, yr, yi, sr, si, t1r, t1i, nullptr,
+                           nullptr, none, nullptr, nullptr, cptw, rptw,
+                           nullptr, nullptr, b, m, 0, n, n, scale, conj, st);
+  }
+  if (scale != 1.0f) return (int)cudaErrorInvalidValue;
+  return stream_fft_f32(xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi,
+                        cstages, cfac, coff, rtwr, rtwi, rstages, rfac, roff,
+                        nullptr, nullptr, 1, b, m,
+                        inverse ? SF_INV_NAT : SF_FWD_NAT, lshift, stream);
 }

@@ -46,12 +46,17 @@ _STREAM_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
 # stream
 _SPLIT_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I] + [_P] * 4
                    + [_I] * 3 + [_L, _L, ctypes.c_float, _I, _P])
+# xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
+# rtwr, rtwi, rstages, rfac, roff, cptw, rptw, b, m, inverse, csize,
+# lshift, scale, stream
+_NAT_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
+                 + [_P] * 2 + [_I] * 5 + [ctypes.c_float, _P])
 # xr, xi, xs, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
-# rtwr, rtwi, rstages, rfac, roff, par, pai, pbr, pbi, b, m, mode, lshift,
-# stream
+# rtwr, rtwi, rstages, rfac, roff, par, pai, pbr, pbi, cptw, rptw, b, m,
+# mode, csize, lshift, scale, w0, stream
 _RSTREAM_ARGTYPES = ([_P] * 2 + [ctypes.c_longlong] + [_P] * 8
-                     + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P] + [_P] * 4
-                     + [_I] * 4 + [_P])
+                     + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P] + [_P] * 6
+                     + [_I] * 5 + [ctypes.c_float] * 2 + [_P])
 # xr, xi, yr, yi, twr, twi, nstages, fac, off, phr, phi, w, b, n0, n1, mode,
 # lshift, scale, stream
 _COL_ARGTYPES = ([_P] * 6 + [_I, _P, _P] + [_P] * 3 + [_I] * 5
@@ -129,6 +134,7 @@ def load() -> ctypes.CDLL:
                         ("cfft_stockham_f64", _K1_ARGTYPES),
                         ("stream_fft_f32", _STREAM_ARGTYPES),
                         ("stream_split_f32", _SPLIT_ARGTYPES),
+                        ("stream_nat_f32", _NAT_ARGTYPES),
                         ("rstream_fft_f32", _RSTREAM_ARGTYPES),
                         ("col_fft_f32", _COL_ARGTYPES),
                         ("fourstep_fft_f32", _FOURSTEP_ARGTYPES),

@@ -352,20 +352,30 @@ def _use_rstream(n: int, B: int, dtype) -> bool:
             and not fused_fft.fused_eligible(n // 2, dtype))
 
 
-def srfft(x, n: int):
-    """Unscaled r2c DFT of real x -> (re, im) pair of n//2+1 bins.
+def srfft(x, n: int, scale: float = 1.0):
+    """r2c DFT of real x -> (re, im) pair of n//2+1 bins, times ``scale``
+    (unscaled by default).
 
-    Even n: the real-stream route (K7) where ``_use_rstream``, else the
-    half-length complex trick with the fused merge stage; odd n: row
-    pairing, or the complex FFT of (x, 0), truncated.  imag(DC) and
-    (even n) imag(Nyquist) are exact zeros.
+    Even n: the real-stream route (K7) where ``_use_rstream``, which
+    applies the scale in its store, else the half-length complex trick
+    with the fused merge stage; odd n: row pairing, or the complex FFT of
+    (x, 0), truncated.  imag(DC) and (even n) imag(Nyquist) are exact
+    zeros.
     """
+    if _use_rstream(n, x.shape[:-1].numel(), x.dtype):
+        return rstream.srfft_stream(x, n, scale)
+    yr, yi = _srfft(x, n)
+    if scale != 1.0:
+        yr, yi = yr * scale, yi * scale
+    return yr, yi
+
+
+def _srfft(x, n: int):
+    """srfft, unscaled, off the K7 route."""
     if n == 1:
         return x, torch.zeros_like(x)
     if _use_pair(n, x.shape[:-1].numel()):
         return _srfft_batchpair(x, n)
-    if _use_rstream(n, x.shape[:-1].numel(), x.dtype):
-        return rstream.srfft_stream(x, n)
     if n % 2 == 0:
         Zr, Zi = sfft(x[..., 0::2], x[..., 1::2], n // 2, inverse=False)
         a1, a2, a3, a4, b1, b2, b3, b4 = (
@@ -390,14 +400,21 @@ def srfft(x, n: int):
     return yr, yi
 
 
-def sirfft(yr, yi, n: int):
-    """Unscaled c2r inverse of a packed pair: returns n * x (real)."""
+def sirfft(yr, yi, n: int, scale: float = 1.0):
+    """c2r inverse of a packed pair: returns n * scale * x (real); the K7
+    route applies the scale in its store."""
+    if _use_rstream(n, yr.shape[:-1].numel(), yr.dtype):
+        return rstream.sirfft_stream(yr, yi, n, scale)
+    x = _sirfft(yr, yi, n)
+    return x * scale if scale != 1.0 else x
+
+
+def _sirfft(yr, yi, n: int):
+    """sirfft, unscaled, off the K7 route."""
     if n == 1:
         return yr[..., 0:1]
     if _use_pair(n, yr.shape[:-1].numel()):
         return _sirfft_batchpair(yr, yi, n)
-    if _use_rstream(n, yr.shape[:-1].numel(), yr.dtype):
-        return rstream.sirfft_stream(yr, yi, n)
     if n % 2 == 0:
         h = n // 2
         ya = yr[..., :h]

@@ -92,12 +92,24 @@ def _dct2_core_tables(n: int):
             (T1 + T3)[:, :1], (T2 + T4)[:, :1])
 
 
-def _dct2_core(x, n: int):
-    """y[k] = sum_j x[j] cos(pi*k*(2j+1)/(2n))  (Makhoul N-point)."""
+def _dct2_core(x, n: int, mode: int = -1):
+    """y[k] = sum_j x[j] cos(pi*k*(2j+1)/(2n))  (Makhoul N-point), with
+    the scale of norm ``mode`` (+1 fftpack forward, -1 unscaled, the
+    default, 0 ortho): the K7 route applies it in its store."""
+    if core._use_rstream(n, x.shape[:-1].numel(), x.dtype):
+        return rstream.sdct2_stream(x, n, *_k7_norm(n, mode, 2))
+    y = _dct2_unit(x, n)
+    if mode < 0:  # unscaled: the reference's DCT-II side (cosq1b_)
+        return y
+    if mode > 0:
+        return y * (2.0 / n)
+    return y * _tab("weights", n, x)[0]      # y0*sqrt(1/n), yk*sqrt(2/n)
+
+
+def _dct2_unit(x, n: int):
+    """_dct2_core, unscaled, off the K7 route."""
     if n == 1:
         return x
-    if core._use_rstream(n, x.shape[:-1].numel(), x.dtype):
-        return rstream.sdct2_stream(x, n)
     if n % 2:
         # odd n: Makhoul permutation + full-length real DFT
         v = torch.cat([x[..., 0::2], x[..., 1::2].flip(-1)], dim=-1)
@@ -151,8 +163,23 @@ def _dct3_tables(n: int):
     return A, B
 
 
-def _dct3_core(x, n: int):
-    """y[k] = x[0]/2 + sum_{j>=1} x[j] cos(pi*j*(2k+1)/(2n)).
+def _dct3_core(x, n: int, mode: int = -1):
+    """y[k] = x[0]/2 + sum_{j>=1} x[j] cos(pi*j*(2k+1)/(2n)), with the
+    scale of norm ``mode`` (unscaled by default): the K7 route applies it
+    in its load and store."""
+    if core._use_rstream(n, x.shape[:-1].numel(), x.dtype):
+        return rstream.sdct3_stream(x, n, *_k7_norm(n, mode, 3))
+    if mode < 0:
+        return _dct3_unit(x, n)
+    if mode > 0:  # fftpack forward (cosq1f_): 2/n overall
+        return _dct3_unit(x, n) * (2.0 / n)
+    # ortho (transpose of orthonormal DCT-II): input scales sqrt(2/n),
+    # except 2/sqrt(n) on x0, whose 1/2 the core applies
+    return _dct3_unit(x * _tab("weights", n, x)[1], n)
+
+
+def _dct3_unit(x, n: int):
+    """_dct3_core, unscaled, off the K7 route.
 
     Even n: four slice/flip gathers of x, one table FMA building the
     half-length spectrum, one inverse complex FFT and a 4-way riffle of
@@ -162,8 +189,6 @@ def _dct3_core(x, n: int):
     """
     if n == 1:
         return 0.5 * x
-    if core._use_rstream(n, x.shape[:-1].numel(), x.dtype):
-        return rstream.sdct3_stream(x, n)
     h = n // 2
     if n % 2 == 0:
         m = (n + 2) // 4 if n % 4 else n // 4
@@ -202,16 +227,20 @@ def _alt_sign(n: int) -> np.ndarray:
     return (-1.0) ** np.arange(n)
 
 
-def _dst2_core(x, n: int):
-    """y[k] = sum_j x[j] sin(pi*(k+1)*(2j+1)/(2n)) = flip(dct2((-1)^j x))."""
+def _dst2_core(x, n: int, mode: int = -1):
+    """y[k] = sum_j x[j] sin(pi*(k+1)*(2j+1)/(2n)) = flip(dct2((-1)^j x)),
+    with the scale of norm ``mode`` (ortho's weight of y[n-1] is that of
+    the DCT-II's bin 0)."""
     (s,) = _tab("alt", n, x)
-    return _dct2_core(x * s, n).flip(-1)
+    return _dct2_core(x * s, n, mode).flip(-1)
 
 
-def _dst3_core(x, n: int):
-    """y[k] = (-1)^k x[n-1]/2 + sum_{j<n-1} x[j] sin(pi*(j+1)*(2k+1)/(2n))."""
+def _dst3_core(x, n: int, mode: int = -1):
+    """y[k] = (-1)^k x[n-1]/2 + sum_{j<n-1} x[j] sin(pi*(j+1)*(2k+1)/(2n)),
+    with the scale of norm ``mode`` (ortho's weight of x[n-1] is that of
+    the DCT-III's x[0])."""
     (s,) = _tab("alt", n, x)
-    return s * _dct3_core(x.flip(-1), n)
+    return s * _dct3_core(x.flip(-1), n, mode)
 
 
 def _dct1_re(x, n: int):
@@ -336,18 +365,13 @@ def _ends_weight(n: int, w: float) -> np.ndarray:
 
 def _weights(n: int):
     """Scale vectors of the ortho norms: the DCT-II output and DCT-III
-    input weights, the DST-II output and DST-III input weights, and the
-    DCT-I end weights (1/2 and 1/sqrt 2)."""
+    input weights (the DST-II/III's, flipped) and the DCT-I end weights
+    (1/2 and 1/sqrt 2)."""
     c2 = np.full(n, np.sqrt(2.0 / n))
     c2[0] = np.sqrt(1.0 / n)
     c3 = np.full(n, np.sqrt(2.0 / n))
     c3[0] = 2.0 / np.sqrt(n)
-    s2 = np.full(n, np.sqrt(2.0 / n))
-    s2[-1] = np.sqrt(1.0 / n)
-    s3 = np.full(n, np.sqrt(2.0 / n))
-    s3[-1] = 2.0 / np.sqrt(n)
-    return (c2, c3, s2, s3, _ends_weight(n, 0.5),
-            _ends_weight(n, 1.0 / _SQRT2))
+    return c2, c3, _ends_weight(n, 0.5), _ends_weight(n, 1.0 / _SQRT2)
 
 
 def _reim(*cs):
@@ -379,7 +403,7 @@ def _dct1_apply(x, n: int, mode: int):
     (sgn,) = _tab("alt", n, x)
     x0 = x[..., :1]
     xN = x[..., -1:]
-    half_ends, rt_ends = _tab("weights", n, x)[4:]
+    half_ends, rt_ends = _tab("weights", n, x)[2:]
     if mode > 0:  # fftpack forward: (x0/2 + sum + (-1)^k xN/2)*(2/M)
         return re * (1.0 / M) * half_ends
     if mode < 0:  # unscaled: x0 + (-1)^k xN + sum
@@ -399,41 +423,18 @@ def _dst1_apply(x, n: int, mode: int):
     return y * float(np.sqrt(2.0 / (n + 1)))
 
 
-def _dct2_apply(x, n: int, mode: int):
-    y = _dct2_core(x, n)
-    if mode < 0:  # unscaled: the reference's DCT-II side (cosq1b_)
-        return y
-    if mode > 0:
-        return y * (2.0 / n)
-    return y * _tab("weights", n, x)[0]      # y0*sqrt(1/n), yk*sqrt(2/n)
-
-
-def _dct3_apply(x, n: int, mode: int):
+def _k7_norm(n: int, mode: int, t: int):
+    """The norm ``mode`` of DCT/DST type t (2 or 3) as K7 takes it:
+    (scale, w0), w0 the extra weight of the DCT-II's bin 0 or the
+    DCT-III's x[0]."""
     if mode < 0:
-        return _dct3_core(x, n)
-    if mode > 0:  # fftpack forward (cosq1f_): 2/n overall
-        return _dct3_core(x, n) * (2.0 / n)
-    # ortho (transpose of orthonormal DCT-II): input scales sqrt(2/n),
-    # except 2/sqrt(n) on x0, whose 1/2 the core applies
-    return _dct3_core(x * _tab("weights", n, x)[1], n)
-
-
-def _dst2_apply(x, n: int, mode: int):
-    y = _dst2_core(x, n)
-    if mode < 0:
-        return y
+        return 1.0, 1.0
     if mode > 0:
-        return y * (2.0 / n)
-    return y * _tab("weights", n, x)[2]
-
-
-def _dst3_apply(x, n: int, mode: int):
-    if mode < 0:
-        return _dst3_core(x, n)
-    if mode > 0:
-        return _dst3_core(x, n) * (2.0 / n)
-    # ortho (transpose of orthonormal DST-II): the core halves x[n-1]
-    return _dst3_core(x * _tab("weights", n, x)[3], n)
+        return 2.0 / n, 1.0
+    # ortho: sqrt(2/n) throughout; the DCT-II output's bin 0 sqrt(1/n),
+    # the DCT-III input's x0 2/sqrt(n)
+    return (float(np.sqrt(2.0 / n)),
+            float(np.sqrt(0.5)) if t == 2 else _SQRT2)
 
 
 def _dct4_apply(x, n: int, mode: int):
@@ -454,10 +455,10 @@ def _dst4_apply(x, n: int, mode: int):
     return y * float(np.sqrt(2.0 / n))
 
 
-_FWD = {1: _dct1_apply, 2: _dct2_apply, 3: _dct3_apply, 4: _dct4_apply,
+_FWD = {1: _dct1_apply, 2: _dct2_core, 3: _dct3_core, 4: _dct4_apply,
         5: oddtypes.dct5_apply, 6: oddtypes.dct6_apply,
         7: oddtypes.dct7_apply, 8: oddtypes.dct8_apply}
-_FWD_S = {1: _dst1_apply, 2: _dst2_apply, 3: _dst3_apply, 4: _dst4_apply,
+_FWD_S = {1: _dst1_apply, 2: _dst2_core, 3: _dst3_core, 4: _dst4_apply,
           5: oddtypes.dst5_apply, 6: oddtypes.dst6_apply,
           7: oddtypes.dst7_apply, 8: oddtypes.dst8_apply}
 # operator inverse of each type (I/IV/V/VIII are involutions up to scale;

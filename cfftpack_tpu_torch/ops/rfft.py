@@ -4,7 +4,8 @@ Counterpart of ``cfftpack_tpu/ops/rfft.py``.  Packed (n//2+1)-bin
 spectrum with imag(DC) == 0 and, for even n, imag(Nyquist) == 0, the
 reference's ``rfft_forward``/``rfft_inverse`` layout.  Scaling follows
 the complex path: the unscaled cores satisfy
-``sirfft(srfft(x)) == n*x`` and the public API applies the norm.
+``sirfft(srfft(x)) == n*x`` and the public API hands its norm's scale
+to them (the K7 route applies it in the kernel's store).
 The 2-D forms run r2c along the last of their axes and a complex pass
 along the first, which for the trailing pair of float32 planes is K6 on
 the n1//2 + 1 packed columns as they stand (the kernel masks its last
@@ -38,15 +39,13 @@ def rfft(x, axis: int = -1, norm: str = DEFAULT_NORM):
     n = x.shape[axis]
     _check_length(n)
 
+    s = fwd_scale(norm, n)
+
     def core_fn(v):
-        yr, yi = core.srfft(v, n)
+        yr, yi = core.srfft(v, n, s)
         return torch.complex(yr, yi)
 
-    y = _apply_axis(x, axis, core_fn)
-    s = fwd_scale(norm, n)
-    if s != 1.0:
-        y = y * s
-    return y
+    return _apply_axis(x, axis, core_fn)
 
 
 def irfft(y, n: int, axis: int = -1, norm: str = DEFAULT_NORM):
@@ -65,12 +64,9 @@ def irfft(y, n: int, axis: int = -1, norm: str = DEFAULT_NORM):
             f"irfft: spectrum axis has {y.shape[axis]} bins, expected "
             f"n//2+1 = {n // 2 + 1} for n={n}")
     rdtype = real_dtype_of(y.dtype)
-    x = _apply_axis(y, axis, lambda v: core.sirfft(
-        v.real.to(rdtype), v.imag.to(rdtype), n))
     s = inv_scale(norm, n)
-    if s != 1.0:
-        x = x * s
-    return x
+    return _apply_axis(y, axis, lambda v: core.sirfft(
+        v.real.to(rdtype), v.imag.to(rdtype), n, s))
 
 
 def rfft2(x, axes=(-2, -1), norm: str = DEFAULT_NORM):
@@ -103,11 +99,7 @@ def rfft_split(x, axis: int = -1, norm: str = DEFAULT_NORM):
     _check_axis(x, axis)
     n = x.shape[axis]
     _check_length(n)
-    yr, yi = core.srfft(x.movedim(axis, -1), n)
-    s = fwd_scale(norm, n)
-    if s != 1.0:
-        yr = yr * s
-        yi = yi * s
+    yr, yi = core.srfft(x.movedim(axis, -1), n, fwd_scale(norm, n))
     return yr.movedim(-1, axis), yi.movedim(-1, axis)
 
 
@@ -127,10 +119,8 @@ def irfft_split(yr, yi, n: int, axis: int = -1, norm: str = DEFAULT_NORM):
         raise ValueError(
             f"irfft_split: spectrum axis has {yr.shape[axis]} bins, "
             f"expected n//2+1 = {n // 2 + 1} for n={n}")
-    x = core.sirfft(yr.movedim(axis, -1), yi.movedim(axis, -1), n)
-    s = inv_scale(norm, n)
-    if s != 1.0:
-        x = x * s
+    x = core.sirfft(yr.movedim(axis, -1), yi.movedim(axis, -1), n,
+                    inv_scale(norm, n))
     return x.movedim(-1, axis)
 
 

@@ -12,15 +12,21 @@ DCT-III runs the mirror image of it through the inverse.
 
 The CUDA kernel (``csrc/rstream_fft.cu``) fuses the merge, the
 gathers and scatters and the phase into the passes' loads and stores.
-The plain versions below keep the reference's separate passes, built on
-``stream_fft.stream_plain``.  On a CPU tensor each wrapper runs its
-plain version; on a CUDA tensor it launches the kernel or raises.
-``launches`` counts kernel launches (K8 is launched from ``dct.py``
-through :func:`launch`).
+At m = 128 .. 1024 (``stream_fft._CLUSTER_M``) K7's four modes run in
+one pass on a thread-block cluster (``csrc/cluster_pass.cuh``), with the
+norm's scale (and the ortho weight of bin 0 of DCT-II's output and
+DCT-III's input) in the kernel; at other m the two stage-loop passes
+run and the wrapper applies them.  Launch plans are cached per (mode,
+n, device).  The plain versions below keep the reference's separate
+passes, built on ``stream_fft.stream_plain``.  On a CPU tensor each
+wrapper runs its plain version; on a CUDA tensor it launches the kernel
+or raises.  ``launches`` counts kernel launches (K8 is launched from
+``dct.py`` through :func:`launch`).
 """
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -74,8 +80,9 @@ def _nat_low(t, m: int):
     return t[:, :, :_H].transpose(1, 2).reshape(t.shape[0], _H * m)
 
 
-def _rfft_plain(x, n: int):
-    """(B, n) real, B even -> natural packed (B, n/2 + 1) pair."""
+def _rfft_plain(x, n: int, scale: float = 1.0):
+    """(B, n) real, B even -> natural packed (B, n/2 + 1) pair, times
+    ``scale``."""
     m = n // _N1
     x3 = x.reshape(-1, 2, m, _N1)
     Zr, Zi = stream_fft.stream_plain(x3[:, 0], x3[:, 1], n, "fwd")
@@ -87,11 +94,14 @@ def _rfft_plain(x, n: int):
                    dim=-1)
     # imag(DC) is (Zi - Zmi)/2 at the self-mirror bin 0, an exact zero
     B = x.shape[0]
-    return yr.reshape(B, -1), yi.reshape(B, -1)
+    yr, yi = yr.reshape(B, -1), yi.reshape(B, -1)
+    if scale != 1.0:
+        yr, yi = yr * scale, yi * scale
+    return yr, yi
 
 
-def _irfft_plain(yr, yi, n: int):
-    """Natural packed (B, n/2 + 1) pair -> (B, n) real times n."""
+def _irfft_plain(yr, yi, n: int, scale: float = 1.0):
+    """Natural packed (B, n/2 + 1) pair -> (B, n) real times n*scale."""
     m = n // _N1
     h = n // 2
     ar = yr.reshape(-1, 2, h + 1)
@@ -106,7 +116,8 @@ def _irfft_plain(yr, yi, n: int):
     Zr = Zr.reshape(-1, _N1, m).transpose(1, 2)
     Zi = Zi.reshape(-1, _N1, m).transpose(1, 2)
     zr, zi = stream_fft.stream_plain(Zr, Zi, n, "inv")
-    return torch.stack([zr, zi], dim=1).reshape(-1, n)
+    out = torch.stack([zr, zi], dim=1).reshape(-1, n)
+    return out * scale if scale != 1.0 else out
 
 
 @functools.lru_cache(maxsize=32)
@@ -125,8 +136,26 @@ def _device_phase(n: int, device):
     return tuple(torch.from_numpy(t).to(device) for t in _dct_phase_perm(n))
 
 
-def _dct2_plain(x, n: int):
-    """(B, n) real, B even -> unscaled DCT-II in natural order."""
+@functools.lru_cache(maxsize=32)
+def _dct_phase_nat(n: int):
+    """ph_k = exp(-i pi k / (2n)) in natural order (the cluster route's
+    loads and stores run on the natural index), float32 planes."""
+    ph = np.exp(-1j * np.pi * np.arange(n) / (2 * n))
+    return ph.real.astype(np.float32), ph.imag.astype(np.float32)
+
+
+def _scaled(y, scale: float, w0: float):
+    """y times ``scale``, its first entry on the last axis times ``w0``
+    as well (the DCT-II output and DCT-III input weights of ortho)."""
+    if w0 != 1.0:
+        y = y.clone()
+        y[..., 0] *= w0
+    return y * scale if scale != 1.0 else y
+
+
+def _dct2_plain(x, n: int, scale: float = 1.0, w0: float = 1.0):
+    """(B, n) real, B even -> DCT-II in natural order, times ``scale``,
+    bin 0 times ``w0`` as well."""
     m = n // _N1
     B = x.shape[0]
     v = torch.cat([x[:, 0::2], x[:, 1::2].flip(-1)], dim=-1)
@@ -137,12 +166,13 @@ def _dct2_plain(x, n: int):
     yU = Ur * phr - Ui * phi                 # Re(ph * U), all n bins
     yV = Vr * phr - Vi * phi
     out = torch.stack([yU.transpose(1, 2), yV.transpose(1, 2)], dim=1)
-    return out.reshape(B, n)
+    return _scaled(out.reshape(B, n), scale, w0)
 
 
-def _dct3_plain(y, n: int):
-    """(B, n), B even -> unscaled DCT-III (``dct._dct3_core``) in natural
-    order."""
+def _dct3_plain(y, n: int, scale: float = 1.0, w0: float = 1.0):
+    """(B, n), B even -> DCT-III (``dct._dct3_core``) of y with y_0 times
+    ``w0``, in natural order, times ``scale``."""
+    y = _scaled(y, 1.0, w0)
     m = n // _N1
     B = y.shape[0]
     y3 = y.reshape(-1, 2, _N1, m)
@@ -173,7 +203,7 @@ def _dct3_plain(y, n: int):
     out = torch.empty_like(v)
     out[:, 0::2] = v[:, :h]
     out[:, 1::2] = v[:, h:].flip(-1)
-    return out
+    return out * scale if scale != 1.0 else out
 
 
 # ------------------------------------------------------------ launch
@@ -187,16 +217,81 @@ def _rows(x, width: int):
     return x2
 
 
-def launch(mode: str, n: int, x, xi=None, pre=None, post=None):
+@dataclass(frozen=True)
+class _LaunchPlan:
+    """What a launch of one (mode, n, device) passes to
+    ``rstream_fft_f32`` besides the data: the outer twiddle, the stage
+    plans' tables and C arrays, the mode's phase tables (``pa``), the
+    register pass twiddles, the route (cluster blocks or stage-loop
+    lanes), and the tensors behind the pointers."""
+    tables: tuple
+    pa: tuple
+    reg: tuple
+    cluster: int
+    lshift: int
+    keep: tuple
+    version: int
+
+
+_PLANS: dict = {}
+
+
+def _launch_plan(mode: str, n: int, device) -> _LaunchPlan:
+    """The cached plan of (mode, n, device), rebuilt when ``plan.VERSION``
+    moves (a device table replaced or cleared)."""
+    key = (mode, n, device)
+    lp = _PLANS.get(key)
+    if lp is not None and lp.version == plan.VERSION:
+        return lp
+    f32 = torch.float32
+    N = n // 2 if mode == "dct4" else n
+    m = N // _N1
+    cluster = (stream_fft._cluster_size(m)
+               if mode != "dct4" and m in stream_fft._CLUSTER_M else 0)
+    # the cluster route runs the inverse as the conjugated forward
+    t1r, t1i = stream_fft._device_outer(
+        N, not cluster and mode in ("irfft", "dct3"), device)
+    ct = plan.device_tables(m, f32, device)
+    rt = plan.device_tables(_N1, f32, device)
+    keep = (t1r, t1i, ct, rt)
+    tables = (t1r.data_ptr(), t1i.data_ptr(), ct.twr.data_ptr(),
+              ct.twi.data_ptr(), len(ct.factors), _build.ints(ct.factors),
+              _build.ints(ct.offs[:-1]), rt.twr.data_ptr(),
+              rt.twi.data_ptr(), len(rt.factors), _build.ints(rt.factors),
+              _build.ints(rt.offs[:-1]))
+    pa = (None, None)
+    if mode in ("dct2", "dct3"):
+        ph = (tuple(torch.from_numpy(t).to(device) for t in _dct_phase_nat(n))
+              if cluster else _device_phase(n, device))
+        pa = tuple(t.data_ptr() for t in ph)
+        keep += ph
+    reg = (None, None)
+    if cluster:
+        cptw = plan.to_device(plan.reg_twiddles(m), f32, device)
+        rptw = plan.to_device(plan.reg_twiddles(_N1), f32, device)
+        reg = (cptw.data_ptr(), rptw.data_ptr())
+        keep += (cptw, rptw)
+    lp = _LaunchPlan(tables, pa, reg, cluster,
+                     stream_fft._col_lanes(m).bit_length() - 1, keep,
+                     plan.VERSION)
+    _PLANS[key] = lp
+    return lp
+
+
+def launch(mode: str, n: int, x, xi=None, pre=None, post=None, *,
+           scale: float = 1.0, w0: float = 1.0):
     """One mode of K7 (rfft, irfft, dct2, dct3) or K8 (dct4) through the
-    CUDA kernel, both passes.
+    CUDA kernel: one kernel on the cluster route, both passes on the
+    stage loop.
 
     ``x`` is (..., n) real rows; for irfft ``(x, xi)`` is the packed
     (..., n/2 + 1) pair.  Rows are read in place through their stride.
     K7's modes take an even row count; K8 (n = 2*128*m) takes the
     pre-rotation ``pre`` ((n/2,) planes) and the permuted post-phase
-    ``post`` ((m, 128) planes, ``dct._dct4_post_perm``).  Returns
-    the (re, im) packed pair for rfft, else the (rows, n) output.
+    ``post`` ((m, 128) planes, ``dct._dct4_post_perm``).  The result is
+    times ``scale``; dct2's bin 0 and dct3's input y_0 are times ``w0``
+    as well (K7 only).  Returns the (re, im) packed pair for rfft, else
+    the (rows, n) output.
     """
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
@@ -213,6 +308,8 @@ def launch(mode: str, n: int, x, xi=None, pre=None, post=None):
     if n % 2 or not stream_fft.stream_eligible(N, torch.float32):
         raise ValueError(f"the real-stream kernel does not take n={n} in "
                          f"mode {mode}")
+    if mode == "dct4" and (scale != 1.0 or w0 != 1.0):
+        raise ValueError("mode dct4 takes no scale")
     width = n // 2 + 1 if mode == "irfft" else n
     if x.shape[-1] != width or (xi is not None and xi.shape != x.shape):
         raise ValueError(f"mode {mode} takes rows of {width}, got "
@@ -238,88 +335,90 @@ def launch(mode: str, n: int, x, xi=None, pre=None, post=None):
         return (yr, yi) if mode == "rfft" else yr
     m = N // _N1
     b = rows if mode == "dct4" else rows // 2
-    sr = torch.empty((b, m, _N1), dtype=f32, device=dev)
-    si = torch.empty_like(sr)
-    t1r, t1i = stream_fft._device_outer(N, mode in ("irfft", "dct3"), dev)
-    ct = plan.device_tables(m, f32, dev)
-    rt = plan.device_tables(_N1, f32, dev)
-    cfac = np.asarray(ct.factors, dtype=np.int32)
-    coff = np.asarray(ct.offs[:-1], dtype=np.int32)
-    rfac = np.asarray(rt.factors, dtype=np.int32)
-    roff = np.asarray(rt.offs[:-1], dtype=np.int32)
-    lshift = stream_fft._col_lanes(m).bit_length() - 1
-    pa = pb = (None, None)
-    if mode in ("dct2", "dct3"):
-        pa = tuple(t.data_ptr() for t in _device_phase(n, dev))
-    elif mode == "dct4":
+    pb = (None, None)
+    if mode == "dct4":
         if (pre is None or post is None
                 or tuple(pre[0].shape) != (N,)
                 or tuple(post[0].shape) != (m, _N1)):
             raise ValueError("mode dct4 takes the pre-rotation (n/2,) and "
                              "the permuted post-phase (m, 128) planes")
+    lp = _launch_plan(mode, n, dev)
+    pa = lp.pa
+    if mode == "dct4":
         pa = tuple(t.data_ptr() for t in pre)
         pb = tuple(t.data_ptr() for t in post)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rstream_fft_f32(
-            x2.data_ptr(), None if xi is None else xi2.data_ptr(),
-            x2.stride(0) if rows > 1 else width, yr.data_ptr(),
-            None if yi is None else yi.data_ptr(), sr.data_ptr(),
-            si.data_ptr(), t1r.data_ptr(), t1i.data_ptr(), ct.twr.data_ptr(),
-            ct.twi.data_ptr(), len(cfac), cfac.ctypes.data, coff.ctypes.data,
-            rt.twr.data_ptr(), rt.twi.data_ptr(), len(rfac),
-            rfac.ctypes.data, roff.ctypes.data, *pa, *pb, b, m,
-            _MODES.index(mode), lshift, stream)
+    if lp.cluster:
+        scratch = (None, None)
+    else:
+        sr = torch.empty((b, m, _N1), dtype=f32, device=dev)
+        si = torch.empty_like(sr)
+        scratch = (sr.data_ptr(), si.data_ptr())
+        if mode == "dct3" and w0 != 1.0:
+            x2 = _scaled(x2, 1.0, w0)
+    err = _build.call(
+        _build.load().rstream_fft_f32, dev, x2.data_ptr(),
+        None if xi is None else xi2.data_ptr(),
+        x2.stride(0) if rows > 1 else width, yr.data_ptr(),
+        None if yi is None else yi.data_ptr(), *scratch, *lp.tables, *pa,
+        *pb, *lp.reg, b, m, _MODES.index(mode), lp.cluster, lp.lshift,
+        scale if lp.cluster else 1.0, w0 if lp.cluster else 1.0)
     if err != 0:
         raise RuntimeError(f"real-stream kernel launch failed at n={n}, "
                            f"rows={rows}, mode={mode}: CUDA error {err}")
     launches[_KERNEL[mode]] += 1
+    if not lp.cluster and (scale != 1.0 or w0 != 1.0):
+        if mode == "rfft":
+            yr.mul_(scale)
+            yi.mul_(scale)
+        else:
+            if mode == "dct2" and w0 != 1.0:
+                yr[:, 0] *= w0
+            yr.mul_(scale)
     return (yr, yi) if mode == "rfft" else yr
 
 
 # ---------------------------------------------------------- wrappers
 
-def srfft_stream(x, n: int):
-    """``core.srfft`` contract (unscaled r2c, natural packed n/2 + 1
-    bins) through K7.  Needs ``rstream_eligible``."""
+def srfft_stream(x, n: int, scale: float = 1.0):
+    """``core.srfft`` contract (r2c, natural packed n/2 + 1 bins) through
+    K7, times ``scale``.  Needs ``rstream_eligible``."""
     lead = x.shape[:-1]
     if x.device.type == "cpu":
-        yr, yi = _rfft_plain(x.reshape(-1, n), n)
+        yr, yi = _rfft_plain(x.reshape(-1, n), n, scale)
     else:
-        yr, yi = launch("rfft", n, x)
+        yr, yi = launch("rfft", n, x, scale=scale)
     h1 = n // 2 + 1
     return yr.reshape(lead + (h1,)), yi.reshape(lead + (h1,))
 
 
-def sirfft_stream(yr, yi, n: int):
-    """``core.sirfft`` contract (unscaled c2r: returns n*x) through K7."""
+def sirfft_stream(yr, yi, n: int, scale: float = 1.0):
+    """``core.sirfft`` contract (c2r: returns n*scale*x) through K7."""
     lead = yr.shape[:-1]
     if yr.device.type == "cpu":
         h1 = n // 2 + 1
-        out = _irfft_plain(yr.reshape(-1, h1), yi.reshape(-1, h1), n)
+        out = _irfft_plain(yr.reshape(-1, h1), yi.reshape(-1, h1), n, scale)
     else:
-        out = launch("irfft", n, yr, yi)
+        out = launch("irfft", n, yr, yi, scale=scale)
     return out.reshape(lead + (n,))
 
 
-def sdct2_stream(x, n: int):
-    """``dct._dct2_core`` contract (unscaled DCT-II, natural order)
-    through K7."""
+def sdct2_stream(x, n: int, scale: float = 1.0, w0: float = 1.0):
+    """``dct._dct2_core`` contract (DCT-II, natural order) through K7,
+    times ``scale``, bin 0 times ``w0`` as well."""
     lead = x.shape[:-1]
     if x.device.type == "cpu":
-        out = _dct2_plain(x.reshape(-1, n), n)
+        out = _dct2_plain(x.reshape(-1, n), n, scale, w0)
     else:
-        out = launch("dct2", n, x)
+        out = launch("dct2", n, x, scale=scale, w0=w0)
     return out.reshape(lead + (n,))
 
 
-def sdct3_stream(y, n: int):
-    """``dct._dct3_core`` contract (unscaled DCT-III, natural order)
-    through K7."""
+def sdct3_stream(y, n: int, scale: float = 1.0, w0: float = 1.0):
+    """``dct._dct3_core`` contract (DCT-III, natural order) through K7 of
+    y with y_0 times ``w0``, times ``scale``."""
     lead = y.shape[:-1]
     if y.device.type == "cpu":
-        out = _dct3_plain(y.reshape(-1, n), n)
+        out = _dct3_plain(y.reshape(-1, n), n, scale, w0)
     else:
-        out = launch("dct3", n, y)
+        out = launch("dct3", n, y, scale=scale, w0=w0)
     return out.reshape(lead + (n,))

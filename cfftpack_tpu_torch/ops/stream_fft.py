@@ -9,15 +9,20 @@ tile x[q, r] (flat j = 128*q + r) transforms as
 
 K2 runs it natural -> permuted (X[k2 + m*k1] at [k2, k1] of an
 (m, 128) tile) and back; K3 natural -> natural, with the transpose done
-on chip; K4 is the inverse with a spectral multiply fused into its
-load.  K5 (:func:`sfft_stream_split`, :func:`sfilter_stream`) splits
-lengths past m = 4096 s = 2 or 4 ways: mode "split" of the same passes,
+on chip and the norm scale in its store; K4 is the inverse with a
+spectral multiply fused into its load.  K3 takes one of three routes by
+m alone (:func:`_k3_route`): one pass on a thread-block cluster at
+m = 128 .. 1024 (``csrc/cluster_pass.cuh``), K5's two register-pass
+kernels at s = 1 at m = 2048 and 4096, and the two stage-loop passes
+elsewhere; the first two run the inverse as the conjugated forward.
+K5 (:func:`sfft_stream_split`, :func:`sfilter_stream`) splits lengths
+past m = 4096 s = 2 or 4 ways: mode "split" of the same passes,
 with the s-point DFT and the split twiddle in the column pass's load and
 the digit riffle (natural order), the norm scale and an optional filter
 in the row pass's store; the inverse is the conjugated forward.  The
-CUDA kernels live in ``csrc/stream_fft.cu``; each call is two passes
-there (an m-point column pass and a 128-point row pass through scratch
-planes).
+CUDA kernels live in ``csrc/stream_fft.cu``; each K2/K4/K5 call is two
+passes there (an m-point column pass and a 128-point row pass through
+scratch planes).
 
 K11 (:func:`sfft_mm2`, :func:`sfft_mm2_permuted`; the reference's
 ``_mm2_2d``) computes the same formula for any integer 2 <= m <= 256
@@ -62,6 +67,7 @@ _MIN_LANES = 2
 _MAX_LANES = 32
 
 _MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
+_NAT_MODES = ("fwd_nat", "inv_nat")      # K3
 # K5's modes (the C entry stream_split_f32): the forward, the inverse as
 # conj(fft(conj(x))) and the conjugated forward conj(fft(x)) of the split
 # filter; the value is the entry's conj flags (1 conjugates the load, 2
@@ -71,9 +77,34 @@ _KERNEL = {"fwd": "K2", "inv": "K2", "fwd_nat": "K3", "inv_nat": "K3",
            "filter": "K4", "split": "K5", "split_inv": "K5",
            "split_conj": "K5"}
 launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0, "K11": 0}
-# K5's column pass at this m runs in register passes (the engine of K1,
-# csrc/regfft.cuh, compiled for it alone); other m take the stage loop
-_SPLIT_REG_M = 4096
+# K5's column pass at these m runs in register passes (the engine of
+# K1, csrc/regfft.cuh, compiled for them alone): lanes a block (1024
+# threads, 16 elements each); other m take the stage loop
+_REG_LANES = {2048: 8, 4096: 4}
+# K3 and K7 run in one pass on a thread-block cluster at these m
+# (csrc/cluster_pass.cuh, compiled for them alone)
+_CLUSTER_M = (128, 256, 512, 1024)
+_CLUSTER_MAX = 16      # past the portable 8: the kernels opt in
+
+
+def _cluster_size(m: int) -> int:
+    """Blocks of K3's and K7's cluster at m: m/16 up to 16, so 128
+    threads a block at m = 128 and 256, 256 at 512, 512 at 1024 (17 to
+    70 KB of shared memory): the smallest blocks the kernels take from
+    m = 256 on, which ran fastest on an H100 (``chip_smoke.py`` phase 25c
+    sweeps C at m = 512)."""
+    return min(_CLUSTER_MAX, m // 16)
+
+
+def _k3_route(m: int):
+    """K3's route at m = n/128, by m alone: ("cluster", C) one kernel on
+    clusters of C blocks, ("reg", lanes) K5's two register-pass kernels at
+    s = 1, or ("stage", lanes) the two stage-loop passes."""
+    if m in _CLUSTER_M:
+        return "cluster", _cluster_size(m)
+    if m in _REG_LANES:
+        return "reg", _REG_LANES[m]
+    return "stage", _col_lanes(m)
 
 
 def _stage_ok(m: int) -> bool:
@@ -85,7 +116,12 @@ def _stage_ok(m: int) -> bool:
 def stream_eligible(n: int, dtype) -> bool:
     if dtype != torch.float32:
         return False
-    return n % _N1 == 0 and n // _N1 <= _MAX_M and _stage_ok(n // _N1)
+    return _length_ok(n, _MAX_M)
+
+
+@functools.lru_cache(maxsize=1024)
+def _length_ok(n: int, cap: int) -> bool:
+    return n % _N1 == 0 and n // _N1 <= cap and _stage_ok(n // _N1)
 
 
 def _filter_split_factor(n: int):
@@ -202,14 +238,19 @@ def stream_plain(xr, xi, n: int, mode: str, fr=None, fi=None, *,
     Planes are (b, m, 128), except the natural spectrum of fwd_nat's
     output and inv_nat's input, (b, 128, m).  ``(fr, fi)`` is the
     (s, m, 128) permuted filter of mode "filter"; batch row i takes
-    slice i % s.  K5's modes take (b, n) planes of the full length n
-    and give natural-order (b, n) planes (into ``out`` when given):
+    slice i % s.  ``scale`` multiplies the result (K3's modes fwd_nat
+    and inv_nat and K5's).  K5's modes take (b, n) planes of the full
+    length n and give natural-order (b, n) planes (into ``out`` when
+    given):
     "split" scale * fft(x) * F, "split_inv" scale * conj(fft(conj(x))),
     "split_conj" conj(scale * fft(x) * F), F the natural n-bin filter
     ``(fr, fi)`` or 1.
     """
     if mode in _SPLIT_MODES:
         return _split_plain(xr, xi, n, mode, fr, fi, scale, out)
+    if scale != 1.0:
+        yr, yi = stream_plain(xr, xi, n, mode, fr, fi)
+        return yr * scale, yi * scale
     m = n // _N1
     if mode in ("fwd", "fwd_nat"):
         t1r, t1i = _device_outer(n, False, xr.device)
@@ -236,13 +277,16 @@ class _LaunchPlan:
     """What a launch of one (stream length, direction, split, device)
     passes to a C entry besides the data: the column pass's table
     pointers and C arrays, then the row pass's (s = 1) or K5's split
-    twiddle and register-pass tables (s > 1); the column pass's lanes,
+    twiddle and register-pass tables (s > 1); the column pass's lanes;
+    at s = 1 K3's route and the tables of ``stream_nat_f32`` (``nat``);
     and the tensors behind the pointers."""
     col: tuple
     rest: tuple
     lshift: int
     keep: tuple
     version: int
+    route: tuple = ()
+    nat: tuple = ()
 
 
 _PLANS: dict = {}
@@ -260,21 +304,32 @@ def _launch_plan(n_in: int, inverse: bool, s: int, device) -> _LaunchPlan:
            ct.twi.data_ptr(), len(ct.factors), _build.ints(ct.factors),
            _build.ints(ct.offs[:-1]))
     keep = (t1r, t1i, ct)
+    rptw = plan.to_device(plan.reg_twiddles(_N1), torch.float32, device)
+    ptw = (plan.to_device(plan.reg_twiddles(m), torch.float32, device)
+           if m in _REG_LANES or m in _CLUSTER_M else None)
+    keep += (rptw, ptw)
+    route, nat = (), ()
     if s == 1:
         rt = plan.device_tables(_N1, torch.float32, device)
         rest = (rt.twr.data_ptr(), rt.twi.data_ptr(), len(rt.factors),
                 _build.ints(rt.factors), _build.ints(rt.offs[:-1]))
         keep += (rt,)
+        route = _k3_route(m)
+        # K3's cluster and register routes run the inverse as the
+        # conjugated forward: the forward outer twiddle
+        f1r, f1i = (_device_outer(n_in, False, device)
+                    if route[0] != "stage" else (t1r, t1i))
+        keep += (f1r, f1i)
+        nat = ((f1r.data_ptr(), f1i.data_ptr()) + col[2:] + rest
+               + (None if ptw is None else ptw.data_ptr(),
+                  rptw.data_ptr()))
     else:
         spr, spi = _device_split(n_in * s, s, device)
-        rptw = plan.to_device(plan.reg_twiddles(_N1), torch.float32, device)
-        ptw = (plan.to_device(plan.reg_twiddles(m), torch.float32, device)
-               if m == _SPLIT_REG_M else None)
         rest = (spr.data_ptr(), spi.data_ptr(), s,
                 None if ptw is None else ptw.data_ptr(), rptw.data_ptr())
-        keep += (spr, spi, rptw, ptw)
+        keep += (spr, spi)
     lp = _LaunchPlan(col, rest, _col_lanes(m).bit_length() - 1, keep,
-                     plan.VERSION)
+                     plan.VERSION, route, nat)
     _PLANS[key] = lp
     return lp
 
@@ -354,10 +409,45 @@ def _split_launch(xr, xi, n: int, mode: str, fr, fi, scale: float, out):
     return out
 
 
+def _nat_launch(xr, xi, n: int, inverse: bool, scale: float):
+    """K3 (modes fwd_nat, inv_nat) through ``stream_nat_f32``: one
+    kernel a call on the cluster route, two on the others; the scale in
+    the store, or one multiply after the stage-loop route."""
+    b = xr.shape[0]
+    m = n // _N1
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xr)
+    if b == 0:
+        return yr, yi
+    lp = _launch_plan(n, inverse, 1, xr.device)
+    route, arg = lp.route
+    if route == "cluster":
+        scratch = (None, None)
+    else:
+        sr = torch.empty((b, n), dtype=xr.dtype, device=xr.device)
+        si = torch.empty_like(sr)
+        scratch = (sr.data_ptr(), si.data_ptr())
+    err = _build.call(
+        _build.load().stream_nat_f32, xr.device, xr.data_ptr(),
+        xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), *scratch, *lp.nat, b, m,
+        int(inverse), arg if route == "cluster" else 0,
+        arg.bit_length() - 1 if route == "stage" else 0,
+        1.0 if route == "stage" else scale)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed at n={n}, b={b}, "
+                           f"inverse={inverse}, route={route}: CUDA error "
+                           f"{err}")
+    launches["K3"] += 1
+    if route == "stage" and scale != 1.0:
+        yr.mul_(scale)
+        yi.mul_(scale)
+    return yr, yi
+
+
 def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
             scale: float = 1.0, out=None):
-    """One mode through the CUDA kernels (both passes), in
-    :func:`stream_plain`'s contract."""
+    """One mode through the CUDA kernels, in :func:`stream_plain`'s
+    contract."""
     if mode in _SPLIT_MODES:
         return _split_launch(xr, xi, n, mode, fr, fi, scale, out)
     _check_dtype(xr, xi)
@@ -366,8 +456,9 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES + tuple(_SPLIT_MODES)}"
                          f", got {mode!r}")
-    if scale != 1.0 or out is not None:
-        raise ValueError(f"mode {mode} takes no scale and no output planes")
+    if out is not None or (scale != 1.0 and mode not in _NAT_MODES):
+        raise ValueError(f"mode {mode} takes no output planes, and a scale "
+                         f"only in modes {_NAT_MODES}")
     _check_device(xr, xi, "input")
     m = n // _N1
     b = xr.shape[0]
@@ -390,14 +481,19 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
         fptr = (fr.data_ptr(), fi.data_ptr())
     xr = xr.contiguous()
     xi = xi.contiguous()
-    shape_out = (b, _N1, m) if mode == "fwd_nat" else (b, m, _N1)
+    if mode in _NAT_MODES:
+        yr, yi = _nat_launch(xr.view(b, n), xi.view(b, n), n,
+                             mode == "inv_nat", scale)
+        shape_out = (b, _N1, m) if mode == "fwd_nat" else (b, m, _N1)
+        return yr.view(shape_out), yi.view(shape_out)
+    shape_out = (b, m, _N1)
     yr = torch.empty(shape_out, dtype=xr.dtype, device=xr.device)
     yi = torch.empty_like(yr)
     if b == 0:
         return yr, yi
     sr = torch.empty((b, m, _N1), dtype=xr.dtype, device=xr.device)
     si = torch.empty_like(sr)
-    lp = _launch_plan(n, mode not in ("fwd", "fwd_nat"), 1, xr.device)
+    lp = _launch_plan(n, mode != "fwd", 1, xr.device)
     err = _build.call(
         _build.load().stream_fft_f32, xr.device, xr.data_ptr(),
         xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), sr.data_ptr(),
@@ -429,17 +525,18 @@ def sfft_stream_permuted(xr, xi, n: int, inverse: bool):
     return yr.reshape(shape), yi.reshape(shape)
 
 
-def sfft_stream(xr, xi, n: int, inverse: bool):
+def sfft_stream(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     """Natural-order FFT over the last axis (K3): the ``core.sfft``
-    contract, the permuted <-> natural transpose done in the kernel."""
+    contract times ``scale``, the permuted <-> natural transpose and the
+    scale done in the kernel."""
     shape = xr.shape
     m = n // _N1
     if inverse:
         yr, yi = _run(xr.reshape(-1, _N1, m), xi.reshape(-1, _N1, m), n,
-                      "inv_nat")
+                      "inv_nat", scale=scale)
     else:
         yr, yi = _run(xr.reshape(-1, m, _N1), xi.reshape(-1, m, _N1), n,
-                      "fwd_nat")
+                      "fwd_nat", scale=scale)
     return yr.reshape(shape), yi.reshape(shape)
 
 
@@ -502,7 +599,7 @@ def sfft_stream_split(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     with s = ``_filter_split_factor(n)``; the s-point DFT and the split
     twiddle in the column pass's load, the riffle and ``scale`` in the
     row pass's store, two kernels a call.  The ``core.sfft`` contract
-    times ``scale``; s = 1 is K3, with the scale as one multiply."""
+    times ``scale``; s = 1 is K3, which takes the scale down."""
     s = _filter_split_factor(n)
     if s is None:
         raise ValueError(
@@ -510,10 +607,7 @@ def sfft_stream_split(xr, xi, n: int, inverse: bool, scale: float = 1.0):
             f"n = s*128*m with s in {{1,2,4}}, m <= {_MAX_M} a 5-smooth "
             f"multiple of {_TAIL})")
     if s == 1:
-        yr, yi = sfft_stream(xr, xi, n, inverse)
-        if scale != 1.0:
-            yr, yi = yr * scale, yi * scale
-        return yr, yi
+        return sfft_stream(xr, xi, n, inverse, scale)
     shape = xr.shape
     yr, yi = _run(xr.reshape(-1, n), xi.reshape(-1, n), n,
                   "split_inv" if inverse else "split", scale=scale)

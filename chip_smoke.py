@@ -4,7 +4,9 @@
 
 Builds the CUDA kernels from the checkout (K1,
 ``cfftpack_tpu_torch/csrc/stockham_fft.cu``; K2, K3, K4 and K5,
-``csrc/stream_fft.cu``; K7 and K8, ``csrc/rstream_fft.cu``; K6 and K9,
+``csrc/stream_fft.cu``, K3 at m = 128 .. 1024 on the thread-block
+cluster of ``csrc/cluster_pass.cuh``; K7 and K8, ``csrc/rstream_fft.cu``,
+K7 on the same cluster engine at those m; K6 and K9,
 ``csrc/col_fft.cu``; K10, ``csrc/fourstep_fft.cu``; K11,
 ``csrc/mm2_fft.cu``), holds each against its plain PyTorch version and
 ``torch.fft`` or scipy at the main path's shapes, then drives the main
@@ -28,8 +30,9 @@ and ``dctn``/``idctn`` at (64, 1024, 1024), ``fft_split`` and
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Prints CUDA-event times of the kernels, their plain
 versions and the PyTorch calls that compute the same functions, the
-measurements behind K1's rows a block, a profiler breakdown of the 2-D routes, of K10's and K11's passes and of
-K1 and K5 with their kernel rows a call, one
+measurements behind K1's rows a block, a profiler breakdown of the 2-D
+routes, of K10's and K11's passes and of K1, K3, K5 and K7 with their
+kernel rows a call, a sweep of the cluster size at m = 512, one
 JSON line describing the kernels (each with its bound on this card),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
@@ -80,9 +83,15 @@ BEFORE_WORST = {"K1 float32": (3.200e-07, 2.815e-07),
 # phase 3: m = 16, 32, 48 (radix 3), 80 (radix 5), 512, 768, 4096 (the cap)
 STREAM_SIZES = (2048, 4096, 6144, 10240, 65536, 98304, 524288)
 STREAM_MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
+# phase 3: K3 on each of its routes, both ways with a scale: the cluster
+# route (m = 128 .. 1024), the register route (2048, 4096), the stage loop
+# (768)
+K3_M = (128, 256, 512, 1024, 2048, 4096, 768)
 # phase 3b: K7 at n = 128*m and K8 at n = 2*128*m, m = 16, 48 (radix 3),
-# 80 (radix 5), 512, 4096
-RSTREAM_M = (16, 48, 80, 512, 4096)
+# 80 (radix 5), 128, 512 and 1024 (the cluster route), 4096
+RSTREAM_M = (16, 48, 80, 128, 512, 1024, 4096)
+# phase 25c: the cluster sizes swept at m = 512 (K3 and K7)
+C_SWEEP = (4, 8, 16)
 # phase 3c: K6 and K9 at radix 3 and 5 lengths, the bench length and the
 # cap; n1 = 513 is the packed width of rfft2 at 1024
 COL_N0 = (16, 48, 80, 1024, 4096)
@@ -137,16 +146,20 @@ def pair(shape, dtype, seed):
             torch.randn(shape, generator=g, device=DEV, dtype=dtype))
 
 
-def rstream_plain(mode, n, x, xi=None, pre=None, post=None):
+def rstream_plain(mode, n, x, xi=None, pre=None, post=None, *,
+                  scale=1.0, w0=1.0):
     """The plain version of each K7/K8 mode, in ``rstream.launch``'s
     contract."""
     if mode == "irfft":
         h1 = n // 2 + 1
-        return rstream._irfft_plain(x.reshape(-1, h1), xi.reshape(-1, h1), n)
-    fn = {"rfft": rstream._rfft_plain, "dct2": rstream._dct2_plain,
-          "dct3": rstream._dct3_plain,
-          "dct4": dct_ops._dct4_stream_plain}[mode]
-    return fn(x.reshape(-1, n), n)
+        return rstream._irfft_plain(x.reshape(-1, h1), xi.reshape(-1, h1), n,
+                                    scale)
+    if mode == "dct4":
+        return dct_ops._dct4_stream_plain(x.reshape(-1, n), n)
+    if mode == "rfft":
+        return rstream._rfft_plain(x.reshape(-1, n), n, scale)
+    fn = {"dct2": rstream._dct2_plain, "dct3": rstream._dct3_plain}[mode]
+    return fn(x.reshape(-1, n), n, scale, w0)
 
 
 def colfft_plain_launch(mode, x, xi=None, w=None, scale=1.0):
@@ -329,17 +342,18 @@ def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
     device time per call by kernel (kernel rows only), the CUDA-event
     time per call without the profiler, and the idle share
     1 - kernel time / event time.  A trace that records no device row at
-    all (the profiler on the card has dropped a whole trace) is taken
-    again, up to twice."""
+    all, or kernel rows that are not a whole number a call (the profiler
+    on the card has dropped some of a trace), is taken again, up to
+    twice."""
     from torch.profiler import ProfilerActivity, profile
     event_ms = median_ms(fn, reps=calls, warm=3)
-    rows, per_call = {}, 0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        rows, per_call = {}, 0
         for k in prof.key_averages():
             if k.device_type == torch.autograd.DeviceType.CUDA:
                 t = getattr(k, "self_device_time_total", None)
@@ -347,9 +361,10 @@ def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
                     t = k.self_cuda_time_total
                 rows[k.key] = t / calls
                 per_call += k.count
-        if rows:
+        if rows and per_call % calls == 0:
             break
-        print(f"  profile {name}: no device rows in the trace, taken again")
+        print(f"  profile {name}: {per_call} device rows in the trace of "
+              f"{calls} calls, taken again")
     kern_us = sum(rows.values())
     idle = 1.0 - kern_us / (event_ms * 1e3)
     print(f"  profile {name}: {event_ms * 1e3:.1f} us per call, kernels "
@@ -594,6 +609,29 @@ def main() -> None:
                 stream_err[k] = max(stream_err[k], float(max(
                     (yr - pr).abs().max(), (yi - pi).abs().max())))
                 worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
+    for m in K3_M:
+        n = 128 * m
+        route = stream_fft._k3_route(m)
+        for b in (3, (1 << 22) // n):
+            for mode, sc in (("fwd_nat", 0.5), ("inv_nat", 0.25)):
+                shape = (b, 128, m) if mode == "inv_nat" else (b, m, 128)
+                xr, xi = pair(shape, torch.float32, seed=m + b)
+                before = stream_fft.launches["K3"]
+                yr, yi = stream_fft._launch(xr, xi, n, mode, scale=sc)
+                check(stream_fft.launches["K3"] == before + 1,
+                      "K3 counts one launch a call")
+                pr, pi = stream_fft.stream_plain(xr, xi, n, mode, scale=sc)
+                torch.cuda.synchronize()
+                got = torch.complex(yr, yi)
+                want = stream_reference(torch.complex(xr, xi), n, mode) * sc
+                ep = rel_err(got, torch.complex(pr, pi))
+                eo = rel_err(got, want)
+                check(ep < 1e-5 and eo < 1e-5,
+                      f"K3 {mode} n={n} b={b} scale={sc} route={route}: vs "
+                      f"plain {ep:.2e}, vs torch.fft {eo:.2e} < 1e-5")
+                stream_err["K3"] = max(stream_err["K3"], float(max(
+                    (yr - pr).abs().max(), (yi - pi).abs().max())))
+                worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
     print(f"  worst vs plain {worst_p:.3e}, vs torch.fft {worst_o:.3e}")
 
     # ---- phase 3b: K7 and K8 against their plain versions and torch.fft
@@ -618,22 +656,31 @@ def main() -> None:
 
     for mm in RSTREAM_M:
         n = 128 * mm
+        route = (f"cluster C={stream_fft._cluster_size(mm)}"
+                 if mm in stream_fft._CLUSTER_M else "stage loop")
         for b in (4, max(2, (1 << 22) // n // 2 * 2)):
             x = real((b, n), torch.float32, seed=n + b)
             xh = x.double().cpu().numpy()
-            yr, yi = rstream.launch("rfft", n, x)
-            hold("K7", f"rfft n={n} B={b}", torch.complex(yr, yi),
-                 torch.complex(*rstream_plain("rfft", n, x)),
-                 torch.fft.rfft(x.double()))
+            # a scale, and ortho's weight of bin 0, ride in the kernel
+            sc = 0.5
+            yr, yi = rstream.launch("rfft", n, x, scale=sc)
+            hold("K7", f"rfft n={n} B={b} scale={sc} ({route})",
+                 torch.complex(yr, yi),
+                 torch.complex(*rstream_plain("rfft", n, x, scale=sc)),
+                 torch.fft.rfft(x.double()) * sc)
             check(not bool(yi[:, 0].any()) and not bool(yi[:, -1].any()),
                   "K7 rfft: imag(DC) and imag(Nyquist) exactly 0")
-            hold("K7", f"irfft n={n} B={b}", rstream.launch("irfft", n, yr, yi),
-                 rstream_plain("irfft", n, yr, yi), x.double() * n, scale=n)
-            for t in (2, 3):
+            hold("K7", f"irfft n={n} B={b} scale={1 / n:g} ({route})",
+                 rstream.launch("irfft", n, yr, yi, scale=1.0 / n),
+                 rstream_plain("irfft", n, yr, yi, scale=1.0 / n),
+                 x.double() * sc)
+            for t, w0 in ((2, float(np.sqrt(0.5))), (3, float(np.sqrt(2.0)))):
                 mode = f"dct{t}"
-                hold("K7", f"{mode} n={n} B={b}", rstream.launch(mode, n, x),
-                     rstream_plain(mode, n, x),
-                     host(scipy.fft.dct(xh, t) / 2))
+                sc = float(np.sqrt(2.0 / n))
+                hold("K7", f"{mode} n={n} B={b} ortho ({route})",
+                     rstream.launch(mode, n, x, scale=sc, w0=w0),
+                     rstream_plain(mode, n, x, scale=sc, w0=w0),
+                     host(scipy.fft.dct(xh, t, norm="ortho")))
             n4, b4 = 2 * n, max(1, b // 2)
             x4 = real((b4, n4), torch.float32, seed=n4 + b4)
             hold("K8", f"dct4 n={n4} B={b4}",
@@ -1613,9 +1660,11 @@ def main() -> None:
     rows.extend(two_d.items())
     for name, ms in rows:
         print(f"  time {name}: {ms:.4f} ms  [{card}]")
-    # host time a call of the two redesigned kernels and their routes
+    # host time a call of the redesigned kernels and their routes
     xr, xi = pair((4096, 1024), torch.float32, seed=7)
     xs, ys = pair((8, 1 << 20), torch.float32, seed=15)
+    x3r, x3i = pair((64, 65536), torch.float32, seed=14)
+    yr, yi = rstream.launch("rfft", 65536, x)
     for name, fn in (
             ("K1 sfft_fused (4096, 1024)",
              lambda: fused_fft.sfft_fused(xr, xi, 1024, False)),
@@ -1623,9 +1672,20 @@ def main() -> None:
              lambda: ct.fft_split(xr, xi, norm="ortho")),
             ("K5 stream_fft._launch split (8, 2^20)",
              lambda: stream_fft._launch(xs, ys, 1 << 20, "split")),
-            ("fft_split (8, 2^20)", lambda: ct.fft_split(xs, ys))):
+            ("fft_split (8, 2^20)", lambda: ct.fft_split(xs, ys)),
+            ("K3 sfft_stream (64, 65536)",
+             lambda: stream_fft.sfft_stream(x3r, x3i, 65536, False)),
+            ("fft_split ortho (64, 65536)",
+             lambda: ct.fft_split(x3r, x3i, norm="ortho")),
+            ("K7 rstream.launch rfft (64, 65536)",
+             lambda: rstream.launch("rfft", 65536, x)),
+            ("K7 rstream.launch irfft (64, 65536)",
+             lambda: rstream.launch("irfft", 65536, yr, yi)),
+            ("rfft_split (64, 65536)", lambda: ct.rfft_split(x)),
+            ("irfft_split (64, 65536)",
+             lambda: ct.irfft_split(yr, yi, 65536))):
         print(f"  host time a call, {name}: {host_us(fn):.1f} us  [{card}]")
-    del xs, ys
+    del xs, ys, x3r, x3i
     # the dense forms by event time (host time included; phase 25b has
     # the device times): K11's two products, and K10's pass A within the
     # whole of K10
@@ -1738,6 +1798,75 @@ def main() -> None:
                                                                False), card)
     del xr, xi
 
+    # K3 and K7 by device time, with their kernel rows a call: one row on
+    # the cluster route (the scale in its store), two on the register
+    # route; then the cluster size swept at m = 512
+    print("phase 25c: profile of K3 and K7")
+    for n in (16384, 32768, 65536, 131072, 262144):
+        b = (1 << 22) // n
+        route = stream_fft._k3_route(n // 128)
+        xr, xi = pair((b, n), torch.float32, seed=107)
+        for inv in (False, True):
+            got = profile_route(
+                f"K3 sfft_stream ({b}, {n}) inverse={inv} scale=0.5 "
+                f"route={route}",
+                lambda: stream_fft.sfft_stream(xr, xi, n, inv, 0.5), card)
+            rows = 1 if route[0] == "cluster" else 2
+            check(got["launches"] == rows,
+                  f"K3 at n={n} is {rows} kernel row(s) a call "
+                  f"({got['launches']:g}: {sorted(got['rows'])})")
+        del xr, xi
+    xr, xi = pair((64, 65536), torch.float32, seed=108)
+    for name, fn in (("fft_split", ct.fft_split),
+                     ("ifft_split", ct.ifft_split)):
+        for norm in ("ortho", "backward"):
+            got = profile_route(f"{name} norm={norm} (64, 65536) (K3)",
+                                lambda: fn(xr, xi, norm=norm), card)
+            check(got["launches"] == 1
+                  and all("cl_nat_kernel" in k for k in got["rows"]),
+                  f"{name} norm={norm} is one K3 row a call "
+                  f"({got['launches']:g}: {sorted(got['rows'])})")
+    yr, yi = rstream.launch("rfft", 65536, x)
+    for mode, args in (("rfft", (x,)), ("irfft", (yr, yi)), ("dct2", (x,)),
+                       ("dct3", (x,))):
+        got = profile_route(f"K7 {mode} (64, 65536)",
+                            lambda: rstream.launch(mode, 65536, *args), card)
+        check(got["launches"] == 1
+              and all("cl_rs_kernel" in k for k in got["rows"]),
+              f"K7 {mode} is one cluster row a call ({got['launches']:g}: "
+              f"{sorted(got['rows'])})")
+    for name, fn in (("rfft_split", lambda norm: ct.rfft_split(x, norm=norm)),
+                     ("irfft_split",
+                      lambda norm: ct.irfft_split(yr, yi, 65536, norm=norm)),
+                     ("dct type 2", lambda norm: ct.dct(x, 2, norm=norm)),
+                     ("idct type 2", lambda norm: ct.idct(x, 2, norm=norm))):
+        for norm in ("ortho", "forward", "backward"):
+            got = profile_route(f"{name} norm={norm} (64, 65536) (K7)",
+                                lambda: fn(norm), card)
+            check(got["launches"] == 1
+                  and all("cl_rs_kernel" in k for k in got["rows"]),
+                  f"{name} norm={norm} is one K7 row a call "
+                  f"({got['launches']:g}: {sorted(got['rows'])})")
+    rule = stream_fft._cluster_size
+    for C in C_SWEEP:
+        stream_fft._cluster_size = lambda m, C=C: C
+        stream_fft._PLANS.clear()
+        rstream._PLANS.clear()
+        try:
+            profile_route(f"K3 sfft_stream (64, 65536) at C={C} (the rule "
+                          f"takes {rule(512)})",
+                          lambda: stream_fft.sfft_stream(xr, xi, 65536,
+                                                         False), card)
+            for mode, args in (("rfft", (x,)), ("dct3", (x,))):
+                profile_route(f"K7 {mode} (64, 65536) at C={C}",
+                              lambda: rstream.launch(mode, 65536, *args),
+                              card)
+        finally:
+            stream_fft._cluster_size = rule
+            stream_fft._PLANS.clear()
+            rstream._PLANS.clear()
+    del xr, xi
+
     # each kernel's bound at the shape its times were taken at: every
     # input read once and every output written once (the data planes; the
     # twiddle and phase tables are under 1% of them) and 5 n log2 n
@@ -1765,7 +1894,9 @@ def main() -> None:
         "cfftpack_tpu/ops/pallas_fft.py:90", "K1", kern_err, k1_ms, plain_ms,
         bound_ms(16 * 4096 * 1024, fft_flops(4096, 1024)), cufft_ms)]
     for k, name, line in (("K2", "stream_fft fwd/inv (K2)", 352),
-                          ("K3", "stream_fft fwd_nat/inv_nat (K3)", 386),
+                          ("K3", "stream_nat (K3): one pass on a thread-block "
+                           "cluster (csrc/cluster_pass.cuh) at m = 128 .. "
+                           "1024, times of fwd_nat", 386),
                           ("K4", "stream_fft filter (K4)", 444)):
         kernels.append(entry_of(
             name, src, f"cfftpack_tpu/ops/pallas_stream.py:{line}", k,
@@ -1774,7 +1905,8 @@ def main() -> None:
     src = "cfftpack_tpu_torch/csrc/rstream_fft.cu"
     # K7 pairs rows: 32 complex transforms of 65536; K8 runs 64 of 32768
     for k, name, replaces, mode, bound, library in (
-            ("K7", "rstream_fft rfft/irfft/dct2/dct3 (K7), times of rfft",
+            ("K7", "rstream_fft rfft/irfft/dct2/dct3 (K7): one pass on a "
+             "thread-block cluster at m = 128 .. 1024, times of rfft",
              "cfftpack_tpu/ops/pallas_rstream.py:157", "rfft",
              bound_ms(4 * big + 8 * 64 * 32769, fft_flops(32, 65536)),
              rfft_cufft_ms),
