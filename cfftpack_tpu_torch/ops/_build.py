@@ -57,9 +57,9 @@ _NAT_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
 _RSTREAM_ARGTYPES = ([_P] * 2 + [ctypes.c_longlong] + [_P] * 8
                      + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P] + [_P] * 6
                      + [_I] * 5 + [ctypes.c_float] * 2 + [_P])
-# xr, xi, yr, yi, twr, twi, nstages, fac, off, phr, phi, w, b, n0, n1, mode,
-# lshift, scale, stream
-_COL_ARGTYPES = ([_P] * 6 + [_I, _P, _P] + [_P] * 3 + [_I] * 5
+# xr, xi, yr, yi, twr, twi, nstages, fac, off, ptw, npass, pass_len, phr,
+# phi, w, b, n0, n1, mode, lshift, csize, scale, stream
+_COL_ARGTYPES = ([_P] * 6 + [_I, _P, _P, _P, _I] + [_P] * 4 + [_I] * 6
                  + [ctypes.c_float, _P])
 # xr, xi, yr, yi, sr, si, d4, t1r, t1i, twr, twi, nstages, fac, off,
 # b, n2, rshift, inverse, stream

@@ -13,7 +13,11 @@ permutation runs down the column, one column FFT, and the conjugate
 mirror merges with the half phase.  The CUDA kernel
 (``csrc/col_fft.cu``) does the gathers, the merge, the phase, the scale
 and the row weights in its loads and stores; the plain versions below
-keep the reference's separate passes over :func:`colfft_plain`.
+keep the reference's separate passes over :func:`colfft_plain`.  At
+n0 = 512, 1024, 2048 and 4096 the kernel runs register passes
+(``csrc/regfft.cuh``) in one shared buffer, lanes fastest; every other
+length takes the stage loop (:func:`_route`).  A launch's arguments are
+built once per (mode, n0, n1, device) (:func:`_launch_plan`).
 
 The transform length keeps the reference's rule (float32, n0 a 5-smooth
 multiple of 16 up to 4096), so both packages take the column route at
@@ -26,6 +30,7 @@ kernel launches.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -51,17 +56,63 @@ def colfft_eligible(n0: int, n1: int, dtype) -> bool:
 
 
 def _col_lanes(n0: int, n1: int) -> int:
-    """Lanes L of one block, a power of two: the stream column pass's
-    rule (``stream_fft._col_lanes``: the widest L up to 32 whose buffers
-    fit 64 KB, so three blocks share an SM, and at least 2), no wider
-    than n1 needs.  Measured at (64, n0, 1024) on an NVIDIA H100 80GB
-    HBM3, 700 W (chip_smoke.py phase 19, PERF.md): a narrower block that
-    leaves room for three on an SM beats one that fills a 32-byte sector
-    a row (n0 = 1024: L = 4 1.24 ms, L = 8 1.64 ms)."""
-    lanes = stream_fft._col_lanes(n0)
-    while lanes > 1 and lanes // 2 >= n1:
-        lanes //= 2
-    return lanes
+    """Lanes L of one stage-loop block, a power of two: the stream column
+    pass's rule (``stream_fft._col_lanes``: the widest L up to 32 whose
+    two buffers fit 64 KB, so three blocks share an SM, and at least 2),
+    no wider than n1 needs.  Measured at (64, n0, 1024) on an NVIDIA H100
+    80GB HBM3, 700 W, before the register route took these lengths
+    (chip_smoke.py phase 19, PERF.md): room for three blocks on an SM
+    beat a full 32-byte sector a row (n0 = 1024: L = 4 1.24 ms, L = 8
+    1.64 ms)."""
+    return _narrow(stream_fft._col_lanes(n0), n1)
+
+
+# The register route's lengths (col_fft.cu's CfRegCol), lanes a block and
+# blocks a thread-block cluster (1: none); see _reg_lanes.
+REG_N0 = (512, 1024, 2048, 4096)
+_REG_LANES = {512: 16, 1024: 8, 2048: 8, 4096: 4}
+_REG_CLUSTER = {512: 1, 1024: 1, 2048: 1, 4096: 4}
+_REG_ELEMS = 16
+
+
+def _reg_lanes(n0: int, n1: int) -> int:
+    """Lanes L of one register-route block (n0/16 threads a lane, one
+    buffer of 8*(n0 + n0/16)*L bytes), no wider than n1 needs.
+
+    Swept on an NVIDIA H100 80GB HBM3, 700 W (chip_smoke.py phase 25,
+    device time; PERF.md): n0 = 512 at (64, 512, 1024), K6: L = 8 / 16 /
+    32 243 / 219 / 237 us.  n0 = 1024 at (64, 1024, 1024): K6 L = 4 / 8 /
+    16 1492 / 477 / 470 us, K9 dct2 688 / 314 / 369 us and dct3 740 /
+    302 / 320 us, so 8.  n0 = 2048 at (64, 2048, 1024), K6: L = 4 / 8
+    3263 / 1067 us.  n0 = 4096 at (16, 4096, 1024), K6: L = 2 / 4 2321 /
+    1337 us, 4 the most that 1024 threads hold; at 4 with C = 2 / 4 / 8
+    blocks a cluster 1048 / 1028 / 1070 us (:func:`_reg_cluster`).
+    Clusters of 2 at n0 = 1024 and 2048 moved K6 by 1% or less."""
+    return _narrow(_REG_LANES[n0], n1)
+
+
+def _reg_cluster(n0: int, n1: int) -> int:
+    """Blocks a cluster on the register route: neighbouring lane groups
+    of one transform launched together, so that the blocks sharing a
+    32-byte sector of a row read it at the same time (L2 hits); no more
+    than a transform's groups need."""
+    groups = -(-n1 // _reg_lanes(n0, n1))
+    return _narrow(_REG_CLUSTER[n0], groups)
+
+
+def _narrow(count: int, need: int) -> int:
+    """``count`` (a power of two) halved while its half still covers
+    ``need``."""
+    while count > 1 and count // 2 >= need:
+        count //= 2
+    return count
+
+
+def _route(n0: int, n1: int):
+    """("reg", lanes) at the compiled lengths, else ("stage", lanes)."""
+    if n0 in REG_N0:
+        return "reg", _reg_lanes(n0, n1)
+    return "stage", _col_lanes(n0, n1)
 
 
 @functools.lru_cache(maxsize=64)
@@ -178,6 +229,55 @@ def coldct_plain(x, t: int, w=None, scale: float = 1.0):
 
 # ------------------------------------------------------------ launch
 
+@dataclass(frozen=True)
+class _LaunchPlan:
+    """What a launch of one (mode, n0, n1, device) passes to
+    ``col_fft_f32`` besides the data: the stage plan's tables and C
+    arrays, the register route's pass twiddles and pass lengths (None,
+    0 and an empty array on the stage loop), the K9 phase, the lane
+    shift and blocks a cluster, and the tensors behind the pointers."""
+    tables: tuple
+    lshift: int
+    csize: int
+    keep: tuple
+    version: int
+
+
+_PLANS: dict = {}
+
+
+def _launch_plan(mode: str, n0: int, n1: int, device) -> _LaunchPlan:
+    """The cached plan of (mode, n0, n1, device), rebuilt when
+    ``plan.VERSION`` moves (a device table replaced or cleared)."""
+    key = (mode, n0, n1, device)
+    lp = _PLANS.get(key)
+    if lp is not None and lp.version == plan.VERSION:
+        return lp
+    ct = plan.device_tables(n0, torch.float32, device)
+    keep = (ct,)
+    route, lanes = _route(n0, n1)
+    if route == "reg":
+        passes = plan.reg_passes(n0)
+        ptw = plan.to_device(plan.reg_twiddles(n0), torch.float32, device)
+        keep += (ptw,)
+        reg = (ptw.data_ptr(), len(passes),
+               _build.ints([len(q) for q in passes]))
+    else:
+        reg = (None, 0, _build.ints([]))
+    ph = (None, None)
+    if mode in ("dct2", "dct3"):
+        pt = _phase(n0, mode, device)
+        keep += pt
+        ph = tuple(t.data_ptr() for t in pt)
+    tables = (ct.twr.data_ptr(), ct.twi.data_ptr(), len(ct.factors),
+              _build.ints(ct.factors), _build.ints(ct.offs[:-1]), *reg, *ph)
+    lp = _LaunchPlan(tables, lanes.bit_length() - 1,
+                     _reg_cluster(n0, n1) if route == "reg" else 1, keep,
+                     plan.VERSION)
+    _PLANS[key] = lp
+    return lp
+
+
 def _launch(mode: str, x, xi=None, w=None, scale: float = 1.0):
     """One mode through the CUDA kernel on contiguous (B, n0, n1)
     float32 planes: ``(x, xi)`` the (re, im) pair for fwd/inv; for
@@ -217,24 +317,15 @@ def _launch(mode: str, x, xi=None, w=None, scale: float = 1.0):
     yi = None if dct else torch.empty_like(x)
     if B == 0:
         return yr if dct else (yr, yi)
-    ct = plan.device_tables(n0, torch.float32, dev)
-    fac = np.asarray(ct.factors, dtype=np.int32)
-    off = np.asarray(ct.offs[:-1], dtype=np.int32)
-    lshift = _col_lanes(n0, n1).bit_length() - 1
+    lp = _launch_plan(mode, n0, n1, dev)
     if mode == "dct3":
         scale = 0.5 * scale          # the core's 1/2 rides in the store
-    ph = (tuple(t.data_ptr() for t in _phase(n0, mode, dev)) if dct
-          else (None, None))
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.col_fft_f32(
-            x.data_ptr(), None if dct else xi.data_ptr(), yr.data_ptr(),
-            None if dct else yi.data_ptr(), ct.twr.data_ptr(),
-            ct.twi.data_ptr(), len(fac), fac.ctypes.data, off.ctypes.data,
-            *ph, None if w is None else w.data_ptr(),
-            B // 2 if dct else B, n0, n1, _MODES.index(mode), lshift,
-            float(scale), stream)
+    err = _build.call(
+        _build.load().col_fft_f32, dev, x.data_ptr(),
+        None if dct else xi.data_ptr(), yr.data_ptr(),
+        None if dct else yi.data_ptr(), *lp.tables,
+        None if w is None else w.data_ptr(), B // 2 if dct else B, n0, n1,
+        _MODES.index(mode), lp.lshift, lp.csize, float(scale))
     if err != 0:
         raise RuntimeError(f"column kernel launch failed at shape "
                            f"{tuple(x.shape)}, mode={mode}: CUDA error {err}")

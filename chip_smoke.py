@@ -32,7 +32,8 @@ just after.  Prints CUDA-event times of the kernels, their plain
 versions and the PyTorch calls that compute the same functions, the
 measurements behind K1's rows a block, a profiler breakdown of the 2-D
 routes, of K10's and K11's passes and of K1, K3, K5 and K7 with their
-kernel rows a call, a sweep of the cluster size at m = 512, one
+kernel rows a call, a sweep of the cluster size at m = 512, K6 and K9
+alone by device time with a sweep of K6's lanes and cluster size, one
 JSON line describing the kernels (each with its bound on this card),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
@@ -92,10 +93,18 @@ K3_M = (128, 256, 512, 1024, 2048, 4096, 768)
 RSTREAM_M = (16, 48, 80, 128, 512, 1024, 4096)
 # phase 25c: the cluster sizes swept at m = 512 (K3 and K7)
 C_SWEEP = (4, 8, 16)
-# phase 3c: K6 and K9 at radix 3 and 5 lengths, the bench length and the
-# cap; n1 = 513 is the packed width of rfft2 at 1024
-COL_N0 = (16, 48, 80, 1024, 4096)
-COL_N1 = (128, 513, 1024)
+# phase 3c: K6 and K9 at every compiled register length (512 .. 4096, the
+# cap) and at stage-loop lengths (16, radix 3 and 5); n1 = 513 is the
+# packed width of rfft2 at 1024, n1 = 5 is under every lane count
+COL_N0 = (16, 48, 80, 512, 1024, 2048, 4096)
+COL_N1 = (5, 128, 513, 1024)
+# phase 19: K6's lanes a block and blocks a cluster, (L, C), swept on the
+# register route
+COL_LANE_SWEEP = (((64, 512, 1024), ((8, 1), (16, 1), (32, 1))),
+                  ((64, 1024, 1024), ((4, 1), (8, 1), (8, 2), (16, 1))),
+                  ((64, 2048, 1024), ((4, 1), (4, 4), (8, 1), (8, 2))),
+                  ((16, 4096, 1024), ((2, 1), (4, 1), (4, 2), (4, 4),
+                                      (4, 8))))
 # phase 3d: every K10 length (ragged column groups at the two lengths
 # whose pass A tiles span several transforms), and K11 at the smallest m,
 # odd and ragged m, the edges of the one-pass kernel's three tile heights
@@ -263,6 +272,20 @@ def no_colfft():
         yield
     finally:
         colfft.colfft_eligible = gate
+
+
+@contextlib.contextmanager
+def col_lanes(n0: int, lanes: int, csize: int):
+    """K6/K9's register route at n0 with ``lanes`` lanes a block and
+    ``csize`` blocks a cluster."""
+    rule = colfft._REG_LANES[n0], colfft._REG_CLUSTER[n0]
+    colfft._REG_LANES[n0], colfft._REG_CLUSTER[n0] = lanes, csize
+    colfft._PLANS.clear()
+    try:
+        yield
+    finally:
+        colfft._REG_LANES[n0], colfft._REG_CLUSTER[n0] = rule
+        colfft._PLANS.clear()
 
 
 def counts() -> dict:
@@ -1473,28 +1496,25 @@ def main() -> None:
     dct_bench_ms = median_ms(lambda: ct.dct(xb, 2))
     # K6 and K9, and the 2-D routes with and without them
     col_shapes = ((4, 1024, 1024), (64, 1024, 1024), (4, 4096, 1024))
-    col_ms, col_plain_ms, col_lib_ms = {}, {}, {}
+    col_ms, col_plain_ms, col_lib_ms, col_in = {}, {}, {}, {}
     for shape in col_shapes:
-        cr, ci = pair(shape, torch.float32, seed=50 + shape[0])
+        cr, ci = col_in[shape] = pair(shape, torch.float32,
+                                      seed=50 + shape[0])
         col_ms[shape] = median_ms(lambda: colfft.scolfft(cr, ci))
         col_plain_ms[shape] = median_ms(
             lambda: colfft.colfft_plain(cr, ci), reps=5, warm=1)
         cc = torch.complex(cr, ci)
         col_lib_ms[shape] = median_ms(lambda: torch.fft.fft(cc, dim=-2))
         del cr, ci, cc
-    # K6 at other lane counts than the rule's (colfft._col_lanes)
+    # K6 at each (lanes, cluster) of the register route (colfft._REG_LANES,
+    # colfft._REG_CLUSTER)
     lane_ms = {}
-    rule = colfft._col_lanes
-    for shape, lanes in (((64, 1024, 1024), (2, 4, 8)),
-                         ((64, 512, 1024), (4, 8, 16)),
-                         ((16, 4096, 1024), (1, 2))):
+    for shape, configs in COL_LANE_SWEEP:
         cr, ci = pair(shape, torch.float32, seed=55)
-        for L in lanes:
-            colfft._col_lanes = lambda n0, n1, L=L: L
-            try:
-                lane_ms[shape, L] = median_ms(lambda: colfft.scolfft(cr, ci))
-            finally:
-                colfft._col_lanes = rule
+        for L, C in configs:
+            with col_lanes(shape[1], L, C):
+                lane_ms[shape, L, C] = median_ms(
+                    lambda: colfft.scolfft(cr, ci))
         del cr, ci
     k9_ms = {t: median_ms(lambda: colfft.scoldct(x2, t)) for t in (2, 3)}
     k9_plain_ms = {
@@ -1634,8 +1654,10 @@ def main() -> None:
           for sh in col_shapes],
         *[(f"cuFFT torch.fft.fft dim=-2 {sh} complex64", col_lib_ms[sh])
           for sh in col_shapes],
-        *[(f"K6 scolfft {sh} f32 at {L} lanes a block (the rule takes "
-           f"{rule(sh[1], sh[2])})", ms) for (sh, L), ms in lane_ms.items()],
+        *[(f"K6 scolfft {sh} f32 at {L} lanes a block, {C} a cluster (the "
+           f"rule takes {colfft._route(sh[1], sh[2])[1]}, "
+           f"{colfft._REG_CLUSTER[sh[1]]})", ms)
+          for (sh, L, C), ms in lane_ms.items()],
         *[(f"K9 dct{t} (64, 1024, 1024) f32", k9_ms[t]) for t in (2, 3)],
         *[(f"plain K9 dct{t} (64, 1024, 1024) f32", k9_plain_ms[t])
           for t in (2, 3)],
@@ -1668,6 +1690,10 @@ def main() -> None:
     for name, fn in (
             ("K1 sfft_fused (4096, 1024)",
              lambda: fused_fft.sfft_fused(xr, xi, 1024, False)),
+            *[(f"K6 scolfft {sh}", lambda sh=sh: colfft.scolfft(*col_in[sh]))
+              for sh in col_shapes],
+            *[(f"K9 scoldct dct{t} (64, 1024, 1024)",
+               lambda t=t: colfft.scoldct(x2, t)) for t in (2, 3)],
             ("fft_split ortho (4096, 1024)",
              lambda: ct.fft_split(xr, xi, norm="ortho")),
             ("K5 stream_fft._launch split (8, 2^20)",
@@ -1708,12 +1734,45 @@ def main() -> None:
     fr2, fi2 = pair((64, 1024, 1024), torch.float32, seed=70)
     for name, fn in (
             ("fft2_split", lambda: ct.fft2_split(fr2, fi2, norm="ortho")),
+            ("rfft2_split", lambda: ct.rfft2_split(x2, norm="ortho")),
             ("dctn type 2", lambda: ct.dctn(x2, 2, axes=(-2, -1),
                                             norm="ortho"))):
         profile_route(f"{name} column route", fn, card)
         with no_colfft():
             profile_route(f"{name} moved-axis route", fn, card)
     del fr2, fi2
+    # K6 and K9 alone, by device time: one kernel row a call, the
+    # register kernel at n0 = 1024 and 4096
+    for sh in col_shapes:
+        got = profile_route(f"K6 scolfft {sh}",
+                            lambda: colfft.scolfft(*col_in[sh]), card)
+        check(got["launches"] == 1
+              and all("cf_reg_kernel" in k for k in got["rows"]),
+              f"K6 {sh} is one register-kernel row a call "
+              f"({got['launches']:g}: {sorted(got['rows'])})")
+    for t in (2, 3):
+        got = profile_route(f"K9 scoldct dct{t} (64, 1024, 1024)",
+                            lambda: colfft.scoldct(x2, t), card)
+        check(got["launches"] == 1
+              and all("cf_reg_kernel" in k for k in got["rows"]),
+              f"K9 dct{t} is one register-kernel row a call "
+              f"({got['launches']:g}: {sorted(got['rows'])})")
+    del col_in
+    # the lane sweep of phase 19 by device time
+    for shape, configs in COL_LANE_SWEEP:
+        cr, ci = pair(shape, torch.float32, seed=55)
+        rule = colfft._route(*shape[1:])[1], colfft._REG_CLUSTER[shape[1]]
+        for L, C in configs:
+            with col_lanes(shape[1], L, C):
+                at = (f"{shape} at {L} lanes a block, {C} a cluster (the rule "
+                      f"takes {rule[0]}, {rule[1]})")
+                profile_route(f"K6 scolfft {at}",
+                              lambda: colfft.scolfft(cr, ci), card)
+                if shape[1] == 1024 and C == 1:
+                    for t in (2, 3):
+                        profile_route(f"K9 scoldct dct{t} {at}",
+                                      lambda: colfft.scoldct(cr, t), card)
+        del cr, ci
 
     # ---- phase 25b: device time of K10's and K11's passes, and of K1
     # and K3 at the same shapes; the dense products' rates by device time
