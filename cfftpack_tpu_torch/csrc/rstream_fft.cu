@@ -32,7 +32,10 @@
 // dct4  (K8)  N = n/2, B = b.  Column load: c[p] = x[2p] + i*x[n-1-2p]
 //             times the pre-rotation e^{-i pi p/n}.  Row store: the
 //             post-phase, then y[2t] = Re z[t] and y[2t+1] = -Im z[N-1-t]
-//             (N-1-t sits at [m-1-k2, 127-k1]) as one 8-byte store.
+//             (N-1-t sits at [m-1-k2, 127-k1]) as one 8-byte store.  The
+//             cluster route below also takes DST-IV, (-1)^k dct4(flip(x)):
+//             the flip swaps the pair load's two reads, the sign is that
+//             of the odd outputs.
 //
 // Mirror rows.  A forward row-pass block holds 8 row pairs, so each row's
 // mirror is in its shared memory: block g takes j in [8g, 8g + 8), slot
@@ -52,10 +55,11 @@
 // riffle pass.  Strided gathers and scatters (Makhoul, DCT-IV pairs) are
 // scalar accesses, and the packed (n/2 + 1)-float rows are stored as
 // scalars (every other row breaks 16-byte alignment).  At m = 128, 256,
-// 512 and 1024 (n = 16384 .. 131072) K7's four modes run in one pass
-// instead, on a thread-block cluster (cluster_pass.cuh, ClRsMode below):
-// 16 bytes an element, the same loads and stores on the natural index,
-// and the norm's scale (and the ortho weight of bin 0) in them.
+// 512 and 1024 (n = 16384 .. 131072; K8 at twice those n) every mode
+// runs in one pass instead, on a thread-block cluster (cluster_pass.cuh,
+// ClRsMode below): 16 bytes an element, the same loads and stores on the
+// natural index, and the norm's scale (and the ortho weight of bin 0) in
+// them.
 #include <cuda_runtime.h>
 
 #include "cluster_pass.cuh"
@@ -358,12 +362,13 @@ static int rs_run(const RSArgs& a, const void* ctwr, const void* ctwi,
   return 0;
 }
 
-// K7 on the cluster engine (cluster_pass.cuh) at m = 128, 256, 512 and
-// 1024: pair p (rows 2p, 2p+1) is one cluster's transform of N = 128*M
-// points, natural order throughout.  The loads and stores are those of
-// the two-pass modes above, on the natural index; the mirror of bin
-// (k2, k1) and dct3's partner of output t sit in rows another block
-// owns, read through the cluster's shared memory between two barriers.
+// K7 and K8 on the cluster engine (cluster_pass.cuh) at m = 128, 256, 512
+// and 1024: pair p (rows 2p, 2p+1; K8: row p) is one cluster's transform
+// of N = 128*M points, natural order throughout.  The loads and stores
+// are those of the two-pass modes above, on the natural index; the
+// mirror of bin (k2, k1) and the partners of dct3's and dct4's output t
+// sit in rows another block owns, read through the cluster's shared
+// memory between two barriers.
 //
 // rfft   load z = x[2p][j] + i*x[2p+1][j]; store the merge of bins
 //        k = k2 + M*k1 < n/2 (k1 < 64) with their mirrors, as runs of m/C
@@ -381,7 +386,12 @@ static int rs_run(const RSArgs& a, const void* ctwr, const void* ctwi,
 //        rows, U_0 = w0*y_0, U_{n/2} = sqrt(2)*y_{n/2}; store 0.5*z through
 //        the inverse Makhoul permutation: the pair (2t, 2t+1) is v[t] and
 //        v[N-1-t], N-1-t at row m-1-k2, lane 127-k1 of another block, one
-//        8-byte store.
+//        8-byte store;
+// dct4   (K8, rows of n = 2N) load c[j] = x[2j] + i*x[n-1-2j] times the
+//        pre-rotation pre[j] (with `dst` the two reads swap: flip(x));
+//        store z = Z*post on the natural index, y[2t] = Re z[t] and
+//        y[2t+1] = osgn * Im z[N-1-t] (osgn -1, +1 with `dst`), N-1-t at
+//        row m-1-k2, lane 127-k1 of another block, one 8-byte store.
 // Every store multiplies by `scale`.
 template <int M, int MODE>
 struct ClRsMode {
@@ -391,10 +401,15 @@ struct ClRsMode {
   long long xs;                  // input row stride
   float* __restrict__ yr;        // output rows, or rfft's re plane
   float* __restrict__ yi;        // rfft: the im plane
-  const float* __restrict__ phr;  // dct2/dct3: e^{-i pi k/(2n)}, natural
+  // dct2/dct3: e^{-i pi k/(2n)}; dct4: the pre-rotation (natural order)
+  const float* __restrict__ phr;
   const float* __restrict__ phi;
+  // dct4: the post-phase (natural order)
+  const float* __restrict__ pbr;
+  const float* __restrict__ pbi;
   int cshift;                     // pair p = blockIdx.x >> cshift
   float scale, w0;
+  bool dst;                       // dct4: DST-IV
   __device__ __forceinline__ long long pair() const {
     return blockIdx.x >> cshift;
   }
@@ -411,6 +426,12 @@ struct ClRsMode {
       const long long src = j < N / 2 ? 2 * j : 2 * N - 1 - 2 * j;
       vr = x[src];
       vi = x[xs + src];
+    } else if constexpr (MODE == RS_DCT4) {
+      const float* x = xr + p * xs;
+      const float a = x[2 * j], c = x[2 * N - 1 - 2 * j];
+      vr = dst ? c : a;
+      vi = dst ? a : c;
+      sf_cmul(vr, vi, __ldg(phr + j), __ldg(phi + j));
     } else if constexpr (MODE == RS_IRFFT) {
       const float* ur = xr + 2 * p * xs;
       const float* ui = xi + 2 * p * xs;
@@ -513,6 +534,23 @@ struct ClRsMode {
         y[k] = scale * Xr;
         y[N + k] = -scale * Xi;
       }
+    } else if constexpr (MODE == RS_DCT4) {
+      // t = k2 + M*k1, its partner u = N-1-t
+      float* y = yr + 2 * p * N;
+      const float oscale = dst ? scale : -scale;
+      for (int e = threadIdx.x; e < rows * SF_N1; e += blockDim.x) {
+        int s, k1;
+        cl_tile(e, t.sh.rshift, s, k1);
+        const int k2 = k20 + s;
+        float Zr, Zi, Pr, Pi;
+        t.own(s, k1, Zr, Zi);
+        t.any(M - 1 - k2, SF_N1 - 1 - k1, Pr, Pi);
+        const long long at = k2 + (long long)M * k1, u = N - 1 - at;
+        const float zr = Zr * __ldg(pbr + at) - Zi * __ldg(pbi + at);
+        const float wi = Pr * __ldg(pbi + u) + Pi * __ldg(pbr + u);
+        *reinterpret_cast<float2*>(y + 2 * at) =
+            make_float2(scale * zr, oscale * wi);
+      }
     } else {
       // RS_DCT3: t = k2 + M*k1 < N/2, its partner N-1-t
       float* y = yr + 2 * p * N;
@@ -534,8 +572,8 @@ struct ClRsMode {
 };
 
 // One cluster of C = 128 >> lshift blocks a pair (md.cshift = log2 C).
-// The modes whose store reads other blocks' rows (rfft, dct2, dct3) wait
-// for the whole cluster before it, and again after it, so no block's
+// The modes whose store reads other blocks' rows (rfft, dct2, dct3, dct4)
+// wait for the whole cluster before it, and again after it, so no block's
 // shared memory goes while another still reads it.
 template <int M, int MODE>
 __global__ void __launch_bounds__(CL_MAX_THREADS)
@@ -553,11 +591,12 @@ __global__ void __launch_bounds__(CL_MAX_THREADS)
 
 template <int M, int MODE>
 static int cl_rs_run(const RSArgs& a, const void* cptw, const void* rptw,
-                     long long b, int C, float scale, float w0,
+                     long long b, int C, float scale, float w0, bool dst,
                      cudaStream_t st) {
   static ClReady ready;
-  const ClRsMode<M, MODE> md{a.xr, a.xi, a.xs, a.yr, a.yi, a.par, a.pai,
-                             cl_log2(C), scale, w0};
+  const ClRsMode<M, MODE> md{a.xr,  a.xi,  a.xs,  a.yr,       a.yi,
+                             a.par, a.pai, a.pbr, a.pbi,      cl_log2(C),
+                             scale, w0,    dst};
   cudaError_t err =
       cl_launch(cl_rs_kernel<M, MODE>, ready, M, C, b, st, md, a.t1r, a.t1i,
                 (const float*)cptw, (const float*)rptw, cl_log2(SF_N1 / C));
@@ -567,34 +606,35 @@ static int cl_rs_run(const RSArgs& a, const void* cptw, const void* rptw,
 
 template <int MODE>
 static int cl_rs_mode(const RSArgs& a, const void* cptw, const void* rptw,
-                      long long b, int C, float scale, float w0,
+                      long long b, int C, float scale, float w0, bool dst,
                       cudaStream_t st) {
   switch (a.m) {
     case 128:
-      return cl_rs_run<128, MODE>(a, cptw, rptw, b, C, scale, w0, st);
+      return cl_rs_run<128, MODE>(a, cptw, rptw, b, C, scale, w0, dst, st);
     case 256:
-      return cl_rs_run<256, MODE>(a, cptw, rptw, b, C, scale, w0, st);
+      return cl_rs_run<256, MODE>(a, cptw, rptw, b, C, scale, w0, dst, st);
     case 512:
-      return cl_rs_run<512, MODE>(a, cptw, rptw, b, C, scale, w0, st);
+      return cl_rs_run<512, MODE>(a, cptw, rptw, b, C, scale, w0, dst, st);
     default:
-      return cl_rs_run<1024, MODE>(a, cptw, rptw, b, C, scale, w0, st);
+      return cl_rs_run<1024, MODE>(a, cptw, rptw, b, C, scale, w0, dst, st);
   }
 }
 
 // One mode over b transforms of N = 128*m points on `stream` (b = B/2
 // pairs for K7, B rows for K8).  x is the input (xi the im plane of
 // irfft), xs its row stride; y the output (yi the im plane of rfft).
-// K7's modes at m = 128, 256, 512, 1024 run on clusters of `csize` blocks
-// (cluster_pass.cuh): t1 the forward outer twiddle, (cptw, rptw) the
-// register pass twiddles of m and 128, pa the natural phase table
-// (dct2/dct3), times `scale` in the store and w0 on bin 0 (dct2's store,
-// dct3's load).  Every other (mode, m) runs the two stage-loop passes
-// through the (b, m, 128) scratch s: t1 in the mode's direction,
+// Every mode at m = 128, 256, 512, 1024 runs on clusters of `csize`
+// blocks (cluster_pass.cuh): t1 the forward outer twiddle, (cptw, rptw)
+// the register pass twiddles of m and 128, pa the natural phase table
+// (dct2/dct3) or pre-rotation (dct4), pb dct4's natural post-phase, times
+// `scale` in the store and w0 on bin 0 (dct2's store, dct3's load); dst
+// makes dct4 the DST-IV.  Every other (mode, m) runs the two stage-loop
+// passes through the (b, m, 128) scratch s: t1 in the mode's direction,
 // (ctw, cfac, coff) the m-point and (rtw, rfac, roff) the 128-point plans
 // with forward-sign twiddles, pa and pb the mode's tables (see RSArgs);
-// they take scale = w0 = 1 only (the caller multiplies).  Returns the
-// first CUDA error, or cudaErrorInvalidValue for arguments the kernels do
-// not take.
+// they take scale = w0 = 1 and dst = 0 only (the caller flips and
+// multiplies).  Returns the first CUDA error, or cudaErrorInvalidValue
+// for arguments the kernels do not take.
 extern "C" int rstream_fft_f32(
     const void* xr, const void* xi, long long xs, void* yr, void* yi,
     void* sr, void* si, const void* t1r, const void* t1i, const void* ctwr,
@@ -602,9 +642,10 @@ extern "C" int rstream_fft_f32(
     const void* rtwr, const void* rtwi, int rstages, const int* rfac,
     const int* roff, const void* par, const void* pai, const void* pbr,
     const void* pbi, const void* cptw, const void* rptw, int b, int m,
-    int mode, int csize, int lshift, float scale, float w0, void* stream) {
+    int mode, int csize, int lshift, float scale, float w0, int dst,
+    void* stream) {
   if (b < 1 || m < SF_ROWS || m % SF_ROWS || mode < RS_RFFT ||
-      mode > RS_DCT4 || xs < 1)
+      mode > RS_DCT4 || xs < 1 || (dst != 0 && mode != RS_DCT4))
     return (int)cudaErrorInvalidValue;
   if ((mode == RS_IRFFT && xi == nullptr) || (mode == RS_RFFT && yi == nullptr) ||
       ((mode == RS_DCT2 || mode == RS_DCT3 || mode == RS_DCT4) &&
@@ -616,21 +657,25 @@ extern "C" int rstream_fft_f32(
                  (const float*)t1i, (const float*)par, (const float*)pai,
                  (const float*)pbr, (const float*)pbi, m};
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode != RS_DCT4 && cl_takes(m)) {
+  if (cl_takes(m)) {
     if (cptw == nullptr || rptw == nullptr) return (int)cudaErrorInvalidValue;
+    const bool d = dst != 0;
     switch (mode) {
       case RS_RFFT:
-        return cl_rs_mode<RS_RFFT>(a, cptw, rptw, b, csize, scale, w0, st);
+        return cl_rs_mode<RS_RFFT>(a, cptw, rptw, b, csize, scale, w0, d, st);
       case RS_IRFFT:
-        return cl_rs_mode<RS_IRFFT>(a, cptw, rptw, b, csize, scale, w0, st);
+        return cl_rs_mode<RS_IRFFT>(a, cptw, rptw, b, csize, scale, w0, d,
+                                    st);
       case RS_DCT2:
-        return cl_rs_mode<RS_DCT2>(a, cptw, rptw, b, csize, scale, w0, st);
+        return cl_rs_mode<RS_DCT2>(a, cptw, rptw, b, csize, scale, w0, d, st);
+      case RS_DCT3:
+        return cl_rs_mode<RS_DCT3>(a, cptw, rptw, b, csize, scale, w0, d, st);
       default:
-        return cl_rs_mode<RS_DCT3>(a, cptw, rptw, b, csize, scale, w0, st);
+        return cl_rs_mode<RS_DCT4>(a, cptw, rptw, b, csize, scale, w0, d, st);
     }
   }
   SFPlan cplan, rplan;
-  if (lshift < 0 || lshift > 7 || scale != 1.0f || w0 != 1.0f ||
+  if (lshift < 0 || lshift > 7 || scale != 1.0f || w0 != 1.0f || dst != 0 ||
       !sf_make_plan(&cplan, m, cstages, cfac, coff) ||
       !sf_make_plan(&rplan, SF_N1, rstages, rfac, roff))
     return (int)cudaErrorInvalidValue;

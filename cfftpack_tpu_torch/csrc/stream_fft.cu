@@ -40,12 +40,16 @@
 // K3 (entry stream_nat_f32, at the end of this file) runs one pass on a
 // thread-block cluster at m = 128 .. 1024 (cluster_pass.cuh) and K5's
 // register-pass kernels at s = 1 at m = 2048 and 4096; only its other m
-// take these two passes.  Butterflies are the closed forms
-// of radix 2/3/4/5 in full float32 (no tensor cores); stage twiddles
-// and the outer twiddle are float64-built tables cast to float32.  The
-// ragged batch needs no mask and no pad: every block owns whole rows.
-// Offsets into the planes are 64-bit.  The pass bodies live in
-// stream_pass.cuh, shared with K7 and K8 (rstream_fft.cu); this file
+// take these two passes.  K4 runs one pass on the same cluster engine at
+// m = 128 .. 1024 too, in its rows-first order (the 128-point DFT of the
+// permuted rows first, then the m-point one), the filter multiply in its
+// row load, its natural rows written through an output row stride (the
+// caller's paired rows) times the norm's scale.  Butterflies are the
+// closed forms of radix 2/3/4/5 in full float32 (no tensor cores); stage
+// twiddles and the outer twiddle are float64-built tables cast to
+// float32.  The ragged batch needs no mask and no pad: every block owns
+// whole rows.  Offsets into the planes are 64-bit.  The pass bodies live
+// in stream_pass.cuh, shared with K7 and K8 (rstream_fft.cu); this file
 // gives them the IO of the five modes.
 //
 // K5, entry stream_split_f32: the natural-order FFT of n = s*n_in
@@ -484,27 +488,129 @@ static int sf_split_run(const void* xr, const void* xi, void* yr, void* yi,
   return (int)cudaGetLastError();
 }
 
-// Both passes of one of K2-K4's modes on `stream`.  x and y are the input
-// and output planes, s the (b, m, 128) scratch planes; t1 the outer
-// twiddle in the mode's sign; (ctw, cfac, coff) the m-point plan of the
-// column pass and (rtw, rfac, roff) the 128-point plan of the row pass,
-// both with forward-sign twiddles; f the (nfilt, m, 128) permuted filter
-// slices of mode filter.  Returns the first CUDA error, or
-// cudaErrorInvalidValue for arguments the kernels do not take.
+// K4 on the cluster engine's rows-first order (cluster_pass.cuh): row
+// blockIdx.x >> cshift of the permuted (b, m, 128) spectrum times filter
+// slice (row % nfilt), conjugated in the load; the natural output row
+// at yr/yi + row*ys, conjugated and times `scale` in the store.  The
+// kernel keeps the mode as it came, so its fields stay kernel parameters.
+struct ClFilterMode {
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  const float* __restrict__ fr;
+  const float* __restrict__ fi;
+  float* __restrict__ yr;
+  float* __restrict__ yi;
+  long long n, ys;
+  int nfilt, cshift;
+  float scale, oscale;  // oscale = -scale
+  __device__ __forceinline__ long long row() const {
+    return blockIdx.x >> cshift;
+  }
+  __device__ __forceinline__ void row_load(int k2, int k1, float& vr,
+                                           float& vi) const {
+    const long long p = row();
+    const long long at = (long long)k2 * SF_N1 + k1;
+    const long long f = (p % nfilt) * n + at;
+    const float ar = xr[p * n + at], ai = xi[p * n + at];
+    const float br = __ldg(fr + f), bi = __ldg(fi + f);
+    vr = ar * br - ai * bi;
+    vi = -(ar * bi + ai * br);
+  }
+  __device__ __forceinline__ void col_store(int q, int r, float vr,
+                                            float vi) const {
+    const long long at = row() * ys + (long long)q * SF_N1 + r;
+    yr[at] = scale * vr;
+    yi[at] = oscale * vi;
+  }
+};
+
+// One cluster of C = 128 >> lshift blocks a row.
+template <int M>
+__global__ void __launch_bounds__(CL_MAX_THREADS)
+    cl_filter_kernel(ClFilterMode md, const float* __restrict__ t1r,
+                     const float* __restrict__ t1i,
+                     const float* __restrict__ cptw,
+                     const float* __restrict__ rptw, int lshift) {
+  extern __shared__ __align__(16) float cl_filter_smem[];
+  cl_fft_rows_first<M>(md, cl_filter_smem, t1r, t1i, cptw, rptw, lshift);
+}
+
+template <int M>
+static cudaError_t cl_filter_run(const ClFilterMode& md, const void* t1r,
+                                 const void* t1i, const void* cptw,
+                                 const void* rptw, int b, int C,
+                                 cudaStream_t st) {
+  static ClReady ready;
+  return cl_launch<CL_RF_RS>(cl_filter_kernel<M>, ready, M, C, b, st, md,
+                             (const float*)t1r, (const float*)t1i,
+                             (const float*)cptw, (const float*)rptw,
+                             cl_log2(SF_N1 / C));
+}
+
+// One of K2-K4's modes on `stream`.  x and y are the input and output
+// planes, s the (b, m, 128) scratch planes; f the (nfilt, m, 128)
+// permuted filter slices of mode filter.  The route is m's:
+//
+// * mode filter (K4) at m = 128, 256, 512, 1024: one kernel on clusters
+//   of `csize` blocks in the rows-first order (cluster_pass.cuh), no
+//   scratch; t1 is the forward outer twiddle, cptw and rptw the register
+//   pass twiddles of m and 128; output row p at y + p*ys (ys >= n), times
+//   `scale`;
+// * every other (mode, m): the two stage-loop passes through the scratch,
+//   t1 in the mode's sign with the stage plans (ctw, cfac, coff) of the
+//   m-point column pass and (rtw, rfac, roff) of the 128-point row pass,
+//   both with forward-sign twiddles; it takes ys = n and scale = 1 only
+//   (the caller copies and multiplies).
+//
+// Returns the first CUDA error, or cudaErrorInvalidValue for arguments
+// the kernels do not take.
 extern "C" int stream_fft_f32(
     const void* xr, const void* xi, void* yr, void* yi, void* sr, void* si,
     const void* t1r, const void* t1i, const void* ctwr, const void* ctwi,
     int cstages, const int* cfac, const int* coff, const void* rtwr,
     const void* rtwi, int rstages, const int* rfac, const int* roff,
-    const void* fr, const void* fi, int nfilt, int b, int m, int mode,
-    int lshift, void* stream) {
-  SFPlan cplan, rplan;
+    const void* cptw, const void* rptw, const void* fr, const void* fi,
+    int nfilt, int b, int m, int mode, int csize, int lshift, long long ys,
+    float scale, void* stream) {
   if (b < 1 || m < SF_ROWS || m % SF_ROWS || mode < SF_FWD ||
-      mode > SF_FILTER || lshift < 0 || lshift > 7 ||
-      !sf_make_plan(&cplan, m, cstages, cfac, coff) ||
-      !sf_make_plan(&rplan, SF_N1, rstages, rfac, roff))
+      mode > SF_FILTER)
     return (int)cudaErrorInvalidValue;
   if (mode == SF_FILTER && (fr == nullptr || fi == nullptr || nfilt < 1))
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)m * SF_N1;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == SF_FILTER && cl_takes(m)) {
+    if (cptw == nullptr || rptw == nullptr || ys < n ||
+        !cl_config_ok(m, csize, CL_RF_RS))
+      return (int)cudaErrorInvalidValue;
+    const ClFilterMode md{(const float*)xr, (const float*)xi,
+                          (const float*)fr, (const float*)fi,
+                          (float*)yr,       (float*)yi,
+                          n,                ys,
+                          nfilt,            cl_log2(csize),
+                          scale,            -scale};
+    cudaError_t err;
+    switch (m) {
+      case 128:
+        err = cl_filter_run<128>(md, t1r, t1i, cptw, rptw, b, csize, st);
+        break;
+      case 256:
+        err = cl_filter_run<256>(md, t1r, t1i, cptw, rptw, b, csize, st);
+        break;
+      case 512:
+        err = cl_filter_run<512>(md, t1r, t1i, cptw, rptw, b, csize, st);
+        break;
+      default:
+        err = cl_filter_run<1024>(md, t1r, t1i, cptw, rptw, b, csize, st);
+        break;
+    }
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  SFPlan cplan, rplan;
+  if (lshift < 0 || lshift > 7 || ys != n || scale != 1.0f ||
+      !sf_make_plan(&cplan, m, cstages, cfac, coff) ||
+      !sf_make_plan(&rplan, SF_N1, rstages, rfac, roff))
     return (int)cudaErrorInvalidValue;
   const size_t csmem = 16 * (size_t)m * ((size_t)1 << lshift);
   const long long cgrid = (long long)b * (SF_N1 >> lshift);
@@ -513,7 +619,6 @@ extern "C" int stream_fft_f32(
     return (int)cudaErrorInvalidValue;
   cudaError_t err = sf_allow_smem(sf_col_kernel, sf_col_ready);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
   const bool inv = mode != SF_FWD && mode != SF_FWD_NAT;
   const float* F_r = mode == SF_FILTER ? (const float*)fr : nullptr;
   const float* F_i = mode == SF_FILTER ? (const float*)fi : nullptr;
@@ -705,6 +810,7 @@ extern "C" int stream_nat_f32(
   if (scale != 1.0f) return (int)cudaErrorInvalidValue;
   return stream_fft_f32(xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi,
                         cstages, cfac, coff, rtwr, rtwi, rstages, rfac, roff,
-                        nullptr, nullptr, 1, b, m,
-                        inverse ? SF_INV_NAT : SF_FWD_NAT, lshift, stream);
+                        nullptr, nullptr, nullptr, nullptr, 1, b, m,
+                        inverse ? SF_INV_NAT : SF_FWD_NAT, 0, lshift,
+                        (long long)m * SF_N1, 1.0f, stream);
 }

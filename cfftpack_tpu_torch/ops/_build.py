@@ -37,10 +37,10 @@ _L = ctypes.c_longlong
 _K1_ARGTYPES = ([_P] * 9 + [_I, _I, _I] + [_P] * 3 + [_I, _P, _I, _I, _I,
                                                       ctypes.c_double, _P])
 # xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
-# rtwr, rtwi, rstages, rfac, roff, fr, fi, nfilt, b, m, mode, lshift,
-# stream
+# rtwr, rtwi, rstages, rfac, roff, cptw, rptw, fr, fi, nfilt, b, m, mode,
+# csize, lshift, ys, scale, stream
 _STREAM_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
-                    + [_P] * 2 + [_I] * 5 + [_P])
+                    + [_P] * 4 + [_I] * 6 + [_L, ctypes.c_float, _P])
 # xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff, spr,
 # spi, split, ptw, rptw, fr, fi, b, m, lshift, in_rs, out_rs, scale, conj,
 # stream
@@ -53,10 +53,10 @@ _NAT_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
                  + [_P] * 2 + [_I] * 5 + [ctypes.c_float, _P])
 # xr, xi, xs, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
 # rtwr, rtwi, rstages, rfac, roff, par, pai, pbr, pbi, cptw, rptw, b, m,
-# mode, csize, lshift, scale, w0, stream
+# mode, csize, lshift, scale, w0, dst, stream
 _RSTREAM_ARGTYPES = ([_P] * 2 + [ctypes.c_longlong] + [_P] * 8
                      + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P] + [_P] * 6
-                     + [_I] * 5 + [ctypes.c_float] * 2 + [_P])
+                     + [_I] * 5 + [ctypes.c_float] * 2 + [_I, _P])
 # xr, xi, yr, yi, twr, twi, nstages, fac, off, ptw, npass, pass_len, phr,
 # phi, w, b, n0, n1, mode, lshift, csize, scale, stream
 _COL_ARGTYPES = ([_P] * 6 + [_I, _P, _P, _P, _I] + [_P] * 4 + [_I] * 6

@@ -13,8 +13,9 @@ tables, norms and signatures:
 * DCT-IV: for even n the half-length algorithm (pairs
   c[p] = x[2p] + i*x[n-1-2p], pre- and post-rotations around one
   n/2-point FFT); past K1 in float32 the whole of it runs as K8
-  (``_dct4_stream``).  Odd n: the half-shift DFT of length 2n
-  (``core.s_shifted_dft_real``).  DST-IV is a flip and sign of DCT-IV.
+  (``_dct4_stream``), the norm's scale in its store.  Odd n: the
+  half-shift DFT of length 2n (``core.s_shifted_dft_real``).  DST-IV is
+  a flip and sign of DCT-IV; K8 takes both into its load and store.
 * Types V-VIII (the odd-period transforms): ``oddtypes``, one shifted DFT
   of length 2n-1 or 2n+1 each, through the engine's default dispatch
   (Bluestein and K1 for most n); no kernel gate of this module opens for
@@ -258,22 +259,10 @@ def _dst1_core(x, n: int):
     return (-0.5) * yi[..., 1: n + 1]
 
 
-def _dct4_phases(n: int):
-    """Even n: the pre-rotation e^{-i pi p/n} and post-phase
-    e^{-i pi (2p + 1/2)/(2n)}, p < n/2, as complex f64."""
-    p = np.arange(n // 2)
-    return (np.exp(-1j * np.pi * p / n),
-            np.exp(-1j * np.pi * (2 * p + 0.5) / (2 * n)))
-
-
-def _dct4_post_perm(n: int):
-    """K8's post-phase in the permuted (m, 128) layout (post[k2 + m*k1]
-    at [k2, k1]), f64."""
-    _, post = _dct4_phases(n)
-    m = n // 2 // 128
-    k2 = np.arange(m)[:, None]
-    k1 = np.arange(128)[None, :]
-    return _reim(post[(k2 + m * k1).reshape(-1)].reshape(m, 128))
+# the pre-rotation and post-phase of even n (K8's tables, built where
+# its launch plan builds them), and the post-phase in the permuted layout
+_dct4_phases = rstream._dct4_phases
+_dct4_post_perm = rstream._dct4_post_perm
 
 
 def _dct4_pack(x, n: int):
@@ -315,45 +304,56 @@ def _dct4_stream_tail(wr, wi, n: int, post):
     return core._interleave(A, -Bm)
 
 
-def _dct4_stream_plain(x, n: int):
+def _dct4_stream_plain(x, n: int, scale: float = 1.0, dst: bool = False):
     """K8's plain version on any device: the pair packing and
-    pre-rotation, then :func:`_dct4_stream_tail`."""
+    pre-rotation, then :func:`_dct4_stream_tail`, times ``scale``; with
+    ``dst`` the DST-IV, (-1)^k of the DCT-IV of flip(x)."""
+    if dst:
+        x = x.flip(-1)
     wr, wi = _dct4_pack(x, n)
-    return _dct4_stream_tail(wr, wi, n, _tab("dct4_post_perm", n, x))
+    y = _dct4_stream_tail(wr, wi, n, _tab("dct4_post_perm", n, x))
+    if dst:
+        y = y * _tab("alt", n, x)[0]
+    return y * scale if scale != 1.0 else y
 
 
-def _dct4_stream(x, n: int):
-    """Unscaled even-n DCT-IV through K8 on a CUDA tensor (or raises),
-    its plain version on a CPU tensor."""
+def _dct4_stream(x, n: int, scale: float = 1.0, dst: bool = False):
+    """Even-n DCT-IV (DST-IV with ``dst``) times ``scale`` through K8 on
+    a CUDA tensor (or raises), its plain version on a CPU tensor."""
     if x.device.type == "cpu":
-        return _dct4_stream_plain(x, n)
-    out = rstream.launch("dct4", n, x, pre=_tab("dct4", n, x)[:2],
-                         post=_tab("dct4_post_perm", n, x))
+        return _dct4_stream_plain(x, n, scale, dst)
+    out = rstream.launch("dct4", n, x, scale=scale, dst=dst)
     return out.reshape(x.shape)
 
 
-def _dct4_core(x, n: int):
-    """y[k] = sum_j x[j] cos(pi*(k+.5)*(j+.5)/n).
+def _dct4_core(x, n: int, scale: float = 1.0, dst: bool = False):
+    """y[k] = sum_j x[j] cos(pi*(k+.5)*(j+.5)/n), times ``scale``; with
+    ``dst`` the DST-IV (see :func:`_dst4_core`).
 
     Even n: pack c[p] = x[2p] + i*x[n-1-2p], pre-/post-rotations around
     one n/2-point FFT; y[2t] = Re z[t], y[2t+1] = -Im z[h-1-t] (K8 past
-    K1 in float32).  Odd n: the half-shift DFT of length 2n.
+    K1 in float32, the flip, sign and scale in its load and store).
+    Odd n: the half-shift DFT of length 2n.
     """
+    if n % 2 == 0 and n >= 4 and _dct4_stream_ok(n, x.dtype):
+        return _dct4_stream(x, n, scale, dst)
+    if dst:
+        (s,) = _tab("alt", n, x)
+        return s * _dct4_core(x.flip(-1), n, scale)
     if n % 2 == 0 and n >= 4:
-        if _dct4_stream_ok(n, x.dtype):
-            return _dct4_stream(x, n)
         Wr, Wi = core.sfft(*_dct4_pack(x, n), n // 2, inverse=False)
         zr, zi = core._cmul_tab(Wr, Wi, *_tab("dct4", n, x)[2:])
-        return core._interleave(zr, -zi.flip(-1))
-    # U[k] = sum_{j<2n} xpad[j] e^{-2i pi (j+.5)(k+.5)/(2n)}
-    ur, _ = core.s_shifted_dft_real(x, n, 2 * n, 0.5, 0.5, n)
-    return ur
+        y = core._interleave(zr, -zi.flip(-1))
+    else:
+        # U[k] = sum_{j<2n} xpad[j] e^{-2i pi (j+.5)(k+.5)/(2n)}
+        y, _ = core.s_shifted_dft_real(x, n, 2 * n, 0.5, 0.5, n)
+    return y * scale if scale != 1.0 else y
 
 
-def _dst4_core(x, n: int):
-    """y[k] = sum_j x[j] sin(pi*(k+.5)*(j+.5)/n) = (-1)^k dct4(flip(x))."""
-    (s,) = _tab("alt", n, x)
-    return s * _dct4_core(x.flip(-1), n)
+def _dst4_core(x, n: int, scale: float = 1.0):
+    """y[k] = sum_j x[j] sin(pi*(k+.5)*(j+.5)/n) = (-1)^k dct4(flip(x)),
+    times ``scale``."""
+    return _dct4_core(x, n, scale, dst=True)
 
 
 def _ends_weight(n: int, w: float) -> np.ndarray:
@@ -437,22 +437,21 @@ def _k7_norm(n: int, mode: int, t: int):
             float(np.sqrt(0.5)) if t == 2 else _SQRT2)
 
 
-def _dct4_apply(x, n: int, mode: int):
-    y = _dct4_core(x, n)
+def _type4_scale(n: int, mode: int) -> float:
+    """The scale of norm ``mode`` of DCT/DST type 4."""
     if mode > 0:
-        return y * (2.0 / n)
+        return 2.0 / n
     if mode < 0:
-        return y
-    return y * float(np.sqrt(2.0 / n))
+        return 1.0
+    return float(np.sqrt(2.0 / n))
+
+
+def _dct4_apply(x, n: int, mode: int):
+    return _dct4_core(x, n, _type4_scale(n, mode))
 
 
 def _dst4_apply(x, n: int, mode: int):
-    y = _dst4_core(x, n)
-    if mode > 0:
-        return y * (2.0 / n)
-    if mode < 0:
-        return y
-    return y * float(np.sqrt(2.0 / n))
+    return _dst4_core(x, n, _type4_scale(n, mode))
 
 
 _FWD = {1: _dct1_apply, 2: _dct2_core, 3: _dct3_core, 4: _dct4_apply,

@@ -221,14 +221,14 @@ def _use_stream_filter(x, fr, fi, n: int) -> bool:
     return not fused_fft.fused_eligible(n // 2, x.dtype)
 
 
-def _rfilter_stream(x, fr, fi, n: int):
-    """Large-n filter: rows paired, K2 forward to the permuted spectrum,
-    the multiply fused into K4's inverse; no deinterleave, merge or
-    interleave pass."""
+def _rfilter_stream(x, fr, fi, n: int, scale: float):
+    """Large-n filter times ``scale``: rows paired, K2 forward to the
+    permuted spectrum, the multiply fused into K4's inverse and the scale
+    into its store; no deinterleave, merge or interleave pass."""
     h = n // 2
     ffr = torch.cat([fr, fr[1:h].flip(-1)])
     ffi = torch.cat([fi, -fi[1:h].flip(-1)])
-    return stream_fft.sfilter_stream(x, ffr, ffi, n)
+    return stream_fft.sfilter_stream(x, ffr, ffi, n, scale)
 
 
 def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
@@ -239,9 +239,9 @@ def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
     norm, but even n runs one half-length FFT, one fused FMA and one
     inverse, with no packed-spectrum merge or un-merge; float32 lengths
     of the stream kernels with an even flat batch and one filter run
-    the streaming filter (K2 and K4) instead.  The filter's
-    DC and (even n) Nyquist bins must be real, as for the rfft of a
-    real filter.
+    the streaming filter (K2 and K4, the norm's scale in K4's store)
+    instead.  The filter's DC and (even n) Nyquist bins must be real, as
+    for the rfft of a real filter.
     """
     norm = check_norm(norm)
     x = _as_real_plane(as_tensor(x), "rfilter_split")
@@ -263,7 +263,8 @@ def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
         yr, yi = core.srfft(x, n)
         out = core.sirfft(yr * fr - yi * fi, yr * fi + yi * fr, n)
     elif _use_stream_filter(x, fr, fi, n):
-        out = _rfilter_stream(x, fr, fi, n)
+        # the scale rides in the store of K4 (or K5 past the cap)
+        return _rfilter_stream(x, fr, fi, n, s).movedim(-1, axis)
     else:
         out = _rfilter_fused(x, fr, fi, n)
     # the unscaled pipeline is sirfft(srfft(x)*F); the public

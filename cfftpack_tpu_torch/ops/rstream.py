@@ -12,16 +12,18 @@ DCT-III runs the mirror image of it through the inverse.
 
 The CUDA kernel (``csrc/rstream_fft.cu``) fuses the merge, the
 gathers and scatters and the phase into the passes' loads and stores.
-At m = 128 .. 1024 (``stream_fft._CLUSTER_M``) K7's four modes run in
-one pass on a thread-block cluster (``csrc/cluster_pass.cuh``), with the
-norm's scale (and the ortho weight of bin 0 of DCT-II's output and
-DCT-III's input) in the kernel; at other m the two stage-loop passes
-run and the wrapper applies them.  Launch plans are cached per (mode,
-n, device).  The plain versions below keep the reference's separate
-passes, built on ``stream_fft.stream_plain``.  On a CPU tensor each
-wrapper runs its plain version; on a CUDA tensor it launches the kernel
-or raises.  ``launches`` counts kernel launches (K8 is launched from
-``dct.py`` through :func:`launch`).
+At m = 128 .. 1024 (``stream_fft._CLUSTER_M``) K7's four modes and K8
+(at n = 2*128*m) run in one pass on a thread-block cluster
+(``csrc/cluster_pass.cuh``), with the norm's scale (and the ortho weight
+of bin 0 of DCT-II's output and DCT-III's input, and K8's DST-IV flip
+and sign) in the kernel; at other m the two stage-loop passes run and
+the wrapper applies them.  Launch plans are cached per (mode, n,
+device), K8's pre-rotation and post-phase tables with them.  The plain
+versions below keep the reference's separate passes, built on
+``stream_fft.stream_plain``.  On a CPU tensor each wrapper runs its
+plain version; on a CUDA tensor it launches the kernel or raises.
+``launches`` counts kernel launches (K8 is launched from ``dct.py``
+through :func:`launch`).
 """
 from __future__ import annotations
 
@@ -144,6 +146,25 @@ def _dct_phase_nat(n: int):
     return ph.real.astype(np.float32), ph.imag.astype(np.float32)
 
 
+def _dct4_phases(n: int):
+    """Even n: K8's pre-rotation e^{-i pi p/n} and post-phase
+    e^{-i pi (2p + 1/2)/(2n)}, p < n/2, as complex f64."""
+    p = np.arange(n // 2)
+    return (np.exp(-1j * np.pi * p / n),
+            np.exp(-1j * np.pi * (2 * p + 0.5) / (2 * n)))
+
+
+def _dct4_post_perm(n: int):
+    """K8's post-phase in the permuted (m, 128) layout of the stage-loop
+    route (post[k2 + m*k1] at [k2, k1]) as (re, im) f64."""
+    _, post = _dct4_phases(n)
+    m = n // 2 // _N1
+    k2 = np.arange(m)[:, None]
+    k1 = np.arange(_N1)[None, :]
+    pp = post[(k2 + m * k1).reshape(-1)].reshape(m, _N1)
+    return pp.real, pp.imag
+
+
 def _scaled(y, scale: float, w0: float):
     """y times ``scale``, its first entry on the last axis times ``w0``
     as well (the DCT-II output and DCT-III input weights of ortho)."""
@@ -221,11 +242,13 @@ def _rows(x, width: int):
 class _LaunchPlan:
     """What a launch of one (mode, n, device) passes to
     ``rstream_fft_f32`` besides the data: the outer twiddle, the stage
-    plans' tables and C arrays, the mode's phase tables (``pa``), the
+    plans' tables and C arrays, the mode's phase tables (``pa``: DCT-II
+    and III's phase or K8's pre-rotation; ``pb``: K8's post-phase), the
     register pass twiddles, the route (cluster blocks or stage-loop
     lanes), and the tensors behind the pointers."""
     tables: tuple
     pa: tuple
+    pb: tuple
     reg: tuple
     cluster: int
     lshift: int
@@ -247,7 +270,7 @@ def _launch_plan(mode: str, n: int, device) -> _LaunchPlan:
     N = n // 2 if mode == "dct4" else n
     m = N // _N1
     cluster = (stream_fft._cluster_size(m)
-               if mode != "dct4" and m in stream_fft._CLUSTER_M else 0)
+               if m in stream_fft._CLUSTER_M else 0)
     # the cluster route runs the inverse as the conjugated forward
     t1r, t1i = stream_fft._device_outer(
         N, not cluster and mode in ("irfft", "dct3"), device)
@@ -259,11 +282,21 @@ def _launch_plan(mode: str, n: int, device) -> _LaunchPlan:
               _build.ints(ct.offs[:-1]), rt.twr.data_ptr(),
               rt.twi.data_ptr(), len(rt.factors), _build.ints(rt.factors),
               _build.ints(rt.offs[:-1]))
-    pa = (None, None)
+    pa = pb = (None, None)
     if mode in ("dct2", "dct3"):
         ph = (tuple(torch.from_numpy(t).to(device) for t in _dct_phase_nat(n))
               if cluster else _device_phase(n, device))
         pa = tuple(t.data_ptr() for t in ph)
+        keep += ph
+    if mode == "dct4":
+        # the cluster route's store runs on the natural index, the stage
+        # loop's on the permuted one
+        pre, post = _dct4_phases(n)
+        post = (post.real, post.imag) if cluster else _dct4_post_perm(n)
+        ph = tuple(plan.to_device(t, f32, device)
+                   for t in (pre.real, pre.imag) + post)
+        pa = tuple(t.data_ptr() for t in ph[:2])
+        pb = tuple(t.data_ptr() for t in ph[2:])
         keep += ph
     reg = (None, None)
     if cluster:
@@ -271,32 +304,35 @@ def _launch_plan(mode: str, n: int, device) -> _LaunchPlan:
         rptw = plan.to_device(plan.reg_twiddles(_N1), f32, device)
         reg = (cptw.data_ptr(), rptw.data_ptr())
         keep += (cptw, rptw)
-    lp = _LaunchPlan(tables, pa, reg, cluster,
+    lp = _LaunchPlan(tables, pa, pb, reg, cluster,
                      stream_fft._col_lanes(m).bit_length() - 1, keep,
                      plan.VERSION)
     _PLANS[key] = lp
     return lp
 
 
-def launch(mode: str, n: int, x, xi=None, pre=None, post=None, *,
-           scale: float = 1.0, w0: float = 1.0):
+def launch(mode: str, n: int, x, xi=None, *, scale: float = 1.0,
+           w0: float = 1.0, dst: bool = False):
     """One mode of K7 (rfft, irfft, dct2, dct3) or K8 (dct4) through the
     CUDA kernel: one kernel on the cluster route, both passes on the
     stage loop.
 
     ``x`` is (..., n) real rows; for irfft ``(x, xi)`` is the packed
     (..., n/2 + 1) pair.  Rows are read in place through their stride.
-    K7's modes take an even row count; K8 (n = 2*128*m) takes the
-    pre-rotation ``pre`` ((n/2,) planes) and the permuted post-phase
-    ``post`` ((m, 128) planes, ``dct._dct4_post_perm``).  The result is
-    times ``scale``; dct2's bin 0 and dct3's input y_0 are times ``w0``
-    as well (K7 only).  Returns the (re, im) packed pair for rfft, else
-    the (rows, n) output.
+    K7's modes take an even row count; K8 takes n = 2*128*m.  The result
+    is times ``scale``; dct2's bin 0 and dct3's input y_0 are times
+    ``w0`` as well (K7 only); ``dst`` makes K8 the DST-IV,
+    (-1)^k dct4(flip(x))[k].  Returns the (re, im) packed pair for rfft,
+    else the (rows, n) output.
     """
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     if (xi is not None) != (mode == "irfft"):
         raise ValueError("mode irfft, and only it, takes an im plane xi")
+    if mode == "dct4" and w0 != 1.0:
+        raise ValueError("mode dct4 takes no w0")
+    if dst and mode != "dct4":
+        raise ValueError("only mode dct4 takes dst")
     ins = [x] if xi is None else [x, xi]
     if any(t.dtype != torch.float32 for t in ins):
         raise TypeError(f"the real-stream kernel takes float32 rows, got "
@@ -308,8 +344,6 @@ def launch(mode: str, n: int, x, xi=None, pre=None, post=None, *,
     if n % 2 or not stream_fft.stream_eligible(N, torch.float32):
         raise ValueError(f"the real-stream kernel does not take n={n} in "
                          f"mode {mode}")
-    if mode == "dct4" and (scale != 1.0 or w0 != 1.0):
-        raise ValueError("mode dct4 takes no scale")
     width = n // 2 + 1 if mode == "irfft" else n
     if x.shape[-1] != width or (xi is not None and xi.shape != x.shape):
         raise ValueError(f"mode {mode} takes rows of {width}, got "
@@ -335,18 +369,7 @@ def launch(mode: str, n: int, x, xi=None, pre=None, post=None, *,
         return (yr, yi) if mode == "rfft" else yr
     m = N // _N1
     b = rows if mode == "dct4" else rows // 2
-    pb = (None, None)
-    if mode == "dct4":
-        if (pre is None or post is None
-                or tuple(pre[0].shape) != (N,)
-                or tuple(post[0].shape) != (m, _N1)):
-            raise ValueError("mode dct4 takes the pre-rotation (n/2,) and "
-                             "the permuted post-phase (m, 128) planes")
     lp = _launch_plan(mode, n, dev)
-    pa = lp.pa
-    if mode == "dct4":
-        pa = tuple(t.data_ptr() for t in pre)
-        pb = tuple(t.data_ptr() for t in post)
     if lp.cluster:
         scratch = (None, None)
     else:
@@ -355,17 +378,22 @@ def launch(mode: str, n: int, x, xi=None, pre=None, post=None, *,
         scratch = (sr.data_ptr(), si.data_ptr())
         if mode == "dct3" and w0 != 1.0:
             x2 = _scaled(x2, 1.0, w0)
+        if dst:
+            x2 = x2.flip(-1)
     err = _build.call(
         _build.load().rstream_fft_f32, dev, x2.data_ptr(),
         None if xi is None else xi2.data_ptr(),
         x2.stride(0) if rows > 1 else width, yr.data_ptr(),
-        None if yi is None else yi.data_ptr(), *scratch, *lp.tables, *pa,
-        *pb, *lp.reg, b, m, _MODES.index(mode), lp.cluster, lp.lshift,
-        scale if lp.cluster else 1.0, w0 if lp.cluster else 1.0)
+        None if yi is None else yi.data_ptr(), *scratch, *lp.tables, *lp.pa,
+        *lp.pb, *lp.reg, b, m, _MODES.index(mode), lp.cluster, lp.lshift,
+        scale if lp.cluster else 1.0, w0 if lp.cluster else 1.0,
+        int(dst) if lp.cluster else 0)
     if err != 0:
         raise RuntimeError(f"real-stream kernel launch failed at n={n}, "
                            f"rows={rows}, mode={mode}: CUDA error {err}")
     launches[_KERNEL[mode]] += 1
+    if not lp.cluster and dst:
+        yr[:, 1::2].neg_()
     if not lp.cluster and (scale != 1.0 or w0 != 1.0):
         if mode == "rfft":
             yr.mul_(scale)

@@ -15,14 +15,19 @@ m alone (:func:`_k3_route`): one pass on a thread-block cluster at
 m = 128 .. 1024 (``csrc/cluster_pass.cuh``), K5's two register-pass
 kernels at s = 1 at m = 2048 and 4096, and the two stage-loop passes
 elsewhere; the first two run the inverse as the conjugated forward.
+K4 runs one pass on the same cluster engine at m = 128 .. 1024, in its
+rows-first order (the 128-point DFT of each permuted row first), with
+the norm's scale in its store and its output written through a row
+stride (``sfilter_stream``'s paired rows), and the two stage-loop
+passes elsewhere.
 K5 (:func:`sfft_stream_split`, :func:`sfilter_stream`) splits lengths
 past m = 4096 s = 2 or 4 ways: mode "split" of the same passes,
 with the s-point DFT and the split twiddle in the column pass's load and
 the digit riffle (natural order), the norm scale and an optional filter
 in the row pass's store; the inverse is the conjugated forward.  The
-CUDA kernels live in ``csrc/stream_fft.cu``; each K2/K4/K5 call is two
-passes there (an m-point column pass and a 128-point row pass through
-scratch planes).
+CUDA kernels live in ``csrc/stream_fft.cu``; each K2 and K5 call, and
+K4 off the cluster, is two passes there (an m-point column pass and a
+128-point row pass through scratch planes).
 
 K11 (:func:`sfft_mm2`, :func:`sfft_mm2_permuted`; the reference's
 ``_mm2_2d``) computes the same formula for any integer 2 <= m <= 256
@@ -94,6 +99,18 @@ def _cluster_size(m: int) -> int:
     m = 256 on, which ran fastest on an H100 (``chip_smoke.py`` phase 25c
     sweeps C at m = 512)."""
     return min(_CLUSTER_MAX, m // 16)
+
+
+def _filter_cluster_size(m: int) -> int:
+    """Blocks of K4's cluster at m, from a sweep of C on an H100
+    (``chip_smoke.py`` phase 25c repeats it; PERF.md §6): 2 at m = 128
+    and 256 (512 and 1024 threads a block), 16 at 512 and 1024.  Unlike the
+    columns-first kernels, the rows-first order ran fastest with the
+    largest blocks at small m.  At C = 16 (8 lanes a block) every warp's
+    access to the rows-first row layout (``cl_rf_row`` in
+    ``csrc/cluster_pass.cuh``) hits 32 banks; at C = 2 a column-phase
+    warp reads 32 lanes of one row and puts two threads on 3 banks."""
+    return 2 if m <= 256 else _CLUSTER_MAX
 
 
 def _k3_route(m: int):
@@ -239,18 +256,25 @@ def stream_plain(xr, xi, n: int, mode: str, fr=None, fi=None, *,
     output and inv_nat's input, (b, 128, m).  ``(fr, fi)`` is the
     (s, m, 128) permuted filter of mode "filter"; batch row i takes
     slice i % s.  ``scale`` multiplies the result (K3's modes fwd_nat
-    and inv_nat and K5's).  K5's modes take (b, n) planes of the full
-    length n and give natural-order (b, n) planes (into ``out`` when
-    given):
+    and inv_nat, K4's and K5's); mode "filter" writes into ``out`` (two
+    planes of b rows of n) when given.  K5's modes take (b, n) planes
+    of the full length n and give natural-order (b, n) planes (into
+    ``out`` when given):
     "split" scale * fft(x) * F, "split_inv" scale * conj(fft(conj(x))),
     "split_conj" conj(scale * fft(x) * F), F the natural n-bin filter
     ``(fr, fi)`` or 1.
     """
     if mode in _SPLIT_MODES:
         return _split_plain(xr, xi, n, mode, fr, fi, scale, out)
-    if scale != 1.0:
+    if scale != 1.0 or out is not None:
         yr, yi = stream_plain(xr, xi, n, mode, fr, fi)
-        return yr * scale, yi * scale
+        if scale != 1.0:
+            yr, yi = yr * scale, yi * scale
+        if out is None:
+            return yr, yi
+        out[0].copy_(yr.reshape(out[0].shape))
+        out[1].copy_(yi.reshape(out[1].shape))
+        return out
     m = n // _N1
     if mode in ("fwd", "fwd_nat"):
         t1r, t1i = _device_outer(n, False, xr.device)
@@ -456,9 +480,11 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES + tuple(_SPLIT_MODES)}"
                          f", got {mode!r}")
-    if out is not None or (scale != 1.0 and mode not in _NAT_MODES):
-        raise ValueError(f"mode {mode} takes no output planes, and a scale "
-                         f"only in modes {_NAT_MODES}")
+    if ((out is not None and mode != "filter")
+            or (scale != 1.0 and mode not in _NAT_MODES + ("filter",))):
+        raise ValueError(f"mode {mode} takes no output planes (only mode "
+                         f"filter does), and a scale only in modes "
+                         f"{_NAT_MODES + ('filter',)}")
     _check_device(xr, xi, "input")
     m = n // _N1
     b = xr.shape[0]
@@ -486,6 +512,8 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
                              mode == "inv_nat", scale)
         shape_out = (b, _N1, m) if mode == "fwd_nat" else (b, m, _N1)
         return yr.view(shape_out), yi.view(shape_out)
+    if mode == "filter":
+        return _filter_launch(xr, xi, n, fptr, nfilt, scale, out)
     shape_out = (b, m, _N1)
     yr = torch.empty(shape_out, dtype=xr.dtype, device=xr.device)
     yi = torch.empty_like(yr)
@@ -497,13 +525,83 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
     err = _build.call(
         _build.load().stream_fft_f32, xr.device, xr.data_ptr(),
         xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), sr.data_ptr(),
-        si.data_ptr(), *lp.col, *lp.rest, *fptr, nfilt, b, m,
-        _MODES.index(mode), lp.lshift)
+        si.data_ptr(), *lp.col, *lp.rest, None, None, *fptr, nfilt, b, m,
+        _MODES.index(mode), 0, lp.lshift, n, 1.0)
     if err != 0:
         raise RuntimeError(f"stream kernel launch failed at n={n}, b={b}, "
                            f"mode={mode}: CUDA error {err}")
     launches[_KERNEL[mode]] += 1
     return yr, yi
+
+
+def _out_planes(out, b: int, n: int, device):
+    """K4's output planes: two float32 planes on ``device`` of b rows of n
+    floats each, (b, n) or (b, n/128, 128), with unit element stride and
+    one row stride of at least n; returns that stride."""
+    yr, yi = out
+    _check_dtype(yr, yi)
+    _check_device(yr, yi, "output")
+    m = n // _N1
+    rows_ok = ((yr.dim() == 2 and tuple(yr.shape) == (b, n)
+                and yr.stride(1) == 1)
+               or (yr.dim() == 3 and tuple(yr.shape) == (b, m, _N1)
+                   and yr.stride(2) == 1 and yr.stride(1) == _N1))
+    ys = yr.stride(0) if b > 1 else n
+    if (not rows_ok or yi.shape != yr.shape or yi.stride() != yr.stride()
+            or yr.device != device or ys < n):
+        raise ValueError(f"mode filter writes two planes of {b} rows of {n} "
+                         f"floats with unit element stride and one row "
+                         f"stride of at least {n}, got {tuple(yr.shape)} "
+                         f"{yr.stride()} and {tuple(yi.shape)} "
+                         f"{yi.stride()}")
+    return ys
+
+
+def _filter_launch(xr, xi, n: int, fptr, nfilt: int, scale: float, out):
+    """K4 through ``stream_fft_f32``: one kernel in the cluster engine's
+    rows-first order at m = 128 .. 1024, the scale and the output's row
+    stride in its store, no scratch; elsewhere the two stage-loop passes
+    into fresh planes, then one copy into ``out`` times ``scale``."""
+    b = xr.shape[0]
+    m = n // _N1
+    dev = xr.device
+    if out is None:
+        out = (torch.empty((b, m, _N1), dtype=xr.dtype, device=dev),
+               torch.empty((b, m, _N1), dtype=xr.dtype, device=dev))
+    ys = _out_planes(out, b, n, dev)
+    if b == 0:
+        return out
+    lp = _launch_plan(n, True, 1, dev)
+    lib = _build.load()
+    if m in _CLUSTER_M:
+        err = _build.call(
+            lib.stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), None, None, *lp.nat,
+            *fptr, nfilt, b, m, _MODES.index("filter"),
+            _filter_cluster_size(m), 0, ys, scale)
+        yr = yi = None
+    else:
+        yr = torch.empty((b, m, _N1), dtype=xr.dtype, device=dev)
+        yi = torch.empty_like(yr)
+        sr = torch.empty_like(yr)
+        si = torch.empty_like(yr)
+        err = _build.call(
+            lib.stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), sr.data_ptr(), si.data_ptr(),
+            *lp.col, *lp.rest, None, None, *fptr, nfilt, b, m,
+            _MODES.index("filter"), 0, lp.lshift, n, 1.0)
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed at n={n}, b={b}: CUDA error "
+                           f"{err}")
+    launches["K4"] += 1
+    if yr is not None:
+        for dst, src in zip(out, (yr, yi)):
+            src = src.view(dst.shape)
+            if scale != 1.0:
+                torch.mul(src, scale, out=dst)
+            else:
+                dst.copy_(src)
+    return out
 
 
 def _run(xr, xi, n: int, mode: str, fr=None, fi=None, **kw):
@@ -540,11 +638,13 @@ def sfft_stream(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     return yr.reshape(shape), yi.reshape(shape)
 
 
-def _stream_filter_inv(xr, xi, fpr, fpi, n: int):
+def _stream_filter_inv(xr, xi, fpr, fpi, n: int, scale: float = 1.0,
+                       out=None):
     """Inverse with the filter multiply fused (K4): permuted (b, m, 128)
-    spectrum and permuted (s, m, 128) filter -> natural (b, m, 128); batch
+    spectrum and permuted (s, m, 128) filter -> natural (b, m, 128) times
+    ``scale`` (into ``out``, two planes of b rows of n, when given); batch
     row i takes filter slice i % s."""
-    return _run(xr, xi, n, "filter", fpr, fpi)
+    return _run(xr, xi, n, "filter", fpr, fpi, scale=scale, out=out)
 
 
 def _split_pre(zr, zi, n: int, s: int):
@@ -555,19 +655,21 @@ def _split_pre(zr, zi, n: int, s: int):
     return core._cmul_tab(zr, zi, twr.reshape(s, -1), twi.reshape(s, -1))
 
 
-def sfilter_stream(x, ffr, ffi, n: int):
-    """``sirfft(srfft(x) * F)`` (n times the filtered x, unscaled) for real
-    x with an even flat batch.
+def sfilter_stream(x, ffr, ffi, n: int, scale: float = 1.0):
+    """``sirfft(srfft(x) * F)`` (n times the filtered x) times ``scale``
+    for real x with an even flat batch.
 
     ``(ffr, ffi)`` is the full n-bin conjugate-symmetric extension of the
     filter.  Adjacent rows pack as z = x[2p] + i*x[2p+1]; since the
     extension is conjugate-symmetric, the filtered pair decodes to the
     filtered rows exactly.  Within the kernel's cap this is K2 forward to
     the permuted spectrum and K4, whose load multiplies by the permuted
-    filter.  Past it (m > 4096, e.g. the 2^20 pricer grid) it is two K5
-    calls: Y = conj(fft(z) * F), the filter in the first call's store,
-    then conj(fft(Y)) = ifft(fft(z) * F) written straight into the rows;
-    both read and write the pairs through their row stride.
+    filter and whose store writes the two filtered planes straight into
+    the paired rows, times ``scale``.  Past it (m > 4096, e.g. the 2^20
+    pricer grid) it is two K5 calls: Y = conj(fft(z) * F), the filter in
+    the first call's store, then conj(scale * fft(Y)) = scale * ifft(fft(z)
+    * F) written straight into the rows; both read and write the pairs
+    through their row stride.
     """
     lead = x.shape[:-1]
     B = lead.numel()
@@ -578,10 +680,10 @@ def sfilter_stream(x, ffr, ffi, n: int):
         raise ValueError(f"sfilter_stream: n={n} not eligible")
     P = B // 2
     xp = x.reshape(P, 2, n)
+    out = torch.empty((P, 2, n), dtype=x.dtype, device=x.device)
     if s > 1:
         yr, yi = _run(xp[:, 0], xp[:, 1], n, "split_conj", ffr, ffi)
-        out = torch.empty((P, 2, n), dtype=x.dtype, device=x.device)
-        _run(yr, yi, n, "split_conj", out=(out[:, 0], out[:, 1]))
+        _run(yr, yi, n, "split_conj", scale=scale, out=(out[:, 0], out[:, 1]))
         return out.reshape(lead + (n,))
     m = n // _N1
     Zr, Zi = _run(xp[:, 0].reshape(P, m, _N1), xp[:, 1].reshape(P, m, _N1),
@@ -589,8 +691,7 @@ def sfilter_stream(x, ffr, ffi, n: int):
     # the filter in the permuted layout: k = k2 + m*lane -> (1, m, 128)
     fpr = ffr.reshape(1, _N1, m).transpose(1, 2).contiguous()
     fpi = ffi.reshape(1, _N1, m).transpose(1, 2).contiguous()
-    wr, wi = _stream_filter_inv(Zr, Zi, fpr, fpi, n)
-    out = torch.stack([wr.reshape(P, n), wi.reshape(P, n)], dim=1)
+    _stream_filter_inv(Zr, Zi, fpr, fpi, n, scale, (out[:, 0], out[:, 1]))
     return out.reshape(lead + (n,))
 
 

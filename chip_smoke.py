@@ -5,8 +5,9 @@
 Builds the CUDA kernels from the checkout (K1,
 ``cfftpack_tpu_torch/csrc/stockham_fft.cu``; K2, K3, K4 and K5,
 ``csrc/stream_fft.cu``, K3 at m = 128 .. 1024 on the thread-block
-cluster of ``csrc/cluster_pass.cuh``; K7 and K8, ``csrc/rstream_fft.cu``,
-K7 on the same cluster engine at those m; K6 and K9,
+cluster of ``csrc/cluster_pass.cuh`` and K4 on it in its rows-first
+order; K7 and K8, ``csrc/rstream_fft.cu``, both on the same cluster
+engine at those m; K6 and K9,
 ``csrc/col_fft.cu``; K10, ``csrc/fourstep_fft.cu``; K11,
 ``csrc/mm2_fft.cu``), holds each against its plain PyTorch version and
 ``torch.fft`` or scipy at the main path's shapes, then drives the main
@@ -31,8 +32,9 @@ Each path runs with the launch counts set to 0 just before it and read
 just after.  Prints CUDA-event times of the kernels, their plain
 versions and the PyTorch calls that compute the same functions, the
 measurements behind K1's rows a block, a profiler breakdown of the 2-D
-routes, of K10's and K11's passes and of K1, K3, K5 and K7 with their
-kernel rows a call, a sweep of the cluster size at m = 512, K6 and K9
+routes, of K10's and K11's passes and of K1, K2, K3, K4, K5, K7 and K8
+with their kernel rows a call, a sweep of the cluster size at m = 512,
+K6 and K9
 alone by device time with a sweep of K6's lanes and cluster size, one
 JSON line describing the kernels (each with its bound on this card),
 and as its last line
@@ -88,11 +90,17 @@ STREAM_MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
 # route (m = 128 .. 1024), the register route (2048, 4096), the stage loop
 # (768)
 K3_M = (128, 256, 512, 1024, 2048, 4096, 768)
-# phase 3b: K7 at n = 128*m and K8 at n = 2*128*m, m = 16, 48 (radix 3),
-# 80 (radix 5), 128, 512 and 1024 (the cluster route), 4096
-RSTREAM_M = (16, 48, 80, 128, 512, 1024, 4096)
-# phase 25c: the cluster sizes swept at m = 512 (K3 and K7)
+# phase 3: K4 on its cluster (m = 128 .. 1024) and on the stage loop
+# (768), s = 1 and 2, with a scale, into the strided planes of paired rows
+K4_M = (128, 256, 512, 1024, 768)
+# phase 3b: K7 at n = 128*m and K8 (dct4 and dst4) at n = 2*128*m,
+# m = 16, 48 (radix 3), 80 (radix 5), 128, 256, 512 and 1024 (the cluster
+# route), 4096
+RSTREAM_M = (16, 48, 80, 128, 256, 512, 1024, 4096)
+# phase 25c: the cluster sizes swept at m = 512 (K3 and K7) and 256 (K8),
+# and K4's at every m of its cluster
 C_SWEEP = (4, 8, 16)
+K4_C_SWEEP = (2, 4, 8, 16)
 # phase 3c: K6 and K9 at every compiled register length (512 .. 4096, the
 # cap) and at stage-loop lengths (16, radix 3 and 5); n1 = 513 is the
 # packed width of rfft2 at 1024, n1 = 5 is under every lane count
@@ -155,8 +163,7 @@ def pair(shape, dtype, seed):
             torch.randn(shape, generator=g, device=DEV, dtype=dtype))
 
 
-def rstream_plain(mode, n, x, xi=None, pre=None, post=None, *,
-                  scale=1.0, w0=1.0):
+def rstream_plain(mode, n, x, xi=None, *, scale=1.0, w0=1.0, dst=False):
     """The plain version of each K7/K8 mode, in ``rstream.launch``'s
     contract."""
     if mode == "irfft":
@@ -164,7 +171,7 @@ def rstream_plain(mode, n, x, xi=None, pre=None, post=None, *,
         return rstream._irfft_plain(x.reshape(-1, h1), xi.reshape(-1, h1), n,
                                     scale)
     if mode == "dct4":
-        return dct_ops._dct4_stream_plain(x.reshape(-1, n), n)
+        return dct_ops._dct4_stream_plain(x.reshape(-1, n), n, scale, dst)
     if mode == "rfft":
         return rstream._rfft_plain(x.reshape(-1, n), n, scale)
     fn = {"dct2": rstream._dct2_plain, "dct3": rstream._dct3_plain}[mode]
@@ -362,27 +369,30 @@ def median_ms(fn, reps: int = 30, warm: int = 3) -> float:
 
 def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
     """torch.profiler over ``calls`` calls of fn after 3 warm-up calls:
-    device time per call by kernel (kernel rows only), the CUDA-event
-    time per call without the profiler, and the idle share
+    device time and rows per call by kernel (kernel rows only), the
+    CUDA-event time per call without the profiler, and the idle share
     1 - kernel time / event time.  A trace that records no device row at
     all, or kernel rows that are not a whole number a call (the profiler
-    on the card has dropped some of a trace), is taken again, up to
-    twice."""
+    on the card has dropped some of a trace, at times several in a row),
+    is taken again, up to five times, half a second apart."""
     from torch.profiler import ProfilerActivity, profile
     event_ms = median_ms(fn, reps=calls, warm=3)
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        rows, per_call = {}, 0
+        rows, count, per_call = {}, {}, 0
         for k in prof.key_averages():
             if k.device_type == torch.autograd.DeviceType.CUDA:
                 t = getattr(k, "self_device_time_total", None)
                 if t is None:
                     t = k.self_cuda_time_total
                 rows[k.key] = t / calls
+                count[k.key] = k.count / calls
                 per_call += k.count
         if rows and per_call % calls == 0:
             break
@@ -396,7 +406,7 @@ def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
     for kname, us in sorted(rows.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us:9.1f} us  {kname[:90]}")
     return {"event_us": event_ms * 1e3, "kernel_us": kern_us, "idle": idle,
-            "rows": rows, "launches": per_call / calls}
+            "rows": rows, "count": count, "launches": per_call / calls}
 
 
 def mm2_reference(x, n: int, inverse: bool, natural: bool):
@@ -655,7 +665,39 @@ def main() -> None:
                 stream_err["K3"] = max(stream_err["K3"], float(max(
                     (yr - pr).abs().max(), (yi - pi).abs().max())))
                 worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
-    print(f"  worst vs plain {worst_p:.3e}, vs torch.fft {worst_o:.3e}")
+    # K4 with a scale, into the strided planes of paired rows (out[:, 0]
+    # and out[:, 1] of (b, 2, n), as sfilter_stream hands them)
+    for m in K4_M:
+        n = 128 * m
+        route = ("cluster C=%d" % stream_fft._filter_cluster_size(m)
+                 if m in stream_fft._CLUSTER_M else "stage loop")
+        for b in (3, (1 << 22) // n):
+            for s in (1, 2):
+                xr, xi = pair((b, m, 128), torch.float32, seed=m + b + s)
+                fr, fi = pair((s, m, 128), torch.float32, seed=m + s)
+                out = torch.full((b, 2, n), float("nan"), device=DEV)
+                before = stream_fft.launches["K4"]
+                stream_fft._launch(xr, xi, n, "filter", fr, fi, scale=0.5,
+                                   out=(out[:, 0], out[:, 1]))
+                check(stream_fft.launches["K4"] == before + 1,
+                      "K4 counts one launch a call")
+                pr, pi = stream_fft.stream_plain(xr, xi, n, "filter", fr, fi,
+                                                 scale=0.5)
+                torch.cuda.synchronize()
+                got = torch.complex(out[:, 0], out[:, 1]).reshape(b, m, 128)
+                want = stream_reference(torch.complex(xr, xi), n, "filter",
+                                        torch.complex(fr, fi)) * 0.5
+                ep = rel_err(got, torch.complex(pr, pi))
+                eo = rel_err(got, want)
+                check(ep < 1e-5 and eo < 1e-5,
+                      f"K4 filter s={s} n={n} b={b} scale=0.5 into paired "
+                      f"rows ({route}): vs plain {ep:.2e}, vs torch.fft "
+                      f"{eo:.2e} < 1e-5")
+                stream_err["K4"] = max(stream_err["K4"], float(max(
+                    (got.real - pr).abs().max(), (got.imag - pi).abs().max())))
+                worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
+    print(f"  worst vs plain {worst_p:.3e}, vs torch.fft {worst_o:.3e}; K4 "
+          f"worst |error| vs plain {stream_err['K4']:.3e}")
 
     # ---- phase 3b: K7 and K8 against their plain versions and torch.fft
     # or scipy (float64 on the host; its unnormalised DCT types 2-4 are
@@ -706,14 +748,17 @@ def main() -> None:
                      host(scipy.fft.dct(xh, t, norm="ortho")))
             n4, b4 = 2 * n, max(1, b // 2)
             x4 = real((b4, n4), torch.float32, seed=n4 + b4)
-            hold("K8", f"dct4 n={n4} B={b4}",
-                 rstream.launch("dct4", n4, x4,
-                                pre=dct_ops._tab("dct4", n4, x4)[:2],
-                                post=dct_ops._tab("dct4_post_perm", n4, x4)),
-                 rstream_plain("dct4", n4, x4),
-                 host(scipy.fft.dct(x4.double().cpu().numpy(), 4) / 2))
+            x4h = x4.double().cpu().numpy()
+            for dst, sp in ((False, scipy.fft.dct), (True, scipy.fft.dst)):
+                for sc in (1.0, 0.25):
+                    hold("K8", f"{'dst4' if dst else 'dct4'} n={n4} B={b4} "
+                         f"scale={sc} ({route})",
+                         rstream.launch("dct4", n4, x4, scale=sc, dst=dst),
+                         rstream_plain("dct4", n4, x4, scale=sc, dst=dst),
+                         host(sp(x4h, 4) / 2 * sc))
     print(f"  worst vs plain {worst['plain']:.3e}, vs torch.fft/scipy "
-          f"{worst['oracle']:.3e}")
+          f"{worst['oracle']:.3e}; K8 worst |error| vs plain "
+          f"{rs_err['K8']:.3e}")
 
     # ---- phase 3c: K6 and K9 against their plain versions, torch.fft
     # over dim -2 (complex128) and scipy over axis -2 (float64 on the
@@ -1025,8 +1070,9 @@ def main() -> None:
     fi[0] = 0.0
     fi[-1] = 0.0
     out, got = drive(lambda: ct.rfilter_split(x, fr, fi), total)
-    check(got["K2"] > 0 and got["K4"] > 0,
-          f"K2 and K4 launched by rfilter_split ({got})")
+    check(got["K2"] == 1 and got["K4"] == 1,
+          f"one K2 and one K4 launch in rfilter_split, K4 on its cluster "
+          f"with the norm's scale in its store ({got})")
     with plain_engine():
         want = ct.rfilter_split(x, fr, fi)
     e_p = rel_err(out, want)
@@ -1123,11 +1169,23 @@ def main() -> None:
         e_r = rel_err(z, x)
         check(e_r < 1e-5, f"idct(dct(x)) vs x {e_r:.2e} < 1e-5")
 
-    # ---- phase 14: dct and dst type 4 at (64, 65536) through K8
+    # ---- phase 14: dct and dst type 4 at (64, 65536) through K8, one
+    # launch a call under every norm (the scale, and DST-IV's flip and
+    # sign, in the kernel)
     for name, fn in (("dct", ct.dct), ("dst", ct.dst)):
         print(f"phase 14: {name} type 4 n=65536 batch=64 f32 ortho")
         _, got = trig(name, fn, 4, "K8", x, xh)
         check(got["K3"] == 0, f"no K3 ({got})")
+        sp = getattr(scipy.fft, name)(xh, 4) / 2
+        for norm, sc in (("ortho", float(np.sqrt(2.0 / 65536))),
+                         ("forward", 2.0 / 65536), ("backward", 1.0)):
+            y, got = drive(lambda: fn(x, 4, norm=norm), total)
+            check(got["K8"] == 1 and sum(got.values()) == 1,
+                  f"{name} type 4 norm={norm}: one K8 launch and no other "
+                  f"({got})")
+            e_o = rel_err(y, host(sp * sc))
+            check(bool(torch.isfinite(y).all()) and e_o < 1e-5,
+                  f"{name} type 4 norm={norm}: vs scipy {e_o:.2e} < 1e-5")
 
     # ---- phase 15: dst types 2 and 3 at (64, 65536) (K7 under the flips)
     for t in (2, 3):
@@ -1477,10 +1535,7 @@ def main() -> None:
     for mode, args in rs_args.items():
         rs_ms[mode] = median_ms(lambda: rstream.launch(mode, n, *args))
         rs_plain_ms[mode] = median_ms(lambda: rstream_plain(mode, n, *args))
-    pre = dct_ops._tab("dct4", n, x)[:2]
-    post = dct_ops._tab("dct4_post_perm", n, x)
-    rs_ms["dct4"] = median_ms(lambda: rstream.launch("dct4", n, x, pre=pre,
-                                                     post=post))
+    rs_ms["dct4"] = median_ms(lambda: rstream.launch("dct4", n, x))
     rs_plain_ms["dct4"] = median_ms(lambda: rstream_plain("dct4", n, x))
     route_ms = {}
     for name, fn in (("rfft_split", lambda: ct.rfft_split(x)),
@@ -1906,6 +1961,48 @@ def main() -> None:
                   and all("cl_rs_kernel" in k for k in got["rows"]),
                   f"{name} norm={norm} is one K7 row a call "
                   f"({got['launches']:g}: {sorted(got['rows'])})")
+    # K2, K4 and K8 by device time at (64, 65536) f32: K4 and K8 one
+    # cluster row a call (K4 in the rows-first order), K2 its two
+    # stage-loop rows; dct/dst type 4 one K8 row under every norm, and
+    # rfilter_split K2's two rows and one K4 row
+    sr_, si_ = pair((64, 512, 128), torch.float32, seed=109)
+    fpr_, fpi_ = pair((1, 512, 128), torch.float32, seed=110)
+    dev_us = {}
+    for k, label, fn, names in (
+            ("K2", "K2 fwd (64, 512, 128)",
+             lambda: stream_fft._launch(sr_, si_, 65536, "fwd"),
+             ("sf_col_kernel", "sf_row_kernel")),
+            ("K4", "K4 filter (64, 512, 128) s=1 (rows-first cluster)",
+             lambda: stream_fft._launch(sr_, si_, 65536, "filter", fpr_,
+                                        fpi_), ("cl_filter_kernel<512>",)),
+            ("K8", "K8 dct4 (64, 65536) (cluster)",
+             lambda: rstream.launch("dct4", 65536, x),
+             ("cl_rs_kernel<256, 4>",))):
+        got = profile_route(label, fn, card)
+        check(got["launches"] == len(names)
+              and all(any(nm in r for nm in names) for r in got["rows"]),
+              f"{k} is {len(names)} kernel row(s) a call "
+              f"({got['launches']:g}: {sorted(got['rows'])})")
+        dev_us[k] = got["kernel_us"]
+    for name, fn in (("dct", ct.dct), ("dst", ct.dst)):
+        for norm in ("ortho", "forward", "backward"):
+            got = profile_route(f"{name} type 4 norm={norm} (64, 65536) (K8)",
+                                lambda: fn(x, 4, norm=norm), card)
+            check(got["launches"] == 1
+                  and all("cl_rs_kernel<256, 4>" in k for k in got["rows"]),
+                  f"{name} type 4 norm={norm} is one K8 row a call "
+                  f"({got['launches']:g}: {sorted(got['rows'])})")
+    got = profile_route("rfilter_split (64, 65536) (K2 and K4)",
+                        lambda: ct.rfilter_split(x, fr, fi), card)
+    k24 = {nm: sum(c for r, c in got["count"].items() if nm in r)
+           for nm in ("sf_col_kernel", "sf_row_kernel", "cl_filter_kernel")}
+    check(k24 == {"sf_col_kernel": 1, "sf_row_kernel": 1,
+                  "cl_filter_kernel": 1},
+          f"rfilter_split is K2's two rows and one K4 row a call, "
+          f"{got['launches']:g} kernel rows in all ({k24})")
+    print(f"  device us a call at (64, 65536): K2 {dev_us['K2']:.1f}, K4 "
+          f"{dev_us['K4']:.1f}, K8 {dev_us['K8']:.1f}  [{card}]")
+    del sr_, si_
     rule = stream_fft._cluster_size
     for C in C_SWEEP:
         stream_fft._cluster_size = lambda m, C=C: C
@@ -1920,11 +2017,33 @@ def main() -> None:
                 profile_route(f"K7 {mode} (64, 65536) at C={C}",
                               lambda: rstream.launch(mode, 65536, *args),
                               card)
+            profile_route(f"K8 dct4 (64, 65536) at C={C} (the rule takes "
+                          f"{rule(256)})",
+                          lambda: rstream.launch("dct4", 65536, x), card)
         finally:
             stream_fft._cluster_size = rule
             stream_fft._PLANS.clear()
             rstream._PLANS.clear()
     del xr, xi
+    # K4's cluster size at each m it takes, 2^22 elements
+    # (stream_fft._filter_cluster_size)
+    frule = stream_fft._filter_cluster_size
+    for m in stream_fft._CLUSTER_M:
+        n, b = 128 * m, (1 << 22) // (128 * m)
+        ar, ai = pair((b, m, 128), torch.float32, seed=111)
+        gr, gi = pair((1, m, 128), torch.float32, seed=112)
+        for C in K4_C_SWEEP:
+            if 8 * m // C > 1024:
+                continue
+            stream_fft._filter_cluster_size = lambda mm, C=C: C
+            try:
+                profile_route(f"K4 filter ({b}, {m}, 128) at C={C} (the rule "
+                              f"takes {frule(m)})",
+                              lambda: stream_fft._launch(ar, ai, n, "filter",
+                                                         gr, gi), card)
+            finally:
+                stream_fft._filter_cluster_size = frule
+        del ar, ai
 
     # each kernel's bound at the shape its times were taken at: every
     # input read once and every output written once (the data planes; the
@@ -1956,10 +2075,15 @@ def main() -> None:
                           ("K3", "stream_nat (K3): one pass on a thread-block "
                            "cluster (csrc/cluster_pass.cuh) at m = 128 .. "
                            "1024, times of fwd_nat", 386),
-                          ("K4", "stream_fft filter (K4)", 444)):
+                          ("K4", "stream_fft filter (K4): one pass on a "
+                           "thread-block cluster in the rows-first order at "
+                           "m = 128 .. 1024, times at s = 1", 444)):
+        # K4 also reads its (1, m, 128) filter slice once
+        bound = (bound_ms(16 * big + 8 * 65536, fft_flops(64, 65536))
+                 if k == "K4" else stream_bound)
         kernels.append(entry_of(
             name, src, f"cfftpack_tpu/ops/pallas_stream.py:{line}", k,
-            stream_err[k], st_ms[k], st_plain_ms[k], stream_bound,
+            stream_err[k], st_ms[k], st_plain_ms[k], bound,
             k3_cufft_ms if k == "K3" else None))
     src = "cfftpack_tpu_torch/csrc/rstream_fft.cu"
     # K7 pairs rows: 32 complex transforms of 65536; K8 runs 64 of 32768
@@ -1969,7 +2093,9 @@ def main() -> None:
              "cfftpack_tpu/ops/pallas_rstream.py:157", "rfft",
              bound_ms(4 * big + 8 * 64 * 32769, fft_flops(32, 65536)),
              rfft_cufft_ms),
-            ("K8", "rstream_fft dct4 (K8)", "cfftpack_tpu/ops/dct.py:285",
+            ("K8", "rstream_fft dct4/dst4 (K8): one pass on a thread-block "
+             "cluster at m = 128 .. 1024, times of dct4",
+             "cfftpack_tpu/ops/dct.py:285",
              "dct4", bound_ms(8 * big, fft_flops(64, 32768)), None)):
         kernels.append(entry_of(name, src, replaces, k, rs_err[k],
                                 rs_ms[mode], rs_plain_ms[mode], bound,

@@ -1,19 +1,24 @@
-"""Where the time of the port's cluster kernels (K3, K7) goes, block by
-block, on one CUDA card.
+"""Where the time of the port's cluster kernels (K3, K4, K7, K8) goes,
+block by block, on one CUDA card.
 
     python3 scripts/torch_cluster_phases.py
 
 Copies ``cfftpack_tpu_torch/csrc`` into ``build/cluster_phases/``, adds a
 read of the card's nanosecond timer (``%globaltimer``) at each phase
-boundary of ``cl_fft`` and of the kernels' stores (thread 0 of each
-block), builds that copy into its own library and runs K3 and K7 at 2^22
-elements once each after a warm-up.  Prints, for each call, the spread of
-the blocks' start times (the waves in which the card runs them) and the
-median and 90th percentile of each phase a block: column phase (the
-first pass's loads and the m-point register passes), the first cluster
-barrier, the exchange's loads, the second barrier, the 128-point row
-passes, the store.  Needs the card; the kernels it builds are the
-committed ones with the timer reads added, nothing else changed.
+boundary of ``cl_fft``, of ``cl_fft_rows_first`` and of the kernels'
+stores (thread 0 of each block), builds that copy into its own library
+and runs K3 and K7 at 2^22 elements, K8 (dct4) and K4 (one filter
+slice) at (64, 65536), once each after a warm-up.  Prints, for each
+call, the spread of the blocks' start times (the waves in which the card
+runs them) and the median and 90th percentile of each phase a block:
+columns first (K3, K7, K8), the column phase (the first pass's loads and
+the m-point register passes), the first cluster barrier, the exchange's
+loads, the second barrier, the 128-point row passes, the store; rows
+first (K4), the row phase (the row loads with the filter and the
+128-point passes), the first barrier, the exchange's loads, the second
+barrier, the m-point column passes with the store in the last.  Needs
+the card; the kernels it builds are the committed ones with the timer
+reads added, nothing else changed.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from cfftpack_tpu_torch.ops import _build, rstream, stream_fft  # noqa: E402
 
 MARKS = ("start", "column phase", "cluster barrier 1", "exchange loads",
          "cluster barrier 2", "row passes", "before the store", "store")
+RF_MARKS = ("start", "row phase", "cluster barrier 1", "exchange loads",
+            "cluster barrier 2", "column passes, store")
 MAX_BLOCKS = 32768
 
 TIMER = """
@@ -84,7 +91,22 @@ def timed_sources(dst: Path) -> None:
         ("                                     -1.0f, ClRow{});\n  }\n"
          "  return sh;",
          "                                     -1.0f, ClRow{});\n  }\n"
-         "  CL_MARK(5)\n  return sh;")]))
+         "  CL_MARK(5)\n  return sh;"),
+        # the rows-first order
+        ("  const int rank = (int)cooperative_groups::this_cluster().block_rank();",
+         "  CL_MARK(0)\n"
+         "  const int rank = (int)cooperative_groups::this_cluster().block_rank();"),
+        ("                                     -1.0f, ClRow{});\n  }\n"
+         "  cl_sync();",
+         "                                     -1.0f, ClRow{});\n  }\n"
+         "  CL_MARK(1)\n  cl_sync();\n  CL_MARK(2)"),
+        ("  __device__ __forceinline__ void after_load() const { cl_sync(); }",
+         "  __device__ __forceinline__ void after_load() const {\n"
+         "    CL_MARK(3)\n    cl_sync();\n    CL_MARK(4)\n  }"),
+        ("                                   typename ClCol<M>::type{});\n"
+         "  }\n}\n",
+         "                                   typename ClCol<M>::type{});\n"
+         "  }\n  CL_MARK(5)\n}\n")]))
     k3 = dst / "stream_fft.cu"
     k3.write_text(_patch(k3.read_text(), [
         ("  md.template store<M>(ClTile{cl_nat_smem, sh});\n}",
@@ -98,23 +120,24 @@ def timed_sources(dst: Path) -> None:
          "  CL_MARK(7)\n")]) + READ % "cl_ts_k7")
 
 
-def report(read, name: str, nblocks: int) -> None:
+def report(read, name: str, nblocks: int, marks=MARKS) -> None:
     buf = np.zeros((nblocks, 8), dtype=np.uint64)
     if read(buf.ctypes.data, nblocks) != 0:
         raise RuntimeError("reading the timer table failed")
-    t = buf.astype(np.float64) / 1e3                # us
+    t = buf.astype(np.float64)[:, :len(marks)] / 1e3    # us
+    last = len(marks) - 1
     start = t[:, 0] - t[:, 0].min()
-    span = (t[:, 7] - t[:, 0].min()).max()
+    span = (t[:, last] - t[:, 0].min()).max()
     q = np.percentile(start, [25, 50, 75, 100])
     print(f"  {name}: {nblocks} blocks in {span:.1f} us; block start "
           f"times p25/p50/p75/max {q[0]:.1f} / {q[1]:.1f} / {q[2]:.1f} / "
           f"{q[3]:.1f} us")
-    for i in range(1, 8):
+    for i in range(1, len(marks)):
         d = t[:, i] - t[:, i - 1]
-        print(f"    {MARKS[i]:18s} median {np.median(d):6.2f}  p90 "
+        print(f"    {marks[i]:22s} median {np.median(d):6.2f}  p90 "
               f"{np.percentile(d, 90):6.2f} us")
-    d = t[:, 7] - t[:, 0]
-    print(f"    {'a block':18s} median {np.median(d):6.2f}  p90 "
+    d = t[:, last] - t[:, 0]
+    print(f"    {'a block':22s} median {np.median(d):6.2f}  p90 "
           f"{np.percentile(d, 90):6.2f} us")
 
 
@@ -151,6 +174,24 @@ def main() -> None:
         rstream.launch(mode, n, x)
         torch.cuda.synchronize()
         report(lib.cl_ts_k7, f"K7 {mode} (64, {n}) C={C}", 32 * C)
+    # K8 runs each row as one transform of n/2 = 128*256
+    C = stream_fft._cluster_size(n // 256)
+    for _ in range(100):
+        rstream.launch("dct4", n, x)
+    rstream.launch("dct4", n, x)
+    torch.cuda.synchronize()
+    report(lib.cl_ts_k7, f"K8 dct4 (64, {n}) C={C}", 64 * C)
+    m = n // 128
+    C = stream_fft._filter_cluster_size(m)
+    xr = torch.randn((64, m, 128), generator=g, device="cuda")
+    xi = torch.randn((64, m, 128), generator=g, device="cuda")
+    fr = torch.randn((1, m, 128), generator=g, device="cuda")
+    fi = torch.randn((1, m, 128), generator=g, device="cuda")
+    for _ in range(100):
+        stream_fft._launch(xr, xi, n, "filter", fr, fi)
+    stream_fft._launch(xr, xi, n, "filter", fr, fi)
+    torch.cuda.synchronize()
+    report(lib.cl_ts_k3, f"K4 filter (64, {m}, 128) C={C}", 64 * C, RF_MARKS)
 
 
 if __name__ == "__main__":

@@ -1,22 +1,35 @@
-"""K3 and K7 on the thread-block cluster (csrc/cluster_pass.cuh): float64
-numpy models of the one-pass decomposition and of K7's cross-block maps,
-K3's route rule against the kernels' limits, the norm scale handed down
-to the kernel wrappers, and K7's cached launch plan.
+"""K3, K4, K7 and K8 on the thread-block cluster
+(csrc/cluster_pass.cuh): float64 numpy models of the one-pass
+decomposition in both orders (columns first for K3, K7 and K8, rows
+first for K4) and of the cross-block maps of K7 and K8, the layouts'
+bank checks, the route rules against the kernels' limits, the norm
+scale handed down to the kernel wrappers, and K7's and K8's cached
+launch plan.
 
 The CUDA kernels run on the card only: the ``cuda``-marked tests below
-hold them against their plain versions there and skip here.
+hold them against their plain versions there and skip here.  The JAX
+package's K4 (``_stream_filter_inv_2d``) runs in interpret mode.
 """
+import importlib
+import sys
+
 import numpy as np
 import pytest
+import scipy.fft
 import torch
+import jax.numpy as jnp
+
+import cfftpack_tpu.ops.pallas_stream as ps
 
 import cfftpack_tpu_torch as pt
 from cfftpack_tpu_torch import plan
-from cfftpack_tpu_torch.config import fwd_scale, inv_scale
+from cfftpack_tpu_torch.config import VALID_NORMS, fwd_scale, inv_scale
 from cfftpack_tpu_torch.ops import fused_fft, rstream as rs
 from cfftpack_tpu_torch.ops import stream_fft as sf
 
 from torch_parity import complex_input, real_input, to_np
+
+pdct = importlib.import_module("cfftpack_tpu_torch.ops.dct")
 
 torch.set_num_threads(1)
 
@@ -24,6 +37,7 @@ torch.set_num_threads(1)
 SMEM_MAX = 232448
 MAX_THREADS = 1024
 ROW_STRIDE = 137
+RF_ROW_STRIDE = 152                      # the rows-first order's (CL_RF_RS)
 # the schedules the kernels compile: cluster_pass.cuh's ClCol<m> and
 # ClRow, stream_fft.cu's SfRegCol<m>
 COMPILED = {128: ((4, 4), (4, 2)), 256: ((4, 4), (4, 4)),
@@ -124,6 +138,189 @@ class Cluster:
 
 def _routes():
     return [(m, C) for m in sf._CLUSTER_M for C in _cluster_sizes(m)]
+
+
+# ------------------------------------------------- the rows-first order
+
+def _rf_smem(m, C):
+    """cl_smem(m, C, CL_RF_RS)."""
+    L = 128 // C
+    return 4 * max(2 * (m + m // 16) * L, 2 * (m // C) * RF_ROW_STRIDE)
+
+
+def _rf_cluster_sizes(m):
+    """Every C the rows-first entry takes at m (cl_config_ok with
+    CL_RF_RS)."""
+    return [C for C in (1, 2, 4, 8, 16)
+            if 8 * m // C <= MAX_THREADS and _rf_smem(m, C) <= SMEM_MAX]
+
+
+def _rf_row_index(s, k1, stride=RF_ROW_STRIDE):
+    """cl_rf_row: a pad word after every 8 lanes."""
+    return s * stride + k1 + (k1 >> 3)
+
+
+class RowsFirst:
+    """The blocks of one cluster in the rows-first order, as numpy
+    buffers in the kernel's layouts: each block's rows k2 through the
+    128-point DFT into the row layout, then each block's lanes r read
+    from the owners of every row, times W_n^{r k2}, through the m-point
+    DFT to the natural output x[128 q + r]."""
+
+    def __init__(self, m: int, C: int):
+        self.m, self.C = m, C
+        self.L = 128 // C
+        self.rows = m // C
+        size = _rf_smem(m, C) // 8                # complex slots
+        self.buf = [np.full(size, np.nan, dtype=np.complex128)
+                    for _ in range(C)]
+
+    def row_phase(self, load):
+        k1 = np.arange(128)
+        for c in range(self.C):
+            for s in range(self.rows):
+                row = np.fft.fft(load(c * self.rows + s, k1))
+                self.buf[c][_rf_row_index(s, k1)] = row
+
+    def column_phase(self):
+        """Every block's column store, as the natural (n,) output."""
+        m, n = self.m, 128 * self.m
+        k2 = np.arange(m)
+        owner, slot = k2 // self.rows, k2 % self.rows
+        x = np.full(n, np.nan, dtype=np.complex128)
+        for c in range(self.C):
+            for lane in range(self.L):
+                r = c * self.L + lane
+                v = np.array([self.buf[o][_rf_row_index(s, r)]
+                              for o, s in zip(owner, slot)])
+                v = v * np.exp(-2j * np.pi * r * k2 / n)
+                x[128 * k2 + r] = np.fft.fft(v)        # output q = k2
+        return x
+
+
+def _rf_filter(X, F, m, C, scale):
+    """K4's model on each row of the permuted spectrum X (b, m, 128):
+    the load conj(X F), the conjugated forward, the store conj() times
+    scale."""
+    out = []
+    for p in range(X.shape[0]):
+        Y = X[p] * F[p % F.shape[0]]
+        cl = RowsFirst(m, C)
+        cl.row_phase(lambda k2, k1: np.conj(Y[k2, k1]))
+        out.append(scale * np.conj(cl.column_phase()))
+    return np.stack(out)
+
+
+def _rf_routes():
+    return [(m, C) for m in sf._CLUSTER_M for C in _rf_cluster_sizes(m)]
+
+
+@pytest.mark.parametrize("m,C", _rf_routes())
+def test_rows_first_model_is_the_filter(m, C):
+    """The rows-first decomposition in the kernel's layouts, float64,
+    for every (m, C) the entry takes: n times the inverse FFT of the
+    filtered spectrum, times the scale, within 1e-12, at s = 1 and 2."""
+    n = 128 * m
+    X = complex_input((3, m, 128), np.complex128, seed=m + C)
+    for s in (1, 2):
+        F = complex_input((s, m, 128), np.complex128, seed=m + s)
+        got = _rf_filter(X, F, m, C, 0.5)
+        assert not np.isnan(got).any()
+        # natural bin k = k2 + m*k1 is the (128, m) transpose of [k2, k1]
+        Y = X * F[np.arange(3) % s]
+        want = np.fft.ifft(Y.transpose(0, 2, 1).reshape(3, n)) * n * 0.5
+        assert _err(got, want) < 1e-12, (m, C, s)
+
+
+@pytest.mark.parametrize("s", [1, 2])
+@pytest.mark.parametrize("m", sf._CLUSTER_M)
+def test_rows_first_model_matches_plain_and_pallas(m, s):
+    """K4's model at the route's C on float32 inputs, against the plain
+    version (``stream_plain(..., "filter")``) and the JAX package's K4
+    (``_stream_filter_inv_2d``, interpret mode) within 1e-6."""
+    n = 128 * m
+    C = sf._filter_cluster_size(m)
+    xr, xi = (complex_input((2, m, 128), np.complex64, seed=m + 3 * s)
+              .view(np.float32).reshape(2, m, 128, 2).transpose(3, 0, 1, 2))
+    fr, fi = (complex_input((s, m, 128), np.complex64, seed=m + s + 9)
+              .view(np.float32).reshape(s, m, 128, 2).transpose(3, 0, 1, 2))
+    xr, xi, fr, fi = (np.ascontiguousarray(v) for v in (xr, xi, fr, fi))
+    got = _rf_filter(xr + 1j * xi.astype(np.float64), fr + 1j * fi.astype(
+        np.float64), m, C, 1.0).reshape(2, m, 128)
+    pr, pi = sf.stream_plain(*(torch.as_tensor(v) for v in (xr, xi)), n,
+                             "filter", torch.as_tensor(fr),
+                             torch.as_tensor(fi))
+    assert _err(got, to_np(pr) + 1j * to_np(pi)) < 1e-6
+    wr, wi = ps._stream_filter_inv_2d(*(jnp.asarray(v)
+                                        for v in (xr, xi, fr, fi)), n)
+    assert _err(got, np.asarray(wr) + 1j * np.asarray(wi)) < 1e-6
+
+
+def _row_phase_accesses():
+    """The shared-memory accesses of the row phase's passes after the
+    first load, as ClRow runs them on 8 threads a row (regfft.cuh's
+    rf_pass): for each (pass, butterfly round, register) the 8 threads'
+    in-row indices."""
+    acc, L = [], 1
+    for i, qs in enumerate(plan.reg_passes(128)):
+        R = int(np.prod(qs))
+        MN = 128 // (L * R)
+        nb = -(-(128 // R) // 8)
+        for b in range(nb):
+            beta = np.arange(8) + 8 * b
+            l, j = beta // MN, beta % MN
+            for t in range(R):
+                if i > 0:                                  # reads
+                    acc.append((l * R + t) * MN + j)
+                acc.append((t * L + l) * MN + j)           # writes
+        L *= R
+    return acc
+
+
+def _bank_counts(index, L=None):
+    """The most threads of a warp on one bank in the row layout
+    ``index(s, k1)``: the row phase (4 rows of 8 threads a warp), or with
+    L the column phase's first loads at L lanes a block (32/L consecutive
+    rows k2 of L consecutive lanes r; one row of 32 lanes past L = 32)."""
+    worst = 1
+    if L is None:
+        for e in _row_phase_accesses():
+            at = [index(s, k) for s in range(4) for k in e]
+            worst = max(worst, np.bincount(np.array(at) % 32).max())
+        return worst
+    w = min(L, 32)
+    for r0 in range(0, 128, w):
+        at = [index(s, r0 + k) for s in range(max(1, 32 // L))
+              for k in range(w)]
+        worst = max(worst, np.bincount(np.array(at) % 32).max())
+    return worst
+
+
+def test_rows_first_layout_fits_and_hits_32_banks():
+    """The row layout is one-to-one within every block's buffer; every
+    warp of the row phase hits 32 banks, and so does every column-phase
+    read of the row layout at L = 8 lanes a block (the route's C = 16 at
+    m = 512, 1024), where the columns-first row layout (stride 137, a pad
+    word after every 16) puts two or more threads on a bank; at the
+    route's L = 64 (C = 2 at m = 128, 256) two threads share a bank."""
+    for m in sf._CLUSTER_M:
+        C = sf._filter_cluster_size(m)
+        assert C in _rf_cluster_sizes(m)
+        assert _bank_counts(_rf_row_index, 128 // C) == (1 if m >= 512
+                                                         else 2)
+        for C in _rf_cluster_sizes(m):
+            slots = _rf_smem(m, C) // 8
+            s, k1 = np.meshgrid(np.arange(m // C), np.arange(128),
+                                indexing="ij")
+            row = _rf_row_index(s, k1).ravel()
+            assert len(set(row)) == row.size and row.max() < slots
+            L = 128 // C
+            q, lane = np.meshgrid(np.arange(m), np.arange(L), indexing="ij")
+            col = _col_index(q, lane, L.bit_length() - 1).ravel()
+            assert col.max() < slots
+    assert _bank_counts(_rf_row_index) == 1
+    assert _bank_counts(_rf_row_index, 8) == 1
+    assert _bank_counts(_row_index) >= 2 and _bank_counts(_row_index, 8) >= 2
 
 
 # ------------------------------------------------- the decomposition
@@ -275,6 +472,41 @@ def test_dct3_pair_map_matches_plain(m):
     assert _err(out, to_np(want)) < 1e-5
 
 
+@pytest.mark.parametrize("dst", [False, True])
+@pytest.mark.parametrize("m", sf._CLUSTER_M)
+def test_dct4_pair_maps_match_plain(m, dst):
+    """ClRsMode<dct4> on the columns-first cluster, float64: the pair
+    load c[j] = x[2j] + i*x[n-1-2j] (the two reads swapped for DST-IV)
+    times the pre-rotation, then the store's pairs (2t, 2t+1) from bin t
+    and its partner N-1-t at row m-1-k2, lane 127-k1 of another block,
+    times the natural post-phase, the odd sign -1 (DST-IV +1) and the
+    scale: scipy's type-4 DCT or DST within 1e-12, the plain version
+    (float32 tables) within 1e-6."""
+    N = 128 * m
+    n = 2 * N
+    C = sf._cluster_size(m)
+    x = real_input((n,), np.float32, seed=m + dst).astype(np.float64)
+    pre, post = rs._dct4_phases(n)
+    j = np.arange(N)
+    a, c = x[2 * j], x[n - 1 - 2 * j]
+    v = ((c + 1j * a) if dst else (a + 1j * c)) * pre
+    cl = _k7_cluster(v, m, C)
+    k2, k1 = np.meshgrid(np.arange(m), np.arange(128), indexing="ij")
+    Z = np.vectorize(cl.bin)(k2, k1)
+    P = np.vectorize(cl.bin)(m - 1 - k2, 127 - k1)
+    tt = (k2 + m * k1).ravel()
+    scale = 0.25
+    y = np.empty(n)
+    y[2 * tt] = scale * (Z.ravel() * post[tt]).real
+    y[2 * tt + 1] = ((1.0 if dst else -1.0) * scale
+                     * (P.ravel() * post[N - 1 - tt]).imag)
+    want = (scipy.fft.dst if dst else scipy.fft.dct)(x, 4) / 2 * scale
+    assert _err(y, want) < 1e-12
+    plain = pdct._dct4_stream_plain(
+        torch.as_tensor(x[None].astype(np.float32)), n, scale, dst)
+    assert _err(y, to_np(plain)[0]) < 1e-6
+
+
 # ------------------------------------------------- the norm's scale
 
 def test_scaled_wrappers_are_the_unscaled_times_the_scale():
@@ -379,6 +611,58 @@ def test_dct_hands_its_norm_to_k7(monkeypatch, k1_small, fn, t, name, norm):
         assert _err(to_np(y), sp) < 1e-5
 
 
+@pytest.mark.parametrize("norm", VALID_NORMS)
+def test_rfilter_split_hands_its_norm_to_k4(monkeypatch, norm):
+    """rfilter_split on the streaming route: one sfilter_stream call with
+    the norm's fwd_scale * inv_scale, its result returned as it is (no
+    multiply after), the reference's values."""
+    got = []
+    real = sf.sfilter_stream
+
+    def spy(x, ffr, ffi, n, scale=1.0):
+        out = real(x, ffr, ffi, n, scale)
+        got.append((scale, out))
+        return out
+
+    monkeypatch.setattr(sf, "sfilter_stream", spy)
+    n = 32768                        # m = 256: K1 does not take n/2
+    x = real_input((2, n), np.float32, seed=8)
+    F = complex_input((n // 2 + 1,), np.complex128, seed=9)
+    fr, fi = F.real.astype(np.float32), F.imag.astype(np.float32)
+    fi[0] = fi[-1] = 0.0
+    y = pt.rfilter_split(torch.as_tensor(x), torch.as_tensor(fr),
+                         torch.as_tensor(fi), norm=norm)
+    assert len(got) == 1
+    scale, out = got[0]
+    assert scale == pytest.approx(fwd_scale(norm, n) * inv_scale(norm, n))
+    assert torch.equal(y, out)
+    want = np.fft.irfft(np.fft.rfft(x.astype(np.float64)) * (fr + 1j * fi),
+                        n)
+    assert _err(to_np(y), want) < 1e-5
+
+
+def test_sfilter_stream_stacks_nothing(monkeypatch):
+    """At a length K4's cluster takes, sfilter_stream hands K4 the paired
+    rows as its output planes and stacks no planes itself."""
+    callers = []
+    real = torch.stack
+
+    def spy(*args, **kwargs):
+        callers.append(sys._getframe(1).f_code.co_name)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "stack", spy)
+    n = 65536                                    # m = 512
+    x = real_input((2, n), np.float32, seed=10)
+    F = complex_input((n,), np.complex64, seed=11)
+    got = sf.sfilter_stream(torch.as_tensor(x), torch.as_tensor(F.real.copy()),
+                            torch.as_tensor(F.imag.copy()), n, 0.5)
+    assert "sfilter_stream" not in callers
+    want = ps.sfilter_stream_pallas(jnp.asarray(x), jnp.asarray(F.real),
+                                    jnp.asarray(F.imag), n)
+    assert _err(to_np(got), 0.5 * np.asarray(want)) < 5e-6
+
+
 # ------------------------------------------------- K7's launch plan
 
 def test_k7_launch_plan_is_cached_and_rebuilt():
@@ -387,8 +671,18 @@ def test_k7_launch_plan_is_cached_and_rebuilt():
     a = rs._launch_plan("dct2", n, dev)
     assert rs._launch_plan("dct2", n, dev) is a
     assert a.cluster == sf._cluster_size(512) and a.reg[0] is not None
+    # K8 at n = 2*65536 runs m = 512 on the cluster, with the natural
+    # post-phase; at m = 48 it keeps the stage loop and the permuted one
+    def post(lp):
+        return next(t for t in lp.keep if isinstance(t, torch.Tensor)
+                    and t.data_ptr() == lp.pb[0])
+
     b = rs._launch_plan("dct4", 2 * n, dev)
-    assert b.cluster == 0 and b.reg == (None, None)
+    assert b.cluster == sf._cluster_size(512) and b.reg[0] is not None
+    assert post(b).shape == (n,)
+    s = rs._launch_plan("dct4", 2 * 6144, dev)
+    assert s.cluster == 0 and s.reg == (None, None)
+    assert post(s).shape == (48, 128)
     plan.clear_device_tables()
     c = rs._launch_plan("dct2", n, dev)
     assert c is not a and c.version == plan.VERSION
@@ -442,3 +736,33 @@ def test_k7_modes_match_plain_on_card(m):
         assert _err(to_np(rs.launch(mode, n, x, scale=0.5, w0=1.5)),
                     to_np(plain(x, n, 0.5, 1.5))) < 1e-5, (m, mode)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 256, 512, 1024, 48])
+def test_k4_matches_plain_on_card(m):
+    """K4 on the rows-first cluster at every m it takes (the stage loop at
+    m = 48), s = 1 and 2, with a scale, into the strided planes of paired
+    rows and into fresh planes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    n = 128 * m
+    b = 3
+    for s in (1, 2):
+        c = complex_input((b, m, 128), np.complex64, seed=m + s)
+        f = complex_input((s, m, 128), np.complex64, seed=m + s + 1)
+        xr, xi, fr, fi = (torch.as_tensor(v.copy(), device="cuda") for v in
+                          (c.real, c.imag, f.real, f.imag))
+        before = sf.launches["K4"]
+        out = torch.full((b, 2, n), float("nan"), device="cuda")
+        sf._launch(xr, xi, n, "filter", fr, fi, scale=0.5,
+                   out=(out[:, 0], out[:, 1]))
+        yr, yi = sf._launch(xr, xi, n, "filter", fr, fi)
+        assert sf.launches["K4"] == before + 2
+        pr, pi = sf.stream_plain(xr, xi, n, "filter", fr, fi)
+        torch.cuda.synchronize()
+        want = to_np(pr) + 1j * to_np(pi)
+        assert _err(to_np(yr) + 1j * to_np(yi), want) < 1e-5, (m, s)
+        got = to_np(out[:, 0]) + 1j * to_np(out[:, 1])
+        assert _err(got, 0.5 * want.reshape(b, n)) < 1e-5, (m, s)
+

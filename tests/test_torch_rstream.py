@@ -12,12 +12,15 @@ import importlib
 
 import numpy as np
 import pytest
+import scipy.fft
 import torch
 import jax.numpy as jnp
 
 import cfftpack_tpu.ops.core as jcore
 import cfftpack_tpu.ops.pallas_rstream as jrs
 
+import cfftpack_tpu_torch as pt
+from cfftpack_tpu_torch.config import VALID_NORMS
 from cfftpack_tpu_torch.ops import core, fused_fft, rstream as rs
 
 from torch_parity import real_input, to_np
@@ -225,6 +228,58 @@ def test_dct4_cores_take_k8(monkeypatch, k1_small, core_name):
     assert calls == ["_dct4_stream"]
 
 
+@pytest.mark.parametrize("n", [4096, 65536])
+def test_dst4_matches_reference_and_scipy(k1_small, n):
+    """DST-IV on K8's route (the flip and sign are K8's flag, its plain
+    version on the CPU) against the JAX package's _dst4_core and scipy,
+    unscaled and with a scale."""
+    x = real_input((4, n), np.float32, seed=n + 75)
+    got = pdct._dst4_core(torch.as_tensor(x), n)
+    want = np.asarray(jdct._dst4_core(jnp.asarray(x), n))
+    assert _err(to_np(got), want) < TOL
+    sp = scipy.fft.dst(x.astype(np.float64), 4) / 2
+    assert _err(to_np(got), sp) < TOL
+    half = pdct._dst4_core(torch.as_tensor(x), n, 0.5)
+    assert _err(to_np(half), 0.5 * sp) < TOL
+
+
+def _type4_scale(fn: str, norm: str, n: int) -> float:
+    """The scale of type 4 under ``norm``: the forward's fftpack and
+    forward norms and the inverse's backward norm carry 2/n, ortho
+    sqrt(2/n) both ways."""
+    if norm == "ortho":
+        return float(np.sqrt(2.0 / n))
+    full = (norm in ("fftpack", "forward")) != fn.startswith("i")
+    return 2.0 / n if full else 1.0
+
+
+@pytest.mark.parametrize("fn", ["dct", "idct", "dst", "idst"])
+@pytest.mark.parametrize("norm", VALID_NORMS)
+def test_type4_hands_its_norm_to_k8(monkeypatch, k1_small, fn, norm):
+    """dct/idct/dst/idst type 4 on K8's route: one _dct4_stream call with
+    the norm's scale and the DST flag, its result returned as it is (no
+    flip, sign or multiply after), scipy's values."""
+    got = []
+    real = pdct._dct4_stream
+
+    def spy(x, n, scale=1.0, dst=False):
+        out = real(x, n, scale, dst)
+        got.append((scale, dst, out))
+        return out
+
+    monkeypatch.setattr(pdct, "_dct4_stream", spy)
+    n = 4096
+    x = real_input((3, n), np.float32, seed=76)
+    y = getattr(pt, fn)(torch.as_tensor(x), 4, norm=norm)
+    assert len(got) == 1
+    scale, dst, out = got[0]
+    assert dst == fn.endswith("st")
+    assert scale == pytest.approx(_type4_scale(fn, norm, n))
+    assert torch.equal(y, out)
+    sp = getattr(scipy.fft, fn.lstrip("i"))(x.astype(np.float64), 4) / 2
+    assert _err(to_np(y), sp * scale) < TOL
+
+
 def test_other_shapes_stay_off_k7_and_k8(monkeypatch):
     calls = _spy(monkeypatch, rs, "srfft_stream")
     _spy(monkeypatch, rs, "sdct2_stream", calls)
@@ -277,6 +332,15 @@ def test_launch_refuses_what_the_kernel_does_not_take():
     assert rs.launches == {"K7": 0, "K8": 0}
 
 
+def test_launch_refuses_dst_and_w0_where_the_mode_takes_none():
+    x = torch.zeros((2, 4096))
+    with pytest.raises(ValueError, match="dst"):
+        rs.launch("dct2", 4096, x, dst=True)
+    with pytest.raises(ValueError, match="w0"):
+        rs.launch("dct4", 4096, x, w0=2.0)
+    assert rs.launches == {"K7": 0, "K8": 0}
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -301,3 +365,23 @@ def test_kernels_match_plain_on_card():
         assert _err(to_np(pdct._dct4_stream(x4, 2 * n)),
                     to_np(pdct._dct4_stream(x4.cpu(), 2 * n))) < 1e-5
         torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 256, 512, 1024, 48])
+def test_k8_matches_plain_on_card(m):
+    """K8's dct4 and dst4 with a scale on the cluster at every m it
+    takes (the stage loop, the wrapper flipping and scaling, at m = 48)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    n = 256 * m
+    x = torch.as_tensor(real_input((3, n), np.float32, seed=m),
+                        device="cuda")
+    for dst in (False, True):
+        before = rs.launches["K8"]
+        y = rs.launch("dct4", n, x, scale=0.25, dst=dst)
+        assert rs.launches["K8"] == before + 1
+        want = pdct._dct4_stream_plain(x, n, 0.25, dst)
+        torch.cuda.synchronize()
+        assert _err(to_np(y), to_np(want)) < 1e-5, (m, dst)
+
