@@ -1,9 +1,10 @@
 // The streaming four-step FFT of n = 128*m points in one pass, on a
 // thread-block cluster of C blocks that read each other's shared memory
-// (distributed shared memory).  Used by K3 and K4 (stream_fft.cu) and by
-// K7's modes rfft, irfft, dct2 and dct3 and K8's dct4 (rstream_fft.cu).
+// (distributed shared memory).  Used by K2, K3 and K4 (stream_fft.cu) and
+// by K7's modes rfft, irfft, dct2 and dct3 and K8's dct4 (rstream_fft.cu).
 //
 // Replaces, on Hopper, the TPU kernels
+//   K2  cfftpack_tpu/ops/pallas_stream.py:_stream_pallas_2d (:352);
 //   K3  cfftpack_tpu/ops/pallas_stream.py:_stream_pallas_2d_nat (:386);
 //   K4  cfftpack_tpu/ops/pallas_stream.py:_stream_filter_inv_2d (:444);
 //   K7  cfftpack_tpu/ops/pallas_rstream.py: srfft_stream_pallas (:157),
@@ -42,13 +43,15 @@
 //   words (a pad word after every 16 lanes; odd, so a store reading one
 //   lane of 32 consecutive rows hits 32 banks).  The mode's store then
 //   writes what it owns: for K3, for each k1 a run of m/C contiguous
-//   outputs k2 + m*k1, times `scale`.  A store that reads another block's
-//   rows (K7's mirror merge, the pairs of dct3 and K8) runs between two
-//   more cluster.sync()s, the last one keeping every block's shared
-//   memory alive until no block reads it.
+//   outputs k2 + m*k1, times `scale`; for K2, its rows in the permuted
+//   order as they lie, one contiguous run.  A store that reads another
+//   block's rows (K7's mirror merge, the pairs of dct3 and K8) runs
+//   between two more cluster.sync()s, the last one keeping every block's
+//   shared memory alive until no block reads it.
 //
 // cl_fft_rows_first runs the same formula the other way round, for an
-// input in the permuted order X[k2 + m*k1] at [k2, k1] (K4's spectrum):
+// input in the permuted order X[k2 + m*k1] at [k2, k1] (the spectrum of
+// K4 and of K2's inverse):
 // block c first owns rows k2 and loads them through the mode's row_load
 // (contiguous 512-byte rows), runs the 128-point DFT over k1 -> r and
 // leaves it in a row layout of its own (cl_rf_row); after a cluster.sync()
@@ -96,6 +99,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
 #include <utility>
 
 #include "regfft.cuh"
@@ -404,6 +408,18 @@ __device__ __forceinline__ void cl_fft_rows_first(
 // Whether cl_fft is compiled for m.
 __host__ __device__ constexpr bool cl_takes(int m) {
   return m == 128 || m == 256 || m == 512 || m == 1024;
+}
+
+// f(std::integral_constant<int, m>{}) for an m that cl_takes: the launch
+// of a kernel compiled for that m.
+template <class F>
+static inline cudaError_t cl_for_m(int m, F&& f) {
+  switch (m) {
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    case 512: return f(std::integral_constant<int, 512>{});
+    default: return f(std::integral_constant<int, 1024>{});
+  }
 }
 
 // Threads and dynamic shared memory of a cluster block at (m, C), with

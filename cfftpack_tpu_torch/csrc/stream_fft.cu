@@ -2,10 +2,10 @@
 // points over (b, m, 128) pairs of float32 re/im planes.
 //
 // Replaces the TPU kernel cfftpack_tpu/ops/pallas_stream.py:_make_kernel
-// (:249) in its five modes: fwd/inv (K2, through _stream_pallas_2d),
-// fwd_nat/inv_nat (K3, through _stream_pallas_2d_nat) and filter (K4,
-// through _stream_filter_inv_2d).  With the natural tile x[q, r] at flat
-// index j = 128*q + r it computes
+// (:249) in its five modes: fwd/inv (K2, through _stream_pallas_2d
+// :352), fwd_nat/inv_nat (K3, through _stream_pallas_2d_nat :386) and
+// filter (K4, through _stream_filter_inv_2d :444).  With the natural
+// tile x[q, r] at flat index j = 128*q + r it computes
 //
 //   X[k2 + m*k1] = sum_r W_128^{r*k1} * W_n^{r*k2} * sum_q x[q, r] W_m^{q*k2}
 //
@@ -37,15 +37,22 @@
 //
 // The forward runs column then row pass, the inverse row then column.
 // That moves 32 bytes per complex element instead of the one-pass 16.
-// K3 (entry stream_nat_f32, at the end of this file) runs one pass on a
-// thread-block cluster at m = 128 .. 1024 (cluster_pass.cuh) and K5's
-// register-pass kernels at s = 1 at m = 2048 and 4096; only its other m
-// take these two passes.  K4 runs one pass on the same cluster engine at
-// m = 128 .. 1024 too, in its rows-first order (the 128-point DFT of the
-// permuted rows first, then the m-point one), the filter multiply in its
-// row load, its natural rows written through an output row stride (the
-// caller's paired rows) times the norm's scale.  Butterflies are the
-// closed forms of radix 2/3/4/5 in full float32 (no tensor cores); stage
+// K2 and K3 (K3's entry stream_nat_f32, at the end of this file) run
+// their forward in one pass on a thread-block cluster at m = 128 .. 1024
+// (cluster_pass.cuh) and in K5's two register-pass kernels at s = 1 at
+// m = 2048 and 4096: K3 stores the natural spectrum, K2 the rows k2 a
+// block owns as they are (ClPermMode; the register route's row pass in
+// its permuted store), reading its input through a row stride (the
+// caller's paired rows).  K4 and K2's inverse run one pass on the same
+// cluster engine at m = 128 .. 1024 in its rows-first order (the
+// 128-point DFT of the permuted rows first, then the m-point one,
+// ClRfMode): K4 with the filter multiply in its row load and its natural
+// rows written through an output row stride (the caller's paired rows)
+// times the norm's scale, K2's inverse with neither; K3's inverse is the
+// conjugated forward.  Only the other (mode, m) take these two passes:
+// K2's inverse and K4 at m = 2048 and 4096, and every mode at the m
+// that no one-pass or register kernel is compiled for.  Butterflies are
+// the closed forms of radix 2/3/4/5 in full float32 (no tensor cores); stage
 // twiddles and the outer twiddle are float64-built tables cast to
 // float32.  The ragged batch needs no mask and no pad: every block owns
 // whole rows.  Offsets into the planes are 64-bit.  The pass bodies live
@@ -286,12 +293,16 @@ struct SFSplitColIO {
 // lane hit 16 banks); the store writes X[k1 + S*k2 + S*m*c] =
 // X[c*S*m + 16*g + p], p = kk*S + k1, so each lane c is a run of 16
 // contiguous floats, times `scale` and the natural filter (when fr is
-// given), the imaginary plane times `osgn`.
+// given), the imaginary plane times `osgn`.  With PERM (K2's forward,
+// S = 1) it writes the rows as they are, X[k2 + m*c] at [k2, c], so a
+// warp stores 32 consecutive lanes c of one row; the choice is compiled
+// in, so K5's and K3's store stays as it was.
 #define SF_ROW_REG_TPR 8
 #define SF_ROW_REG_RS 137
 
-template <int S>
+template <int S, bool PERM>
 struct SFSplitRowIO {
+  static_assert(S == 1 || !PERM, "the permuted store is K2's, at S = 1");
   static constexpr int K = SF_ROWS / S;
   const float* __restrict__ xr;
   const float* __restrict__ xi;
@@ -305,9 +316,12 @@ struct SFSplitRowIO {
   __device__ __forceinline__ void store(const float* sr,
                                         const float* si) const {
     for (int e = threadIdx.x; e < SF_ROWS * SF_N1; e += blockDim.x) {
-      const int c = e >> 4, p = e & (SF_ROWS - 1);
+      const int c = PERM ? e & (SF_N1 - 1) : e >> 4;
+      const int p = PERM ? e >> 7 : e & (SF_ROWS - 1);
       const int at = ((p % S) * K + p / S) * SF_ROW_REG_RS + c + (c >> 4);
-      const long long k = (long long)c * S * m + (long long)g * SF_ROWS + p;
+      const long long k =
+          PERM ? (long long)g * SF_ROWS * SF_N1 + e
+               : (long long)c * S * m + (long long)g * SF_ROWS + p;
       float vr = scale * sr[at], vi = scale * si[at];
       if (fr != nullptr) sf_cmul(vr, vi, fr[k], fi[k]);
       yr[b * out_rs + k] = vr;
@@ -399,9 +413,10 @@ struct SFSplitRowRegIO {
   __device__ __forceinline__ void gstore(int, float, float) const {}
 };
 
-template <int S>
+template <int S, bool PERM>
 __global__ void __launch_bounds__(SF_ROWS * SF_ROW_REG_TPR)
-    sf_split_row_kernel(SFSplitRowIO<S> io, const float* __restrict__ ptw) {
+    sf_split_row_kernel(SFSplitRowIO<S, PERM> io,
+                        const float* __restrict__ ptw) {
   __shared__ __align__(16) float sm[2 * SF_ROWS * SF_ROW_REG_RS];
   constexpr int K = SF_ROWS / S;
   const int G = io.m * S / SF_ROWS;
@@ -442,10 +457,11 @@ static cudaError_t sf_split_col_reg(const SFSplitColIO<S>& cio,
 }
 
 // Both passes of K5 over b rows of n = S*128*m points (S = 1 is K3's
-// register route): the column pass in register passes at m = 2048 and
-// 4096 (pass twiddles ptw), else in the stage loop on 1 << lshift lanes;
-// the row pass in register passes (rptw).
-template <int S>
+// register route, and K2's forward's with PERM): the column pass in
+// register passes at m = 2048 and 4096 (pass twiddles ptw), else in the
+// stage loop on 1 << lshift lanes; the row pass in register passes
+// (rptw).
+template <int S, bool PERM = false>
 static int sf_split_run(const void* xr, const void* xi, void* yr, void* yi,
                         void* sr, void* si, const void* t1r, const void* t1i,
                         const void* ctwr, const void* ctwi,
@@ -479,21 +495,30 @@ static int sf_split_run(const void* xr, const void* xi, void* yr, void* yi,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const SFSplitRowIO<S> rio{(const float*)sr, (const float*)si, (float*)yr,
-                            (float*)yi, (const float*)fr, (const float*)fi,
-                            out_rs, 0, 0, m, scale,
-                            (conj & SF_CONJ_OUT) ? -1.0f : 1.0f};
-  sf_split_row_kernel<S><<<(unsigned)rgrid, SF_ROWS * SF_ROW_REG_TPR, 0, st>>>(
-      rio, (const float*)rptw);
+  const SFSplitRowIO<S, PERM> rio{
+      (const float*)sr, (const float*)si, (float*)yr, (float*)yi,
+      (const float*)fr, (const float*)fi, out_rs, 0, 0, m, scale,
+      (conj & SF_CONJ_OUT) ? -1.0f : 1.0f};
+  sf_split_row_kernel<S, PERM>
+      <<<(unsigned)rgrid, SF_ROWS * SF_ROW_REG_TPR, 0, st>>>(
+          rio, (const float*)rptw);
   return (int)cudaGetLastError();
 }
 
-// K4 on the cluster engine's rows-first order (cluster_pass.cuh): row
-// blockIdx.x >> cshift of the permuted (b, m, 128) spectrum times filter
-// slice (row % nfilt), conjugated in the load; the natural output row
-// at yr/yi + row*ys, conjugated and times `scale` in the store.  The
-// kernel keeps the mode as it came, so its fields stay kernel parameters.
-struct ClFilterMode {
+// K2's inverse and K4 on the cluster engine's rows-first order
+// (cluster_pass.cuh): row blockIdx.x >> cshift of the permuted (b, m, 128)
+// spectrum, with FILT times filter slice (row % nfilt), conjugated in the
+// load; the natural output row at yr/yi + row*ys, conjugated and times
+// `scale` in the store (K2: ys = n, scale = 1).  Without FILT the load
+// reads the spectrum alone, the filter compiled out.  The kernel keeps
+// the mode as it came, so its fields stay kernel parameters.
+//
+// K2's inverse replaces the inverse of cfftpack_tpu/ops/pallas_stream.py:
+// _stream_pallas_2d (:352).  Device-memory bytes bound it: this one pass
+// reads and writes each element once, 16 bytes, where the two stage-loop
+// passes it replaces moved 32.
+template <bool FILT>
+struct ClRfMode {
   const float* __restrict__ xr;
   const float* __restrict__ xi;
   const float* __restrict__ fr;
@@ -510,11 +535,16 @@ struct ClFilterMode {
                                            float& vi) const {
     const long long p = row();
     const long long at = (long long)k2 * SF_N1 + k1;
-    const long long f = (p % nfilt) * n + at;
     const float ar = xr[p * n + at], ai = xi[p * n + at];
-    const float br = __ldg(fr + f), bi = __ldg(fi + f);
-    vr = ar * br - ai * bi;
-    vi = -(ar * bi + ai * br);
+    if constexpr (FILT) {
+      const long long f = (p % nfilt) * n + at;
+      const float br = __ldg(fr + f), bi = __ldg(fi + f);
+      vr = ar * br - ai * bi;
+      vi = -(ar * bi + ai * br);
+    } else {
+      vr = ar;
+      vi = -ai;
+    }
   }
   __device__ __forceinline__ void col_store(int q, int r, float vr,
                                             float vi) const {
@@ -525,90 +555,189 @@ struct ClFilterMode {
 };
 
 // One cluster of C = 128 >> lshift blocks a row.
-template <int M>
+template <int M, bool FILT>
 __global__ void __launch_bounds__(CL_MAX_THREADS)
-    cl_filter_kernel(ClFilterMode md, const float* __restrict__ t1r,
-                     const float* __restrict__ t1i,
-                     const float* __restrict__ cptw,
-                     const float* __restrict__ rptw, int lshift) {
-  extern __shared__ __align__(16) float cl_filter_smem[];
-  cl_fft_rows_first<M>(md, cl_filter_smem, t1r, t1i, cptw, rptw, lshift);
+    cl_rf_kernel(ClRfMode<FILT> md, const float* __restrict__ t1r,
+                 const float* __restrict__ t1i,
+                 const float* __restrict__ cptw,
+                 const float* __restrict__ rptw, int lshift) {
+  extern __shared__ __align__(16) float cl_rf_smem[];
+  cl_fft_rows_first<M>(md, cl_rf_smem, t1r, t1i, cptw, rptw, lshift);
 }
 
-template <int M>
-static cudaError_t cl_filter_run(const ClFilterMode& md, const void* t1r,
-                                 const void* t1i, const void* cptw,
-                                 const void* rptw, int b, int C,
-                                 cudaStream_t st) {
+template <int M, bool FILT>
+static cudaError_t cl_rf_run(const ClRfMode<FILT>& md, const void* t1r,
+                             const void* t1i, const void* cptw,
+                             const void* rptw, int b, int C,
+                             cudaStream_t st) {
   static ClReady ready;
-  return cl_launch<CL_RF_RS>(cl_filter_kernel<M>, ready, M, C, b, st, md,
+  return cl_launch<CL_RF_RS>(cl_rf_kernel<M, FILT>, ready, M, C, b, st, md,
                              (const float*)t1r, (const float*)t1i,
                              (const float*)cptw, (const float*)rptw,
                              cl_log2(SF_N1 / C));
 }
 
+// K2's forward on the cluster engine (cluster_pass.cuh): transform
+// blockIdx.x >> cshift, its natural input row at xr/xi + row*in_rs
+// (in_rs >= n: the caller's paired rows, read with no copy), the permuted
+// spectrum out, X[k2 + m*k1] at [k2, k1] of row*n.  After the exchange
+// block c owns rows k2 in [c*m/C, (c+1)*m/C), and in the permuted order
+// those are one contiguous run of (m/C)*128 floats a plane: its store
+// writes them as they lie, threads fastest along k1, so a warp stores 128
+// contiguous bytes a plane.
+//
+// It replaces the forward of cfftpack_tpu/ops/pallas_stream.py:
+// _stream_pallas_2d (:352).  Device-memory bytes bound it: this one pass
+// reads and writes each element once, 16 bytes, where the two stage-loop
+// passes it replaces moved 32 (and the caller's copy of the paired rows
+// 16 more).  It is K3's kernel (ClNatMode) with the simplest store of the
+// engine.
+struct ClPermMode {
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  float* __restrict__ yr;
+  float* __restrict__ yi;
+  long long n, in_rs;
+  int cshift;
+  __device__ __forceinline__ long long row() const {
+    return blockIdx.x >> cshift;
+  }
+  __device__ __forceinline__ void col_load(int q, int r, float& vr,
+                                           float& vi) const {
+    const long long g = row() * in_rs + q * SF_N1 + r;
+    vr = xr[g];
+    vi = xi[g];
+  }
+  __device__ __forceinline__ void store(const ClTile& t) const {
+    const int count = SF_N1 << t.sh.rshift;
+    const long long at =
+        row() * n + ((long long)t.sh.c << t.sh.rshift) * SF_N1;
+    for (int e = threadIdx.x; e < count; e += blockDim.x) {
+      float vr, vi;
+      t.own(e >> 7, e & (SF_N1 - 1), vr, vi);
+      yr[at + e] = vr;
+      yi[at + e] = vi;
+    }
+  }
+};
+
+// One cluster of C = 128 >> lshift blocks a transform.  After the row
+// phase's exchange no block reads another's shared memory, so the store
+// needs no cluster barrier.
+template <int M>
+__global__ void __launch_bounds__(CL_MAX_THREADS)
+    cl_perm_kernel(ClPermMode md, const float* __restrict__ t1r,
+                   const float* __restrict__ t1i,
+                   const float* __restrict__ cptw,
+                   const float* __restrict__ rptw, int lshift) {
+  extern __shared__ __align__(16) float cl_perm_smem[];
+  const ClShape sh =
+      cl_fft<M>(md, cl_perm_smem, t1r, t1i, cptw, rptw, lshift);
+  md.store(ClTile{cl_perm_smem, sh});
+}
+
+template <int M>
+static cudaError_t cl_perm_run(const ClPermMode& md, const void* t1r,
+                               const void* t1i, const void* cptw,
+                               const void* rptw, int b, int C,
+                               cudaStream_t st) {
+  static ClReady ready;
+  return cl_launch(cl_perm_kernel<M>, ready, M, C, b, st, md,
+                   (const float*)t1r, (const float*)t1i, (const float*)cptw,
+                   (const float*)rptw, cl_log2(SF_N1 / C));
+}
+
 // One of K2-K4's modes on `stream`.  x and y are the input and output
-// planes, s the (b, m, 128) scratch planes; f the (nfilt, m, 128)
-// permuted filter slices of mode filter.  The route is m's:
+// planes, input row p at x + p*in_rs; s the scratch planes; f the (nfilt,
+// m, 128) permuted filter slices of mode filter.  The route is
+// (mode, m)'s:
 //
-// * mode filter (K4) at m = 128, 256, 512, 1024: one kernel on clusters
-//   of `csize` blocks in the rows-first order (cluster_pass.cuh), no
-//   scratch; t1 is the forward outer twiddle, cptw and rptw the register
-//   pass twiddles of m and 128; output row p at y + p*ys (ys >= n), times
-//   `scale`;
-// * every other (mode, m): the two stage-loop passes through the scratch,
-//   t1 in the mode's sign with the stage plans (ctw, cfac, coff) of the
-//   m-point column pass and (rtw, rfac, roff) of the 128-point row pass,
-//   both with forward-sign twiddles; it takes ys = n and scale = 1 only
-//   (the caller copies and multiplies).
+// * modes fwd, inv (K2) and filter (K4) at m = 128, 256, 512, 1024: one
+//   kernel on clusters of `csize` blocks (cluster_pass.cuh), no scratch,
+//   fwd columns first (ClPermMode), inv and filter rows first (ClRfMode);
+//   t1 is the forward outer twiddle, cptw and rptw the register pass
+//   twiddles of m and 128; mode filter writes output row p at y + p*ys
+//   (ys >= n) times `scale`;
+// * mode fwd at m = 2048 and 4096: K5's two register-pass kernels at
+//   S = 1 through the (b, n) scratch, the row pass's store permuted; t1,
+//   cptw and rptw as above;
+// * every other (mode, m): the two stage-loop passes through the
+//   (b, m, 128) scratch, t1 in the mode's sign with the stage plans (ctw,
+//   cfac, coff) of the m-point column pass and (rtw, rfac, roff) of the
+//   128-point row pass, both with forward-sign twiddles.
 //
-// Returns the first CUDA error, or cudaErrorInvalidValue for arguments
-// the kernels do not take.
+// Only mode fwd off the stage loop takes in_rs > n, and only mode filter
+// on its cluster ys > n or scale != 1.  Returns the first CUDA error, or
+// cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int stream_fft_f32(
     const void* xr, const void* xi, void* yr, void* yi, void* sr, void* si,
     const void* t1r, const void* t1i, const void* ctwr, const void* ctwi,
     int cstages, const int* cfac, const int* coff, const void* rtwr,
     const void* rtwi, int rstages, const int* rfac, const int* roff,
     const void* cptw, const void* rptw, const void* fr, const void* fi,
-    int nfilt, int b, int m, int mode, int csize, int lshift, long long ys,
-    float scale, void* stream) {
+    int nfilt, int b, int m, int mode, int csize, int lshift,
+    long long in_rs, long long ys, float scale, void* stream) {
   if (b < 1 || m < SF_ROWS || m % SF_ROWS || mode < SF_FWD ||
       mode > SF_FILTER)
     return (int)cudaErrorInvalidValue;
   if (mode == SF_FILTER && (fr == nullptr || fi == nullptr || nfilt < 1))
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)m * SF_N1;
+  const bool k2_fwd = mode == SF_FWD && (cl_takes(m) || sf_reg_takes(m));
+  const bool k4_cl = mode == SF_FILTER && cl_takes(m);
+  if (in_rs < n || (in_rs != n && !k2_fwd) || ys < n ||
+      ((ys != n || scale != 1.0f) && !k4_cl))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == SF_FILTER && cl_takes(m)) {
-    if (cptw == nullptr || rptw == nullptr || ys < n ||
-        !cl_config_ok(m, csize, CL_RF_RS))
+  if (cl_takes(m) && mode != SF_FWD_NAT && mode != SF_INV_NAT) {
+    if (cptw == nullptr || rptw == nullptr ||
+        !cl_config_ok(m, csize, mode == SF_FWD ? CL_RS : CL_RF_RS))
       return (int)cudaErrorInvalidValue;
-    const ClFilterMode md{(const float*)xr, (const float*)xi,
-                          (const float*)fr, (const float*)fi,
-                          (float*)yr,       (float*)yi,
-                          n,                ys,
-                          nfilt,            cl_log2(csize),
-                          scale,            -scale};
+    const int cs = cl_log2(csize);
     cudaError_t err;
-    switch (m) {
-      case 128:
-        err = cl_filter_run<128>(md, t1r, t1i, cptw, rptw, b, csize, st);
-        break;
-      case 256:
-        err = cl_filter_run<256>(md, t1r, t1i, cptw, rptw, b, csize, st);
-        break;
-      case 512:
-        err = cl_filter_run<512>(md, t1r, t1i, cptw, rptw, b, csize, st);
-        break;
-      default:
-        err = cl_filter_run<1024>(md, t1r, t1i, cptw, rptw, b, csize, st);
-        break;
+    if (mode == SF_FWD) {
+      const ClPermMode md{(const float*)xr, (const float*)xi, (float*)yr,
+                          (float*)yi, n, in_rs, cs};
+      err = cl_for_m(m, [&](auto M) {
+        return cl_perm_run<decltype(M)::value>(md, t1r, t1i, cptw, rptw, b,
+                                               csize, st);
+      });
+    } else if (mode == SF_FILTER) {
+      const ClRfMode<true> md{(const float*)xr, (const float*)xi,
+                              (const float*)fr, (const float*)fi,
+                              (float*)yr,       (float*)yi,
+                              n,                ys,
+                              nfilt,            cs,
+                              scale,            -scale};
+      err = cl_for_m(m, [&](auto M) {
+        return cl_rf_run<decltype(M)::value>(md, t1r, t1i, cptw, rptw, b,
+                                             csize, st);
+      });
+    } else {
+      const ClRfMode<false> md{(const float*)xr, (const float*)xi,
+                               nullptr,          nullptr,
+                               (float*)yr,       (float*)yi,
+                               n,                n,
+                               1,                cs,
+                               1.0f,             -1.0f};
+      err = cl_for_m(m, [&](auto M) {
+        return cl_rf_run<decltype(M)::value>(md, t1r, t1i, cptw, rptw, b,
+                                             csize, st);
+      });
     }
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
+  if (k2_fwd) {
+    if (cptw == nullptr || rptw == nullptr) return (int)cudaErrorInvalidValue;
+    SFPlan none{};
+    return sf_split_run<1, true>(xr, xi, yr, yi, sr, si, t1r, t1i, nullptr,
+                                 nullptr, none, nullptr, nullptr, cptw, rptw,
+                                 nullptr, nullptr, b, m, 0, in_rs, n, 1.0f,
+                                 0, st);
+  }
   SFPlan cplan, rplan;
-  if (lshift < 0 || lshift > 7 || ys != n || scale != 1.0f ||
+  if (lshift < 0 || lshift > 7 ||
       !sf_make_plan(&cplan, m, cstages, cfac, coff) ||
       !sf_make_plan(&rplan, SF_N1, rstages, rfac, roff))
     return (int)cudaErrorInvalidValue;
@@ -781,21 +910,10 @@ extern "C" int stream_nat_f32(
     const ClNatMode md{(const float*)xr, (const float*)xi, (float*)yr,
                        (float*)yi, (long long)m * SF_N1, cl_log2(csize), sgn,
                        scale, sgn * scale};
-    cudaError_t err;
-    switch (m) {
-      case 128:
-        err = cl_nat_run<128>(md, t1r, t1i, cptw, rptw, b, csize, st);
-        break;
-      case 256:
-        err = cl_nat_run<256>(md, t1r, t1i, cptw, rptw, b, csize, st);
-        break;
-      case 512:
-        err = cl_nat_run<512>(md, t1r, t1i, cptw, rptw, b, csize, st);
-        break;
-      default:
-        err = cl_nat_run<1024>(md, t1r, t1i, cptw, rptw, b, csize, st);
-        break;
-    }
+    const cudaError_t err = cl_for_m(m, [&](auto M) {
+      return cl_nat_run<decltype(M)::value>(md, t1r, t1i, cptw, rptw, b,
+                                            csize, st);
+    });
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
@@ -812,5 +930,6 @@ extern "C" int stream_nat_f32(
                         cstages, cfac, coff, rtwr, rtwi, rstages, rfac, roff,
                         nullptr, nullptr, nullptr, nullptr, 1, b, m,
                         inverse ? SF_INV_NAT : SF_FWD_NAT, 0, lshift,
-                        (long long)m * SF_N1, 1.0f, stream);
+                        (long long)m * SF_N1, (long long)m * SF_N1, 1.0f,
+                        stream);
 }

@@ -38,9 +38,9 @@ _K1_ARGTYPES = ([_P] * 9 + [_I, _I, _I] + [_P] * 3 + [_I, _P, _I, _I, _I,
                                                       ctypes.c_double, _P])
 # xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
 # rtwr, rtwi, rstages, rfac, roff, cptw, rptw, fr, fi, nfilt, b, m, mode,
-# csize, lshift, ys, scale, stream
+# csize, lshift, in_rs, ys, scale, stream
 _STREAM_ARGTYPES = ([_P] * 10 + [_I, _P, _P] + [_P] * 2 + [_I, _P, _P]
-                    + [_P] * 4 + [_I] * 6 + [_L, ctypes.c_float, _P])
+                    + [_P] * 4 + [_I] * 6 + [_L, _L, ctypes.c_float, _P])
 # xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff, spr,
 # spi, split, ptw, rptw, fr, fi, b, m, lshift, in_rs, out_rs, scale, conj,
 # stream

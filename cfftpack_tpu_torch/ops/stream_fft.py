@@ -19,13 +19,18 @@ K4 runs one pass on the same cluster engine at m = 128 .. 1024, in its
 rows-first order (the 128-point DFT of each permuted row first), with
 the norm's scale in its store and its output written through a row
 stride (``sfilter_stream``'s paired rows), and the two stage-loop
-passes elsewhere.
+passes elsewhere.  K2 (:func:`_k2_route`) runs its forward as K3's
+(one cluster pass at m = 128 .. 1024, the two register-pass kernels at
+2048 and 4096), storing the permuted rows as they lie and reading its
+input through a row stride (``sfilter_stream``'s paired rows, with no
+copy), and its inverse as K4's without the filter; other m keep the
+two stage-loop passes.
 K5 (:func:`sfft_stream_split`, :func:`sfilter_stream`) splits lengths
 past m = 4096 s = 2 or 4 ways: mode "split" of the same passes,
 with the s-point DFT and the split twiddle in the column pass's load and
 the digit riffle (natural order), the norm scale and an optional filter
 in the row pass's store; the inverse is the conjugated forward.  The
-CUDA kernels live in ``csrc/stream_fft.cu``; each K2 and K5 call, and
+CUDA kernels live in ``csrc/stream_fft.cu``; each K5 call, and K2 and
 K4 off the cluster, is two passes there (an m-point column pass and a
 128-point row pass through scratch planes).
 
@@ -78,9 +83,6 @@ _NAT_MODES = ("fwd_nat", "inv_nat")      # K3
 # filter; the value is the entry's conj flags (1 conjugates the load, 2
 # the store)
 _SPLIT_MODES = {"split": 0, "split_inv": 3, "split_conj": 2}
-_KERNEL = {"fwd": "K2", "inv": "K2", "fwd_nat": "K3", "inv_nat": "K3",
-           "filter": "K4", "split": "K5", "split_inv": "K5",
-           "split_conj": "K5"}
 launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0, "K11": 0}
 # K5's column pass at these m runs in register passes (the engine of
 # K1, csrc/regfft.cuh, compiled for them alone): lanes a block (1024
@@ -120,6 +122,21 @@ def _k3_route(m: int):
     if m in _CLUSTER_M:
         return "cluster", _cluster_size(m)
     if m in _REG_LANES:
+        return "reg", _REG_LANES[m]
+    return "stage", _col_lanes(m)
+
+
+def _k2_route(m: int, inverse: bool):
+    """K2's route at m = n/128, as K3's: ("cluster", C) one kernel on
+    clusters of C blocks, the forward columns first at K3's C, the inverse
+    rows first at K4's; ("reg", lanes) the forward's two register-pass
+    kernels at m = 2048 and 4096; or ("stage", lanes) the two stage-loop
+    passes.  A sweep of C on an H100 (``chip_smoke.py`` phase 25c; PERF.md
+    §6) found both rules the fastest or within 2% of it for K2 too."""
+    if m in _CLUSTER_M:
+        return "cluster", (_filter_cluster_size(m) if inverse
+                           else _cluster_size(m))
+    if m in _REG_LANES and not inverse:
         return "reg", _REG_LANES[m]
     return "stage", _col_lanes(m)
 
@@ -302,8 +319,9 @@ class _LaunchPlan:
     passes to a C entry besides the data: the column pass's table
     pointers and C arrays, then the row pass's (s = 1) or K5's split
     twiddle and register-pass tables (s > 1); the column pass's lanes;
-    at s = 1 K3's route and the tables of ``stream_nat_f32`` (``nat``);
-    and the tensors behind the pointers."""
+    at s = 1 K3's route and the tables of ``stream_nat_f32`` (``nat``,
+    also those of K2's and K4's cluster and register routes); and the
+    tensors behind the pointers."""
     col: tuple
     rest: tuple
     lshift: int
@@ -339,7 +357,7 @@ def _launch_plan(n_in: int, inverse: bool, s: int, device) -> _LaunchPlan:
                 _build.ints(rt.factors), _build.ints(rt.offs[:-1]))
         keep += (rt,)
         route = _k3_route(m)
-        # K3's cluster and register routes run the inverse as the
+        # the cluster and register routes run the inverse as the
         # conjugated forward: the forward outer twiddle
         f1r, f1i = (_device_outer(n_in, False, device)
                     if route[0] != "stage" else (t1r, t1i))
@@ -370,13 +388,31 @@ def _check_device(xr, xi, what: str):
                          f"CUDA device, got {xr.device} and {xi.device}")
 
 
+def _row_stride(xr, xi, b: int, n: int):
+    """The row stride of two planes of b rows of n floats, (b, n) or
+    (b, n/128, 128), with unit element stride and one row stride of at
+    least n: the layout that K2's forward and K5 read, and K4 and K5
+    write, through a row stride.  None for any other layout."""
+    if tuple(xr.shape) == (b, n):
+        unit = xr.stride(1) == 1
+    elif tuple(xr.shape) == (b, n // _N1, _N1):
+        unit = xr.stride(2) == 1 and xr.stride(1) == _N1
+    else:
+        return None
+    rs = xr.stride(0) if b > 1 else n
+    if (not unit or xi.shape != xr.shape or xi.stride() != xr.stride()
+            or rs < n):
+        return None
+    return rs
+
+
 def _rows(xr, xi, n: int):
-    """(b, n) planes with unit element stride and one row stride, copied
-    only when they are not."""
-    if (xr.stride(-1) != 1 or xi.stride(-1) != 1
-            or xr.stride(0) != xi.stride(0) or xr.stride(0) < n):
-        xr, xi = xr.contiguous(), xi.contiguous()
-    return xr, xi, xr.stride(0)
+    """Planes in :func:`_row_stride`'s layout and their row stride, copied
+    only when they are not in it."""
+    rs = _row_stride(xr, xi, xr.shape[0], n)
+    if rs is None:
+        xr, xi, rs = xr.contiguous(), xi.contiguous(), n
+    return xr, xi, rs
 
 
 def _split_launch(xr, xi, n: int, mode: str, fr, fi, scale: float, out):
@@ -405,8 +441,8 @@ def _split_launch(xr, xi, n: int, mode: str, fr, fi, scale: float, out):
     if tuple(yr.shape) != (b, n) or yi.shape != yr.shape:
         raise ValueError(f"mode {mode} writes (b, {n}) planes, got "
                          f"{tuple(yr.shape)} and {tuple(yi.shape)}")
-    if (yr.stride(-1) != 1 or yi.stride(-1) != 1
-            or yr.stride(0) != yi.stride(0) or yr.stride(0) < n):
+    ys = _row_stride(yr, yi, b, n)
+    if ys is None:
         raise ValueError(f"mode {mode} writes planes with unit element "
                          f"stride and one row stride of at least {n}")
     if b == 0:
@@ -425,7 +461,7 @@ def _split_launch(xr, xi, n: int, mode: str, fr, fi, scale: float, out):
         _build.load().stream_split_f32, xr.device, xr.data_ptr(),
         xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), sr.data_ptr(),
         si.data_ptr(), *lp.col, *lp.rest, *fptr, b, m, lp.lshift, in_rs,
-        yr.stride(0), scale, _SPLIT_MODES[mode])
+        ys, scale, _SPLIT_MODES[mode])
     if err != 0:
         raise RuntimeError(f"K5 launch failed at n={n}, b={b}, mode={mode}: "
                            f"CUDA error {err}")
@@ -505,6 +541,8 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
         fi = fi.contiguous()
         nfilt = fr.shape[0]
         fptr = (fr.data_ptr(), fi.data_ptr())
+    if mode in ("fwd", "inv"):
+        return _perm_launch(xr, xi, n, mode == "inv")
     xr = xr.contiguous()
     xi = xi.contiguous()
     if mode in _NAT_MODES:
@@ -512,25 +550,53 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
                              mode == "inv_nat", scale)
         shape_out = (b, _N1, m) if mode == "fwd_nat" else (b, m, _N1)
         return yr.view(shape_out), yi.view(shape_out)
-    if mode == "filter":
-        return _filter_launch(xr, xi, n, fptr, nfilt, scale, out)
-    shape_out = (b, m, _N1)
-    yr = torch.empty(shape_out, dtype=xr.dtype, device=xr.device)
+    return _filter_launch(xr, xi, n, fptr, nfilt, scale, out)
+
+
+def _perm_launch(xr, xi, n: int, inverse: bool):
+    """K2 (modes fwd, inv) through ``stream_fft_f32`` on
+    :func:`_k2_route`: one kernel a call on the cluster route, two on the
+    others.  The forward off the stage loop reads its input through its
+    row stride, as it is (:func:`_row_stride`'s layout, which the wrappers
+    give it), and refuses any other; the stage loop takes contiguous
+    planes."""
+    b = xr.shape[0]
+    m = n // _N1
+    dev = xr.device
+    route, arg = _k2_route(m, inverse)
+    if route == "stage" or inverse:
+        xr, xi, in_rs = xr.contiguous(), xi.contiguous(), n
+    else:
+        in_rs = _row_stride(xr, xi, b, n)
+        if in_rs is None:
+            raise ValueError(f"K2's forward reads two planes of {b} rows of "
+                             f"{n} floats with unit element stride and one "
+                             f"row stride of at least {n}, got "
+                             f"{xr.stride()} and {xi.stride()}")
+    yr = torch.empty((b, m, _N1), dtype=xr.dtype, device=dev)
     yi = torch.empty_like(yr)
     if b == 0:
         return yr, yi
-    sr = torch.empty((b, m, _N1), dtype=xr.dtype, device=xr.device)
-    si = torch.empty_like(sr)
-    lp = _launch_plan(n, mode != "fwd", 1, xr.device)
+    lp = _launch_plan(n, inverse, 1, dev)
+    if route == "stage":
+        tabs = lp.col + lp.rest + (None, None)
+    else:
+        tabs = lp.nat
+    if route == "cluster":
+        scratch = (None, None)
+    else:
+        sr = torch.empty((b, n), dtype=xr.dtype, device=dev)
+        si = torch.empty_like(sr)
+        scratch = (sr.data_ptr(), si.data_ptr())
     err = _build.call(
-        _build.load().stream_fft_f32, xr.device, xr.data_ptr(),
-        xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), sr.data_ptr(),
-        si.data_ptr(), *lp.col, *lp.rest, None, None, *fptr, nfilt, b, m,
-        _MODES.index(mode), 0, lp.lshift, n, 1.0)
+        _build.load().stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), *scratch, *tabs, None, None, 1, b, m,
+        _MODES.index("inv" if inverse else "fwd"),
+        arg if route == "cluster" else 0, lp.lshift, in_rs, n, 1.0)
     if err != 0:
-        raise RuntimeError(f"stream kernel launch failed at n={n}, b={b}, "
-                           f"mode={mode}: CUDA error {err}")
-    launches[_KERNEL[mode]] += 1
+        raise RuntimeError(f"K2 launch failed at n={n}, b={b}, inverse="
+                           f"{inverse}, route={route}: CUDA error {err}")
+    launches["K2"] += 1
     return yr, yi
 
 
@@ -541,14 +607,8 @@ def _out_planes(out, b: int, n: int, device):
     yr, yi = out
     _check_dtype(yr, yi)
     _check_device(yr, yi, "output")
-    m = n // _N1
-    rows_ok = ((yr.dim() == 2 and tuple(yr.shape) == (b, n)
-                and yr.stride(1) == 1)
-               or (yr.dim() == 3 and tuple(yr.shape) == (b, m, _N1)
-                   and yr.stride(2) == 1 and yr.stride(1) == _N1))
-    ys = yr.stride(0) if b > 1 else n
-    if (not rows_ok or yi.shape != yr.shape or yi.stride() != yr.stride()
-            or yr.device != device or ys < n):
+    ys = _row_stride(yr, yi, b, n)
+    if ys is None or yr.device != device:
         raise ValueError(f"mode filter writes two planes of {b} rows of {n} "
                          f"floats with unit element stride and one row "
                          f"stride of at least {n}, got {tuple(yr.shape)} "
@@ -578,7 +638,7 @@ def _filter_launch(xr, xi, n: int, fptr, nfilt: int, scale: float, out):
             lib.stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), None, None, *lp.nat,
             *fptr, nfilt, b, m, _MODES.index("filter"),
-            _filter_cluster_size(m), 0, ys, scale)
+            _filter_cluster_size(m), 0, n, ys, scale)
         yr = yi = None
     else:
         yr = torch.empty((b, m, _N1), dtype=xr.dtype, device=dev)
@@ -589,7 +649,7 @@ def _filter_launch(xr, xi, n: int, fptr, nfilt: int, scale: float, out):
             lib.stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
             yr.data_ptr(), yi.data_ptr(), sr.data_ptr(), si.data_ptr(),
             *lp.col, *lp.rest, None, None, *fptr, nfilt, b, m,
-            _MODES.index("filter"), 0, lp.lshift, n, 1.0)
+            _MODES.index("filter"), 0, lp.lshift, n, n, 1.0)
     if err != 0:
         raise RuntimeError(f"K4 launch failed at n={n}, b={b}: CUDA error "
                            f"{err}")
@@ -615,10 +675,12 @@ def _run(xr, xi, n: int, mode: str, fr=None, fi=None, **kw):
 def sfft_stream_permuted(xr, xi, n: int, inverse: bool):
     """Permuted-layout FFT over the last axis (K2): forward natural ->
     permuted, X[k2 + m*k1] at flat [k2*128 + k1]; inverse permuted ->
-    natural (unscaled)."""
+    natural (unscaled).  Rows in any layout: copied only where K2 does
+    not read them as they are."""
     shape = xr.shape
     m = n // _N1
-    yr, yi = _run(xr.reshape(-1, m, _N1), xi.reshape(-1, m, _N1), n,
+    xr, xi, _ = _rows(xr.reshape(-1, n), xi.reshape(-1, n), n)
+    yr, yi = _run(xr.view(-1, m, _N1), xi.view(-1, m, _N1), n,
                   "inv" if inverse else "fwd")
     return yr.reshape(shape), yi.reshape(shape)
 
@@ -663,13 +725,16 @@ def sfilter_stream(x, ffr, ffi, n: int, scale: float = 1.0):
     filter.  Adjacent rows pack as z = x[2p] + i*x[2p+1]; since the
     extension is conjugate-symmetric, the filtered pair decodes to the
     filtered rows exactly.  Within the kernel's cap this is K2 forward to
-    the permuted spectrum and K4, whose load multiplies by the permuted
-    filter and whose store writes the two filtered planes straight into
-    the paired rows, times ``scale``.  Past it (m > 4096, e.g. the 2^20
-    pricer grid) it is two K5 calls: Y = conj(fft(z) * F), the filter in
-    the first call's store, then conj(scale * fft(Y)) = scale * ifft(fft(z)
-    * F) written straight into the rows; both read and write the pairs
-    through their row stride.
+    the permuted spectrum, reading the paired rows through their row
+    stride (no copy where K2 runs one pass or its register kernels; rows
+    without unit element stride, as of a transposed x, are copied first),
+    and K4, whose load multiplies by the permuted filter and whose store
+    writes the two filtered planes straight into the paired rows, times
+    ``scale``.  Past it (m > 4096, e.g. the 2^20 pricer grid) it is two
+    K5 calls: Y = conj(fft(z) * F), the filter in the first call's store,
+    then conj(scale * fft(Y)) = scale * ifft(fft(z) * F) written straight
+    into the rows; both read and write the pairs through their row
+    stride.
     """
     lead = x.shape[:-1]
     B = lead.numel()
@@ -686,8 +751,8 @@ def sfilter_stream(x, ffr, ffi, n: int, scale: float = 1.0):
         _run(yr, yi, n, "split_conj", scale=scale, out=(out[:, 0], out[:, 1]))
         return out.reshape(lead + (n,))
     m = n // _N1
-    Zr, Zi = _run(xp[:, 0].reshape(P, m, _N1), xp[:, 1].reshape(P, m, _N1),
-                  n, "fwd")
+    zr, zi, _ = _rows(xp[:, 0], xp[:, 1], n)
+    Zr, Zi = _run(zr.view(P, m, _N1), zi.view(P, m, _N1), n, "fwd")
     # the filter in the permuted layout: k = k2 + m*lane -> (1, m, 128)
     fpr = ffr.reshape(1, _N1, m).transpose(1, 2).contiguous()
     fpi = ffi.reshape(1, _N1, m).transpose(1, 2).contiguous()

@@ -4,9 +4,10 @@
 
 Builds the CUDA kernels from the checkout (K1,
 ``cfftpack_tpu_torch/csrc/stockham_fft.cu``; K2, K3, K4 and K5,
-``csrc/stream_fft.cu``, K3 at m = 128 .. 1024 on the thread-block
-cluster of ``csrc/cluster_pass.cuh`` and K4 on it in its rows-first
-order; K7 and K8, ``csrc/rstream_fft.cu``, both on the same cluster
+``csrc/stream_fft.cu``, K3 and K2's forward at m = 128 .. 1024 on the
+thread-block cluster of ``csrc/cluster_pass.cuh`` and at 2048 and 4096
+on K5's register kernels, K4 and K2's inverse on the cluster in its
+rows-first order; K7 and K8, ``csrc/rstream_fft.cu``, both on the same cluster
 engine at those m; K6 and K9,
 ``csrc/col_fft.cu``; K10, ``csrc/fourstep_fft.cu``; K11,
 ``csrc/mm2_fft.cu``), holds each against its plain PyTorch version and
@@ -33,7 +34,7 @@ just after.  Prints CUDA-event times of the kernels, their plain
 versions and the PyTorch calls that compute the same functions, the
 measurements behind K1's rows a block, a profiler breakdown of the 2-D
 routes, of K10's and K11's passes and of K1, K2, K3, K4, K5, K7 and K8
-with their kernel rows a call, a sweep of the cluster size at m = 512,
+with their kernel rows a call, sweeps of the cluster size,
 K6 and K9
 alone by device time with a sweep of K6's lanes and cluster size, one
 JSON line describing the kernels (each with its bound on this card),
@@ -86,6 +87,8 @@ BEFORE_WORST = {"K1 float32": (3.200e-07, 2.815e-07),
 # phase 3: m = 16, 32, 48 (radix 3), 80 (radix 5), 512, 768, 4096 (the cap)
 STREAM_SIZES = (2048, 4096, 6144, 10240, 65536, 98304, 524288)
 STREAM_MODES = ("fwd", "inv", "fwd_nat", "inv_nat", "filter")
+STREAM_KERNEL = {"fwd": "K2", "inv": "K2", "fwd_nat": "K3", "inv_nat": "K3",
+                 "filter": "K4"}
 # phase 3: K3 on each of its routes, both ways with a scale: the cluster
 # route (m = 128 .. 1024), the register route (2048, 4096), the stage loop
 # (768)
@@ -93,14 +96,20 @@ K3_M = (128, 256, 512, 1024, 2048, 4096, 768)
 # phase 3: K4 on its cluster (m = 128 .. 1024) and on the stage loop
 # (768), s = 1 and 2, with a scale, into the strided planes of paired rows
 K4_M = (128, 256, 512, 1024, 768)
+# phase 3: K2 on each of its routes, both ways, the forward also from
+# the strided planes of paired rows: the cluster (m = 128 .. 1024), the
+# forward's register kernels (2048, 4096), the stage loop (48, 768 and
+# the inverse at 2048, 4096)
+K2_M = (128, 256, 512, 1024, 2048, 4096, 48, 768)
 # phase 3b: K7 at n = 128*m and K8 (dct4 and dst4) at n = 2*128*m,
 # m = 16, 48 (radix 3), 80 (radix 5), 128, 256, 512 and 1024 (the cluster
 # route), 4096
 RSTREAM_M = (16, 48, 80, 128, 256, 512, 1024, 4096)
 # phase 25c: the cluster sizes swept at m = 512 (K3 and K7) and 256 (K8),
-# and K4's at every m of its cluster
+# K4's at every m of its cluster, and K2's both ways at m = 128, 256, 512
 C_SWEEP = (4, 8, 16)
 K4_C_SWEEP = (2, 4, 8, 16)
+K2_SWEEP_M = (128, 256, 512)
 # phase 3c: K6 and K9 at every compiled register length (512 .. 4096, the
 # cap) and at stage-loop lengths (16, radix 3 and 5); n1 = 513 is the
 # packed width of rfft2 at 1024, n1 = 5 is under every lane count
@@ -635,7 +644,7 @@ def main() -> None:
                     None if fr is None else torch.complex(fr, fi))
                 ep = rel_err(got, torch.complex(pr, pi))
                 eo = rel_err(got, want)
-                k = stream_fft._KERNEL[mode]
+                k = STREAM_KERNEL[mode]
                 check(ep < 1e-5 and eo < 1e-5,
                       f"{k} {mode} s={s} n={n} b={b}: vs plain {ep:.2e}, "
                       f"vs torch.fft {eo:.2e} < 1e-5")
@@ -665,6 +674,36 @@ def main() -> None:
                 stream_err["K3"] = max(stream_err["K3"], float(max(
                     (yr - pr).abs().max(), (yi - pi).abs().max())))
                 worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
+    # K2 on each route: the forward from contiguous planes and from the
+    # strided planes of paired rows (xp[:, 0] and xp[:, 1] of (b, 2, n),
+    # as sfilter_stream hands them), the inverse
+    for m in K2_M:
+        n = 128 * m
+        for b in (3, (1 << 22) // n):
+            rows = real((b, 2, n), torch.float32, seed=m + b)
+            pairs = tuple(rows[:, j].reshape(b, m, 128) for j in (0, 1))
+            flat = pair((b, m, 128), torch.float32, seed=m + b + 1)
+            for mode, (xr, xi), what in (("fwd", flat, "planes"),
+                                         ("fwd", pairs, "paired rows"),
+                                         ("inv", flat, "planes")):
+                route = stream_fft._k2_route(m, mode == "inv")
+                before = stream_fft.launches["K2"]
+                yr, yi = stream_fft._launch(xr, xi, n, mode)
+                check(stream_fft.launches["K2"] == before + 1,
+                      "K2 counts one launch a call")
+                pr, pi = stream_fft.stream_plain(xr, xi, n, mode)
+                torch.cuda.synchronize()
+                got = torch.complex(yr, yi)
+                want = stream_reference(torch.complex(xr, xi), n, mode)
+                ep = rel_err(got, torch.complex(pr, pi))
+                eo = rel_err(got, want)
+                check(ep < 1e-5 and eo < 1e-5,
+                      f"K2 {mode} n={n} b={b} from {what} route={route}: vs "
+                      f"plain {ep:.2e}, vs torch.fft {eo:.2e} < 1e-5")
+                stream_err["K2"] = max(stream_err["K2"], float(max(
+                    (yr - pr).abs().max(), (yi - pi).abs().max())))
+                worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
+            del rows, pairs, flat
     # K4 with a scale, into the strided planes of paired rows (out[:, 0]
     # and out[:, 1] of (b, 2, n), as sfilter_stream hands them)
     for m in K4_M:
@@ -696,8 +735,9 @@ def main() -> None:
                 stream_err["K4"] = max(stream_err["K4"], float(max(
                     (got.real - pr).abs().max(), (got.imag - pi).abs().max())))
                 worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
-    print(f"  worst vs plain {worst_p:.3e}, vs torch.fft {worst_o:.3e}; K4 "
-          f"worst |error| vs plain {stream_err['K4']:.3e}")
+    print(f"  worst vs plain {worst_p:.3e}, vs torch.fft {worst_o:.3e}; "
+          f"worst |error| vs plain K2 {stream_err['K2']:.3e}, K4 "
+          f"{stream_err['K4']:.3e}")
 
     # ---- phase 3b: K7 and K8 against their plain versions and torch.fft
     # or scipy (float64 on the host; its unnormalised DCT types 2-4 are
@@ -1071,8 +1111,9 @@ def main() -> None:
     fi[-1] = 0.0
     out, got = drive(lambda: ct.rfilter_split(x, fr, fi), total)
     check(got["K2"] == 1 and got["K4"] == 1,
-          f"one K2 and one K4 launch in rfilter_split, K4 on its cluster "
-          f"with the norm's scale in its store ({got})")
+          f"one K2 and one K4 launch in rfilter_split, both on the cluster, "
+          f"K2 reading the paired rows, K4 writing them with the norm's "
+          f"scale in its store ({got})")
     with plain_engine():
         want = ct.rfilter_split(x, fr, fi)
     e_p = rel_err(out, want)
@@ -1084,6 +1125,18 @@ def main() -> None:
     check(e_p < 1e-5, f"vs plain {e_p:.2e} < 1e-5")
     check(e_c < 1e-4, f"vs rfft_split -> multiply -> irfft_split {e_c:.2e} "
           f"< 1e-4")
+    # along axis 0 of a (65536, 64) x: the paired rows have element stride
+    # 64, so sfilter_stream copies them once into rows K2 reads
+    xt = x.T.contiguous()
+    out, got = drive(lambda: ct.rfilter_split(xt, fr, fi, axis=0), total)
+    check(got["K2"] == 1 and got["K4"] == 1,
+          f"axis 0: one K2 and one K4 launch ({got})")
+    with plain_engine():
+        want = ct.rfilter_split(xt, fr, fi, axis=0)
+    e_t = rel_err(out, want)
+    check(tuple(out.shape) == (65536, 64) and e_t < 1e-5,
+          f"axis 0 (65536, 64): shape, vs plain {e_t:.2e} < 1e-5")
+    del xt
 
     # ---- phase 10b: the streaming filter past the cap, (16, 2^20): two K5
     # calls through the paired rows, the filter in the first call's store
@@ -1961,20 +2014,24 @@ def main() -> None:
                   and all("cl_rs_kernel" in k for k in got["rows"]),
                   f"{name} norm={norm} is one K7 row a call "
                   f"({got['launches']:g}: {sorted(got['rows'])})")
-    # K2, K4 and K8 by device time at (64, 65536) f32: K4 and K8 one
-    # cluster row a call (K4 in the rows-first order), K2 its two
-    # stage-loop rows; dct/dst type 4 one K8 row under every norm, and
-    # rfilter_split K2's two rows and one K4 row
+    # K2, K4 and K8 by device time at (64, 65536) f32: one cluster row a
+    # call each (K2's forward columns first, its inverse and K4 rows
+    # first); K2's forward at m = 2048 and 4096 K5's two register
+    # kernels; dct/dst type 4 one K8 row under every norm, and
+    # rfilter_split one K2 row and one K4 row, 9 rows in all
     sr_, si_ = pair((64, 512, 128), torch.float32, seed=109)
     fpr_, fpi_ = pair((1, 512, 128), torch.float32, seed=110)
     dev_us = {}
     for k, label, fn, names in (
-            ("K2", "K2 fwd (64, 512, 128)",
+            ("K2", "K2 fwd (64, 512, 128) (cluster)",
              lambda: stream_fft._launch(sr_, si_, 65536, "fwd"),
-             ("sf_col_kernel", "sf_row_kernel")),
+             ("cl_perm_kernel<512>",)),
+            ("K2 inv", "K2 inv (64, 512, 128) (rows-first cluster)",
+             lambda: stream_fft._launch(sr_, si_, 65536, "inv"),
+             ("cl_rf_kernel<512, false>",)),
             ("K4", "K4 filter (64, 512, 128) s=1 (rows-first cluster)",
              lambda: stream_fft._launch(sr_, si_, 65536, "filter", fpr_,
-                                        fpi_), ("cl_filter_kernel<512>",)),
+                                        fpi_), ("cl_rf_kernel<512, true>",)),
             ("K8", "K8 dct4 (64, 65536) (cluster)",
              lambda: rstream.launch("dct4", 65536, x),
              ("cl_rs_kernel<256, 4>",))):
@@ -1984,6 +2041,20 @@ def main() -> None:
               f"{k} is {len(names)} kernel row(s) a call "
               f"({got['launches']:g}: {sorted(got['rows'])})")
         dev_us[k] = got["kernel_us"]
+    for m in (2048, 4096):
+        n, b = 128 * m, (1 << 22) // (128 * m)
+        ar, ai = pair((b, m, 128), torch.float32, seed=113)
+        for mode, kern in (("fwd", "K2"), ("fwd_nat", "K3")):
+            got = profile_route(f"{kern} {mode} ({b}, {m}, 128) (register "
+                                f"route)", lambda: stream_fft._launch(
+                                    ar, ai, n, mode), card)
+            names = (f"sf_split_col_reg_kernel<1, {m}>",
+                     f"sf_split_row_kernel<1, {str(kern == 'K2').lower()}>")
+            check(got["launches"] == 2
+                  and all(any(nm in r for nm in names) for r in got["rows"]),
+                  f"{kern} {mode} at m={m} is K5's two register kernels a "
+                  f"call ({got['launches']:g}: {sorted(got['rows'])})")
+        del ar, ai
     for name, fn in (("dct", ct.dct), ("dst", ct.dst)):
         for norm in ("ortho", "forward", "backward"):
             got = profile_route(f"{name} type 4 norm={norm} (64, 65536) (K8)",
@@ -1995,13 +2066,39 @@ def main() -> None:
     got = profile_route("rfilter_split (64, 65536) (K2 and K4)",
                         lambda: ct.rfilter_split(x, fr, fi), card)
     k24 = {nm: sum(c for r, c in got["count"].items() if nm in r)
-           for nm in ("sf_col_kernel", "sf_row_kernel", "cl_filter_kernel")}
-    check(k24 == {"sf_col_kernel": 1, "sf_row_kernel": 1,
-                  "cl_filter_kernel": 1},
-          f"rfilter_split is K2's two rows and one K4 row a call, "
-          f"{got['launches']:g} kernel rows in all ({k24})")
-    print(f"  device us a call at (64, 65536): K2 {dev_us['K2']:.1f}, K4 "
-          f"{dev_us['K4']:.1f}, K8 {dev_us['K8']:.1f}  [{card}]")
+           for nm in ("cl_perm_kernel<512>", "cl_rf_kernel<512, true>",
+                      "sf_col_kernel", "sf_row_kernel")}
+    check(k24 == {"cl_perm_kernel<512>": 1, "cl_rf_kernel<512, true>": 1,
+                  "sf_col_kernel": 0, "sf_row_kernel": 0}
+          and got["launches"] == 9,
+          f"rfilter_split is one K2 row and one K4 row a call, 9 kernel "
+          f"rows in all ({got['launches']:g}: {k24})")
+    print(f"  device us a call at (64, 65536): K2 fwd {dev_us['K2']:.1f}, "
+          f"K2 inv {dev_us['K2 inv']:.1f}, K4 {dev_us['K4']:.1f}, K8 "
+          f"{dev_us['K8']:.1f}  [{card}]")
+    # K2's cluster size both ways (the forward at K3's rule,
+    # stream_fft._cluster_size, the inverse at K4's,
+    # _filter_cluster_size), 2^22 elements
+    prule = stream_fft._cluster_size
+    frule = stream_fft._filter_cluster_size
+    for m in K2_SWEEP_M:
+        n, b = 128 * m, (1 << 22) // (128 * m)
+        ar, ai = pair((b, m, 128), torch.float32, seed=114)
+        for mode, rule in (("fwd", prule), ("inv", frule)):
+            for C in K4_C_SWEEP:
+                if 8 * m // C > 1024:
+                    continue
+                stream_fft._cluster_size = lambda mm, C=C: C
+                stream_fft._filter_cluster_size = lambda mm, C=C: C
+                try:
+                    profile_route(f"K2 {mode} ({b}, {m}, 128) at C={C} (the "
+                                  f"rule takes {rule(m)})",
+                                  lambda: stream_fft._launch(ar, ai, n, mode),
+                                  card)
+                finally:
+                    stream_fft._cluster_size = prule
+                    stream_fft._filter_cluster_size = frule
+        del ar, ai
     del sr_, si_
     rule = stream_fft._cluster_size
     for C in C_SWEEP:
@@ -2071,7 +2168,11 @@ def main() -> None:
         "stockham_fft (K1)", "cfftpack_tpu_torch/csrc/stockham_fft.cu",
         "cfftpack_tpu/ops/pallas_fft.py:90", "K1", kern_err, k1_ms, plain_ms,
         bound_ms(16 * 4096 * 1024, fft_flops(4096, 1024)), cufft_ms)]
-    for k, name, line in (("K2", "stream_fft fwd/inv (K2)", 352),
+    for k, name, line in (("K2", "stream_fft fwd/inv (K2): fwd one pass on "
+                           "a thread-block cluster (csrc/cluster_pass.cuh) "
+                           "at m = 128 .. 1024 and K5's two register "
+                           "kernels at 2048, 4096, inv one pass rows first "
+                           "at m = 128 .. 1024, times of fwd", 352),
                           ("K3", "stream_nat (K3): one pass on a thread-block "
                            "cluster (csrc/cluster_pass.cuh) at m = 128 .. "
                            "1024, times of fwd_nat", 386),

@@ -1,5 +1,5 @@
-"""Where the time of the port's cluster kernels (K3, K4, K7, K8) goes,
-block by block, on one CUDA card.
+"""Where the time of the port's cluster kernels (K2, K3, K4, K7, K8)
+goes, block by block, on one CUDA card.
 
     python3 scripts/torch_cluster_phases.py
 
@@ -7,15 +7,16 @@ Copies ``cfftpack_tpu_torch/csrc`` into ``build/cluster_phases/``, adds a
 read of the card's nanosecond timer (``%globaltimer``) at each phase
 boundary of ``cl_fft``, of ``cl_fft_rows_first`` and of the kernels'
 stores (thread 0 of each block), builds that copy into its own library
-and runs K3 and K7 at 2^22 elements, K8 (dct4) and K4 (one filter
-slice) at (64, 65536), once each after a warm-up.  Prints, for each
-call, the spread of the blocks' start times (the waves in which the card
-runs them) and the median and 90th percentile of each phase a block:
-columns first (K3, K7, K8), the column phase (the first pass's loads and
-the m-point register passes), the first cluster barrier, the exchange's
-loads, the second barrier, the 128-point row passes, the store; rows
-first (K4), the row phase (the row loads with the filter and the
-128-point passes), the first barrier, the exchange's loads, the second
+and runs K3 and K7 at 2^22 elements, K8 (dct4), K4 (one filter slice)
+and K2 both ways at (64, 65536), once each after a warm-up.  Prints, for
+each call, the spread of the blocks' start times (the waves in which the
+card runs them) and the median and 90th percentile of each phase a
+block: columns first (K3, K7, K8, K2's forward), the column phase (the
+first pass's loads and the m-point register passes), the first cluster
+barrier, the exchange's loads, the second barrier, the 128-point row
+passes, the store; rows first (K4, K2's inverse), the row phase (the row
+loads, with K4's filter, and the 128-point passes), the first barrier,
+the exchange's loads, the second
 barrier, the m-point column passes with the store in the last.  Needs
 the card; the kernels it builds are the committed ones with the timer
 reads added, nothing else changed.
@@ -111,6 +112,9 @@ def timed_sources(dst: Path) -> None:
     k3.write_text(_patch(k3.read_text(), [
         ("  md.template store<M>(ClTile{cl_nat_smem, sh});\n}",
          "  CL_MARK(6)\n  md.template store<M>(ClTile{cl_nat_smem, sh});\n"
+         "  CL_MARK(7)\n}"),
+        ("  md.store(ClTile{cl_perm_smem, sh});\n}",
+         "  CL_MARK(6)\n  md.store(ClTile{cl_perm_smem, sh});\n"
          "  CL_MARK(7)\n}")]) + READ % "cl_ts_k3")
     k7 = dst / "rstream_fft.cu"
     # its own copy of the table: the two files build separately
@@ -192,6 +196,13 @@ def main() -> None:
     stream_fft._launch(xr, xi, n, "filter", fr, fi)
     torch.cuda.synchronize()
     report(lib.cl_ts_k3, f"K4 filter (64, {m}, 128) C={C}", 64 * C, RF_MARKS)
+    for mode, C, marks in (("fwd", stream_fft._cluster_size(m), MARKS),
+                           ("inv", C, RF_MARKS)):
+        for _ in range(100):
+            stream_fft._launch(xr, xi, n, mode)
+        stream_fft._launch(xr, xi, n, mode)
+        torch.cuda.synchronize()
+        report(lib.cl_ts_k3, f"K2 {mode} (64, {m}, 128) C={C}", 64 * C, marks)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Device time of the stream kernels K2, K4 and K8 and of the routes that
-run them, on one CUDA card, for this checkout or another one.
+"""Device time of the stream kernels K2, K3, K4 and K8 and of the routes
+that run them, on one CUDA card, for this checkout or another one.
 
     python3 scripts/torch_stream_profile.py [--root DIR]
 
@@ -8,11 +8,12 @@ this checkout), so the same measurement runs on an older tree unpacked
 with ``git archive`` beside the current one; each tree builds its own
 kernels.  With ``torch.profiler`` (``chip_smoke.profile_route``: 10 calls
 after 3 warm-up calls, kernel rows only) it prints the device time and
-kernel rows a call of K2 forward and K4 (one filter slice) at
-(64, 512, 128) float32, K8 (``dct._dct4_stream``) at (64, 65536),
-``dct`` and ``dst`` type 4 at (64, 65536) under the ortho and backward
-norms, and ``rfilter_split`` at (64, 65536), with the card's name and
-power limit.  Calls only functions whose signatures the trees share.
+kernel rows a call of K2 forward and inverse and K4 (one filter slice)
+at (64, 512, 128) float32, K2 forward and K3 ``fwd_nat`` at (8, 4096,
+128) (m = 4096), K5 ``split`` at (8, 2^20), K8 (``dct._dct4_stream``)
+at (64, 65536), ``dct`` and ``dst`` type 4 at (64, 65536) under the
+ortho and backward norms, and ``rfilter_split`` at (64, 65536), with
+the card's name and power limit.  Calls only functions whose signatures the trees share.
 Needs the card.
 """
 from __future__ import annotations
@@ -48,9 +49,20 @@ def main() -> None:
     gr, gi = cs.pair((n // 2 + 1,), torch.float32, seed=83)
     gi[0] = 0.0
     gi[-1] = 0.0
+    big = 524288
+    ar, ai = cs.pair((8, big // 128, 128), torch.float32, seed=84)
+    cr, ci = cs.pair((8, 1 << 20), torch.float32, seed=85)
     for name, fn in (
             ("K2 fwd (64, 512, 128)",
              lambda: stream_fft._launch(xr, xi, n, "fwd")),
+            ("K2 inv (64, 512, 128)",
+             lambda: stream_fft._launch(xr, xi, n, "inv")),
+            ("K2 fwd (8, 4096, 128)",
+             lambda: stream_fft._launch(ar, ai, big, "fwd")),
+            ("K3 fwd_nat (8, 4096, 128)",
+             lambda: stream_fft._launch(ar, ai, big, "fwd_nat")),
+            ("K5 split (8, 2^20)",
+             lambda: stream_fft._launch(cr, ci, 1 << 20, "split")),
             ("K4 filter (64, 512, 128) s=1",
              lambda: stream_fft._launch(xr, xi, n, "filter", fr, fi)),
             ("K8 dct4 (64, 65536)", lambda: dct._dct4_stream(x, n)),

@@ -1,17 +1,21 @@
-"""K3, K4, K7 and K8 on the thread-block cluster
+"""K2, K3, K4, K7 and K8 on the thread-block cluster
 (csrc/cluster_pass.cuh): float64 numpy models of the one-pass
-decomposition in both orders (columns first for K3, K7 and K8, rows
-first for K4) and of the cross-block maps of K7 and K8, the layouts'
-bank checks, the route rules against the kernels' limits, the norm
-scale handed down to the kernel wrappers, and K7's and K8's cached
-launch plan.
+decomposition in both orders (columns first for K3, K7, K8 and K2's
+forward, rows first for K4 and K2's inverse), of K2's permuted stores
+and of the cross-block maps of K7 and K8, the layouts' bank checks, the
+route rules against the kernels' limits, what the wrappers hand the C
+entry (the norm scale, K2's strided pair rows), and K7's and K8's
+cached launch plan.
 
 The CUDA kernels run on the card only: the ``cuda``-marked tests below
 hold them against their plain versions there and skip here.  The JAX
-package's K4 (``_stream_filter_inv_2d``) runs in interpret mode.
+package's K2 (``_stream_pallas_2d``) and K4 (``_stream_filter_inv_2d``)
+run in interpret mode.
 """
+import functools
 import importlib
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -323,6 +327,208 @@ def test_rows_first_layout_fits_and_hits_32_banks():
     assert _bank_counts(_row_index) >= 2 and _bank_counts(_row_index, 8) >= 2
 
 
+# ------------------------------------------------- K2 on the cluster
+
+@functools.lru_cache(maxsize=None)
+def _k2_reference(m: int, inverse: bool):
+    """A seeded (2, m, 128) float32 pair, its plain K2
+    (``stream_plain(..., "fwd"/"inv")``) and the JAX package's K2
+    (``_stream_pallas_2d``, interpret mode), once per (m, direction)."""
+    n = 128 * m
+    c = complex_input((2, m, 128), np.complex64, seed=m + 5 * inverse)
+    xr, xi = np.ascontiguousarray(c.real), np.ascontiguousarray(c.imag)
+    pr, pi = sf.stream_plain(torch.as_tensor(xr), torch.as_tensor(xi), n,
+                             "inv" if inverse else "fwd")
+    wr, wi = ps._stream_pallas_2d(jnp.asarray(xr), jnp.asarray(xi), n,
+                                  inverse)
+    return (xr + 1j * xi.astype(np.float64), to_np(pr) + 1j * to_np(pi),
+            np.asarray(wr) + 1j * np.asarray(wi))
+
+
+def _perm_store(cl):
+    """ClPermMode's store: block c writes its rows as they lie, element e
+    of its run at [c*m/C + e // 128, e % 128], from slot e >> 7, lane
+    e & 127 of its row layout."""
+    X = np.full(cl.m * 128, np.nan, dtype=np.complex128)
+    e = np.arange(cl.rows * 128)
+    for c in range(cl.C):
+        X[c * cl.rows * 128 + e] = cl.buf[c][_row_index(e >> 7, e & 127)]
+    return X.reshape(cl.m, 128)
+
+
+@pytest.mark.parametrize("m,C", _routes())
+def test_permuted_store_model_is_k2(m, C):
+    """K2's forward on the columns-first cluster in the kernel's layouts,
+    float64, for every (m, C) the entry takes, each transform read
+    through a row stride of 2n (ClPermMode::col_load on sfilter_stream's
+    paired rows): X[k2 + m*k1] at [k2, k1] within 1e-12 of numpy.fft,
+    and within 1e-6 of the plain version and of the JAX K2 (interpret
+    mode) on the same float32 inputs."""
+    n = 128 * m
+    x, plain, pallas = _k2_reference(m, False)
+    rows = np.zeros((2, 2, n), dtype=np.complex128)
+    rows[:, 0] = x.reshape(2, n)                  # the other plane's rows
+    flat = rows.reshape(-1)
+    for p in range(2):
+        cl = Cluster(m, C)
+        cl.column_phase(lambda q, r: flat[p * 2 * n + 128 * q + r])
+        cl.exchange_and_rows()
+        got = _perm_store(cl)
+        want = np.fft.fft(x[p].reshape(n)).reshape(128, m).T
+        assert not np.isnan(got).any()
+        assert _err(got, want) < 1e-12, (m, C)
+        assert _err(got, plain[p]) < 1e-6 and _err(got, pallas[p]) < 1e-6
+
+
+@pytest.mark.parametrize("m,C", _rf_routes())
+def test_rows_first_model_is_k2_inverse(m, C):
+    """K2's inverse on the rows-first cluster, K4's kernel without the
+    filter (the load conj(X), the conjugated forward, the store conj()),
+    float64, for every (m, C) the entry takes: n times the inverse FFT of
+    the permuted spectrum within 1e-12, and within 1e-6 the plain version
+    and the JAX K2 (interpret mode)."""
+    n = 128 * m
+    X, plain, pallas = _k2_reference(m, True)
+    got = _rf_filter(X, np.ones((1, m, 128)), m, C, 1.0).reshape(2, m, 128)
+    want = np.fft.ifft(X.transpose(0, 2, 1).reshape(2, n)) * n
+    assert _err(got, want.reshape(2, m, 128)) < 1e-12
+    assert _err(got, plain) < 1e-6 and _err(got, pallas) < 1e-6
+
+
+def test_register_route_permuted_store_matches_plain():
+    """K2's forward at m = 2048 on K5's register kernels at s = 1, float64:
+    the column pass (the m-point DFT of each lane r, times W_n^{r k2})
+    into the scratch row k2, the row pass's 128-point DFT of 16 rows a
+    block into its slot layout (137 words a slot, a pad word after every
+    16 lanes), and SFSplitRowIO's permuted store, element e of block g at
+    g*2048 + e from slot e >> 7, lane e & 127: numpy.fft within 1e-12,
+    the plain version within 1e-6."""
+    m, rs = 2048, 137
+    n = 128 * m
+    c = complex_input((1, m, 128), np.complex64, seed=2048)
+    xr, xi = np.ascontiguousarray(c.real), np.ascontiguousarray(c.imag)
+    x = (xr + 1j * xi.astype(np.float64))[0]
+    k2, r = np.arange(m)[:, None], np.arange(128)[None, :]
+    scratch = np.fft.fft(x, axis=0) * np.exp(-2j * np.pi * k2 * r / n)
+    slot, lane = np.meshgrid(np.arange(16), np.arange(128), indexing="ij")
+    tiles = np.full((m // 16, 16 * rs), np.nan, dtype=np.complex128)
+    tiles[:, slot * rs + lane + (lane >> 4)] = np.fft.fft(
+        scratch.reshape(m // 16, 16, 128), axis=2)
+    e = np.arange(16 * 128)
+    y = np.full((m // 16, 16 * 128), np.nan, dtype=np.complex128)
+    y[:, e] = tiles[:, (e >> 7) * rs + (e & 127) + ((e & 127) >> 4)]
+    got = y.reshape(m, 128)                        # block g's run at g*2048
+    assert _err(got, np.fft.fft(x.reshape(n)).reshape(128, m).T) < 1e-12
+    pr, pi = sf.stream_plain(torch.as_tensor(xr), torch.as_tensor(xi), n,
+                             "fwd")
+    assert _err(got, (to_np(pr) + 1j * to_np(pi))[0]) < 1e-6
+
+
+@pytest.fixture
+def entry(monkeypatch):
+    """``stream_fft_f32`` as a recorder of its arguments (no card here):
+    the wrappers run on CPU tensors up to the C entry, which launches
+    nothing; the launch counts are restored after."""
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(sf, "_check_device", lambda *a: None)
+    monkeypatch.setattr(sf, "launches", dict(sf.launches))
+    monkeypatch.setattr(sf._build, "load",
+                        lambda: types.SimpleNamespace(stream_fft_f32=record))
+    monkeypatch.setattr(sf._build, "call", lambda fn, dev, *a: fn(*a, None))
+    return calls
+
+
+def test_sfilter_stream_hands_k2_the_paired_rows(monkeypatch, entry):
+    """At m = 512 sfilter_stream hands K2's forward the strided views of
+    the paired rows (row stride 2n), and _launch passes them to the C
+    entry as they lie, in_rs = 2n: no ``.contiguous()`` copy; K4 then
+    writes the paired rows (ys = 2n).  Arguments end ..., mode, csize,
+    lshift, in_rs, ys, scale, stream."""
+    got = []
+    launch = sf._launch
+
+    def run(xr, xi, n, mode, *args, **kwargs):
+        got.append((mode, xr.data_ptr(), xi.data_ptr(), xr.stride()))
+        return launch(xr, xi, n, mode, *args, **kwargs)
+
+    monkeypatch.setattr(sf, "_run", run)
+    n = 65536
+    x = torch.as_tensor(real_input((4, n), np.float32, seed=12))
+    F = complex_input((n,), np.complex64, seed=13)
+    sf.sfilter_stream(x, torch.as_tensor(F.real.copy()),
+                      torch.as_tensor(F.imag.copy()), n, 0.5)
+    (mode, pr, pi, stride), (mode4, *_) = got
+    assert (mode, mode4) == ("fwd", "filter")
+    assert stride == (2 * n, 128, 1)
+    assert (pr, pi) == (x.data_ptr(), x.data_ptr() + 4 * n)
+    fwd, filt = entry
+    assert fwd[:2] == (pr, pi) and fwd[-7] == sf._MODES.index("fwd")
+    assert fwd[-6] == sf._cluster_size(512) and fwd[-4] == 2 * n
+    assert filt[-7] == sf._MODES.index("filter") and filt[-3] == 2 * n
+    assert sf.launches["K2"] == sf.launches["K4"] == 1
+
+
+def test_sfilter_stream_copies_only_rows_k2_cannot_read(monkeypatch, entry):
+    """rfilter_split along axis 0 of a (n, 4) x hands sfilter_stream
+    rows with element stride 4: they are copied once into rows that K2's
+    forward reads (in_rs = n) and it launches, where _launch refuses them
+    as they lie; K4 still writes the paired rows of the output (ys =
+    2n)."""
+    monkeypatch.setattr(sf, "_run", sf._launch)
+    n = 65536
+    x = torch.as_tensor(real_input((n, 4), np.float32, seed=14))
+    xp = x.movedim(0, -1).reshape(2, 2, n)
+    with pytest.raises(ValueError, match="row stride"):
+        sf._launch(xp[:, 0].reshape(2, 512, 128),
+                   xp[:, 1].reshape(2, 512, 128), n, "fwd")
+    F = complex_input((n // 2 + 1,), np.complex64, seed=15)
+    F.imag[[0, -1]] = 0.0
+    pt.rfilter_split(x, torch.as_tensor(F.real.copy()),
+                     torch.as_tensor(F.imag.copy()), axis=0)
+    fwd, filt = entry
+    assert fwd[-7] == sf._MODES.index("fwd") and fwd[-4] == n
+    assert fwd[0] != x.data_ptr()
+    assert filt[-7] == sf._MODES.index("filter") and filt[-3] == 2 * n
+    assert sf.launches["K2"] == sf.launches["K4"] == 1
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_k2_routes_take_their_tables(entry, inverse):
+    """What _launch hands the C entry on each of K2's routes: the cluster
+    and register routes the forward outer twiddle (the inverse runs as
+    the conjugated forward) and the register pass twiddles of m
+    (plan.reg_twiddles, the compiled schedules' tables), no scratch on
+    the cluster and a (b, n) pair of scratch planes on the register
+    route; the stage loop the direction's own twiddle and no pass
+    twiddles.  Arguments: x, y, s (2 each), t1r, t1i, the 10 plan
+    arguments, cptw, rptw, ..."""
+    dev = torch.device("cpu")
+    for m in (128, 512, 2048, 48):
+        n = 128 * m
+        route, arg = sf._k2_route(m, inverse)
+        x = torch.zeros((3, m, 128))
+        sf._launch(x, x, n, "inv" if inverse else "fwd")
+        args = entry.pop()
+        lp = sf._launch_plan(n, inverse, 1, dev)
+        held = {t.data_ptr(): t for t in lp.keep
+                if isinstance(t, torch.Tensor)}
+        t1r = held[args[6]]
+        forward = route != "stage" or not inverse
+        assert np.array_equal(t1r.numpy(), sf._tables(n, not forward)[0])
+        assert (args[4] is None) == (route == "cluster")
+        assert args[-6] == (arg if route == "cluster" else 0)
+        if route == "stage":
+            assert args[18] is None and args[19] is None
+        else:
+            want = plan.reg_twiddles(m).astype(np.float32)
+            assert np.array_equal(held[args[18]].numpy(), want)
+
+
 # ------------------------------------------------- the decomposition
 
 @pytest.mark.parametrize("m,C", _routes())
@@ -373,34 +579,62 @@ def test_layouts_fit_and_do_not_overlap(m):
                             for ln in range(32)}) == 32
 
 
-def test_compiled_schedules_are_the_plans():
+# the routes by m of K3 and of K2 in each direction
+_ROUTE_OF = {"K3": sf._k3_route,
+             "K2 fwd": lambda m: sf._k2_route(m, False),
+             "K2 inv": lambda m: sf._k2_route(m, True)}
+
+
+def _eligible_m():
+    return [m for m in range(16, 4097, 16)
+            if sf.stream_eligible(128 * m, torch.float32)]
+
+
+@pytest.mark.parametrize("kernel", list(_ROUTE_OF))
+def test_compiled_schedules_are_the_plans(kernel):
+    """The compiled schedules are the plan's, and the kernel's routes run
+    register passes (on the cluster or K5's register kernels) at exactly
+    the m compiled for them: every compiled m for K3 and K2's forward,
+    the cluster's four for K2's inverse."""
     for m, passes in COMPILED.items():
         assert plan.reg_passes(m) == passes, m
     assert plan.reg_passes(128) == COMPILED[128]        # the row phase
     for m in COMPILED:
         assert plan.reg_twiddles(m).shape[1] == 2
+    reg = {m for m in _eligible_m() if _ROUTE_OF[kernel](m)[0] != "stage"}
+    assert reg == (set(sf._CLUSTER_M) if kernel == "K2 inv"
+                   else set(COMPILED))
 
 
-def test_k3_route_fits_the_entry():
-    """Every eligible m <= 4096 gets a route whose shared memory and
-    thread count the kernels take."""
+@pytest.mark.parametrize("kernel", list(_ROUTE_OF))
+def test_k3_route_fits_the_entry(kernel):
+    """Every eligible m <= 4096 gets a route of K3, or of K2 in either
+    direction, whose shared memory and thread count the kernels take: the
+    cluster at m = 128 .. 1024, at a C the entry takes columns first (K3,
+    K2's forward) or rows first (K2's inverse); K5's register kernels at
+    2048 and 4096, for all but K2's inverse; the stage loop elsewhere."""
+    inverse = kernel == "K2 inv"
     seen = set()
-    for m in range(16, 4097, 16):
-        if not sf.stream_eligible(128 * m, torch.float32):
-            continue
-        route, arg = sf._k3_route(m)
+    for m in _eligible_m():
+        route, arg = _ROUTE_OF[kernel](m)
         seen.add(route)
         if route == "cluster":
-            assert m in (128, 256, 512, 1024) and arg in _cluster_sizes(m)
+            assert m in (128, 256, 512, 1024)
+            assert arg in (_rf_cluster_sizes(m) if inverse
+                           else _cluster_sizes(m))
         elif route == "reg":
-            assert m in (2048, 4096)
+            assert m in (2048, 4096) and not inverse
+            assert (route, arg) == sf._k3_route(m)
             assert (m // 16) * arg == MAX_THREADS
             assert 8 * (m + m // 16) * arg <= SMEM_MAX
         else:
-            assert m not in COMPILED and arg == sf._col_lanes(m)
+            assert arg == sf._col_lanes(m)
             assert 16 * m * arg <= SMEM_MAX
-    assert seen == {"cluster", "reg", "stage"}
-    assert [sf._k3_route(m)[1] for m in sf._CLUSTER_M] == [8, 16, 16, 16]
+            assert m not in COMPILED or (inverse and m in (2048, 4096))
+    assert seen == {"cluster", "stage"} | (set() if inverse else {"reg"})
+    rule = [_ROUTE_OF[kernel](m)[1] for m in sf._CLUSTER_M]
+    assert rule == ([sf._filter_cluster_size(m) for m in sf._CLUSTER_M]
+                    if inverse else [8, 16, 16, 16])
 
 
 # ------------------------------------------------- K7's cross-block maps
@@ -713,6 +947,54 @@ def test_k3_routes_match_plain_on_card(m):
         torch.cuda.synchronize()
         assert _err(to_np(yr) + 1j * to_np(yi),
                     to_np(pr) + 1j * to_np(pi)) < 1e-5, (m, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 256, 512, 1024, 2048, 4096, 48, 768])
+def test_k2_routes_match_plain_on_card(m):
+    """K2 forward and inverse on every route (the cluster at m = 128 ..
+    1024, the forward's register kernels at 2048 and 4096, the stage
+    loop), one count a call, the forward also from the strided views of
+    paired rows (row stride 2n)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    n = 128 * m
+    b = 3
+    c = complex_input((b, m, 128), np.complex64, seed=m)
+    rows = torch.as_tensor(np.stack([c.real, c.imag], axis=1).reshape(
+        b, 2, n).copy(), device="cuda")
+    pairs = (rows[:, 0].reshape(b, m, 128), rows[:, 1].reshape(b, m, 128))
+    flat = tuple(v.contiguous() for v in pairs)
+    for mode, (xr, xi) in (("fwd", flat), ("fwd", pairs), ("inv", flat)):
+        before = sf.launches["K2"]
+        yr, yi = sf._launch(xr, xi, n, mode)
+        assert sf.launches["K2"] == before + 1
+        pr, pi = sf.stream_plain(xr, xi, n, mode)
+        torch.cuda.synchronize()
+        assert _err(to_np(yr) + 1j * to_np(yi),
+                    to_np(pr) + 1j * to_np(pi)) < 1e-5, (m, mode)
+
+
+@pytest.mark.cuda
+def test_rfilter_split_along_axis_0_on_card():
+    """rfilter_split along axis 0 of a (65536, 64) float32 x (its paired
+    rows with element stride 64, copied for K2) runs one K2 and one K4
+    launch and matches the plain versions' composition on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    n = 65536
+    x = torch.as_tensor(real_input((n, 64), np.float32, seed=16))
+    F = complex_input((n // 2 + 1,), np.complex64, seed=17)
+    F.imag[[0, -1]] = 0.0
+    fr, fi = torch.as_tensor(F.real.copy()), torch.as_tensor(F.imag.copy())
+    before = (sf.launches["K2"], sf.launches["K4"])
+    got = pt.rfilter_split(x.cuda(), fr.cuda(), fi.cuda(), axis=0)
+    torch.cuda.synchronize()
+    assert (sf.launches["K2"], sf.launches["K4"]) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = pt.rfilter_split(x, fr, fi, axis=0)
+    assert tuple(got.shape) == (n, 64)
+    assert _err(to_np(got), to_np(want)) < 1e-5
 
 
 @pytest.mark.cuda

@@ -340,7 +340,7 @@ def test_rfilter_split_keeps_other_shapes_off_the_stream_route(monkeypatch):
 
 # ------------------------------------------------- the wrapper's contract
 
-def test_launch_refuses_what_the_kernel_does_not_take():
+def test_launch_refuses_what_the_kernel_does_not_take(monkeypatch):
     m = 16
     x = torch.zeros((2, m, 128))
     with pytest.raises(ValueError, match="CUDA"):
@@ -354,6 +354,18 @@ def test_launch_refuses_what_the_kernel_does_not_take():
     meta = torch.empty((2, m, 128), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         sf.sfft_stream_permuted(meta, meta, 2048, False)      # no fallback
+    # K2's forward on the cluster (m = 512) and register (2048) routes
+    # reads its planes as they lie: past the device check it refuses a
+    # non-unit element stride and a row stride below n before any launch
+    monkeypatch.setattr(sf, "_check_device", lambda *a: None)
+    for m in (512, 2048):
+        n = 128 * m
+        buf = torch.zeros((2, 2 * n))
+        wide = buf[:, ::2].reshape(2, m, 128)           # element stride 2
+        tight = buf.as_strided((2, m, 128), (n - 128, 128, 1))
+        for bad in (wide, tight):
+            with pytest.raises(ValueError, match="row stride"):
+                sf._launch(bad, bad, n, "fwd")
     assert sf.launches == {"K2": 0, "K3": 0, "K4": 0, "K5": 0, "K11": 0}
 
 
