@@ -14,7 +14,9 @@ norm           forward scale         inverse scale
 =============  ====================  ====================
 
 The JAX package's f64 routing policy exists because TPUs lack native
-f64; the card has it, so float64 runs natively here.
+f64; the card has it, so float64 runs natively here: the policy names
+(:func:`set_f64_policy`, :func:`f64_policy`) keep their contract and
+:func:`hp_route` never routes.
 
 Devices: the port runs on the card unless the caller asks for the CPU.
 :func:`resolve_device` is the one place that rule lives; a tensor the
@@ -55,6 +57,31 @@ def inv_scale(norm: str, n: int) -> float:
     if norm == "ortho":
         return float(1.0 / np.sqrt(n))
     return 1.0 / n  # backward
+
+
+# ---------------------------------------------------------- f64 policy
+
+_F64_POLICY = "hp"
+
+
+def set_f64_policy(policy: str) -> None:
+    """Set the f64 policy, ``"hp"`` (default) or ``"native"``; any other
+    value raises ``ValueError``.  Both run float64 natively here."""
+    global _F64_POLICY
+    if policy not in ("hp", "native"):
+        raise ValueError(f"f64 policy must be 'hp' or 'native', got "
+                         f"{policy!r}")
+    _F64_POLICY = policy
+
+
+def f64_policy() -> str:
+    return _F64_POLICY
+
+
+def hp_route(*arrays) -> bool:
+    """Always False: the card has native FP64, so no input is routed to
+    a double-float engine."""
+    return False
 
 
 def real_dtype_of(dtype: torch.dtype) -> torch.dtype:

@@ -6,3 +6,12 @@ from .dct import dct, idct, dst, idst, dctn, idctn, dstn, idstn  # noqa: F401
 from .gdft import gdft, igdft, gdft_split, igdft_split  # noqa: F401
 from .shift import fftshift, ifftshift  # noqa: F401
 from .freq import fftfreq, rfftfreq, circular_convolve  # noqa: F401
+from .hp import (fft_hp, ifft_hp, fft2_hp, ifft2_hp,  # noqa: F401
+                 sfft_hp,
+                 rfft_hp, irfft_hp, rfft2_hp, irfft2_hp, dct2_hp, idct2_hp,
+                 dst2_hp, idst2_hp, dct4_hp, idct4_hp,
+                 dst4_hp, idst4_hp, dct1_hp, idct1_hp,
+                 dst1_hp, idst1_hp, dct_hp, idct_hp,
+                 dst_hp, idst_hp,
+                 dctn_hp, idctn_hp, dstn_hp, idstn_hp,
+                 gdft_hp, igdft_hp)

@@ -28,7 +28,12 @@ and ``dctn``/``idctn`` at (64, 1024, 1024), ``fft_split`` and
 ``ifft_split`` with ``impl="pallas"`` through the four-step kernel at
 (1024, 4096), (64, 65536) and (16, 262144), the two-matmul FFT at
 (2048, 2048) and (128, 32768), ``gdft``/``igdft``, the DCT/DST types
-5-8 and ``circular_convolve`` at (4096, 1024)) and checks each result.
+5-8 and ``circular_convolve`` at (4096, 1024); the float64 ``*_hp``
+names at (4096, 1024), (64, 65536) and (4, 1024, 1024), every
+``compat`` family on the golden inputs and two plans over (4096, 1024),
+the QMC Asian option against the reference binary and at 2^20 x 128 in
+float32, the VG distribution and Monte-Carlo at 2^24 draws, and the
+callable bond on the short-rate lattice) and checks each result.
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Prints CUDA-event times of the kernels, their plain
 versions and the PyTorch calls that compute the same functions, the
@@ -51,6 +56,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import scipy.fft
@@ -551,6 +557,302 @@ def bs_closed_form(S, K, sigma, t, r):
     d1 = (np.log(S / K) + t * (r + 0.5 * sigma * sigma)) / (sigma * np.sqrt(t))
     d2 = d1 - sigma * np.sqrt(t)
     return S * ndtr(d1) - K * ndtr(d2) * np.exp(-r * t)
+
+
+# phase 31-33 widths: the (batch, n) of the *_hp calls, the long and 2-D
+# fft_hp shapes, the sfft_hp quad, the f32 Asian QMC samples, the VG
+# Monte-Carlo draws
+HP_SHAPE, HP_LONG, HP_2D, HP_QUAD = ((4096, 1024), (64, 65536),
+                                     (4, 1024, 1024), (64, 4096))
+ASIAN_SAMPLES, VG_SAMPLES = 1 << 20, 1 << 24
+
+
+def hp_oracles(x, xc):
+    """float64 references of phase 31's calls, from torch.fft in
+    complex128 and scipy on a host copy (the fftpack norm: the forward
+    scaled by 1/n, the inverse unscaled)."""
+    n = x.shape[-1]
+    xh = x.cpu().numpy()
+    return {
+        "fft_hp": torch.fft.fft(xc, norm="forward"),
+        "ifft_hp": torch.fft.ifft(xc, norm="forward"),
+        "rfft_hp": torch.fft.rfft(x, norm="forward"),
+        "dct_hp 2": torch.from_numpy(scipy.fft.dct(xh, 2) / n).to(DEV),
+        "dct4_hp": torch.from_numpy(scipy.fft.dct(xh, 4) / n).to(DEV),
+    }
+
+
+def dst7_definition(x):
+    """2 sum_j x[j] sin(pi (2k+1)(j+1) / (2n+1)), the fftpack DST-VII, as
+    a float64 product on the card; the angle's integer part is reduced
+    exactly before the sine."""
+    n = x.shape[-1]
+    k = torch.arange(n, device=DEV, dtype=torch.int64)
+    m = torch.outer(2 * k + 1, k + 1) % (2 * (2 * n + 1))
+    W = torch.sin(np.pi * m.double() / (2 * n + 1))
+    return 2.0 * x @ W.T
+
+
+def phase_f64_surface(total: dict, card: str) -> None:
+    """Phase 31: the *_hp names in float64 at full width, each against
+    torch.fft in complex128 or scipy and against its plain-engine run at
+    1e-12 of max |X|, K1 launched."""
+    bar = 1e-12
+    x = real(HP_SHAPE, torch.float64, seed=131)
+    xc = torch.complex(*pair(HP_SHAPE, torch.float64, seed=132))
+    n = HP_SHAPE[-1]
+    oracle = hp_oracles(x, xc)
+    calls = [("fft_hp", lambda: ct.fft_hp(xc), oracle["fft_hp"]),
+             ("ifft_hp", lambda: ct.ifft_hp(xc), oracle["ifft_hp"]),
+             ("rfft_hp", lambda: ct.rfft_hp(x), oracle["rfft_hp"]),
+             ("dct_hp type 2", lambda: ct.dct_hp(x, 2), oracle["dct_hp 2"]),
+             ("dct4_hp", lambda: ct.dct4_hp(x), oracle["dct4_hp"]),
+             ("dst_hp type 7", lambda: ct.dst_hp(x, 7), dst7_definition(x))]
+    inverses = {"fft_hp": ct.ifft_hp,
+                "rfft_hp": lambda y: ct.irfft_hp(y, n),
+                "dct_hp type 2": lambda y: ct.idct_hp(y, 2),
+                "dct4_hp": lambda y: ct.idct4_hp(y),
+                "dst_hp type 7": lambda y: ct.idst_hp(y, 7)}
+    for name, fn, want in calls:
+        print(f"phase 31: {name} {HP_SHAPE} f64 fftpack")
+        t0 = time.perf_counter()
+        y, got = drive(fn, total)
+        wall = time.perf_counter() - t0
+        check(got["K1"] > 0, f"K1 launched by {name} ({got})")
+        with plain_engine():
+            plain = fn()
+        e_o, e_p = rel_err(y, want), rel_err(y, plain)
+        check(y.dtype in (torch.float64, torch.complex128) and bool(
+            torch.isfinite(torch.view_as_real(y) if y.is_complex()
+                           else y).all()), "float64 output, finite")
+        check(e_o < bar and e_p < bar, f"{name} vs oracle {e_o:.2e}, vs plain "
+              f"{e_p:.2e} < {bar:g}; {wall * 1e3:.1f} ms wall [{card}]")
+        if name in inverses:
+            src = xc if name == "fft_hp" else x
+            e_r = rel_err(inverses[name](y), src)
+            check(e_r < bar, f"inverse of {name} vs x {e_r:.2e} < {bar:g}")
+    del oracle, calls
+    xl = torch.complex(*pair(HP_LONG, torch.float64, seed=133))
+    for name, fn, want in (
+            ("fft_hp", ct.fft_hp, torch.fft.fft(xl, norm="forward")),
+            ("ifft_hp", ct.ifft_hp, torch.fft.ifft(xl, norm="forward"))):
+        print(f"phase 31: {name} {HP_LONG} complex128 fftpack")
+        y, got = drive(lambda: fn(xl), total)
+        check(got["K1"] > 0, f"K1 launched by {name} ({got})")
+        with plain_engine():
+            plain = fn(xl)
+        e_o, e_p = rel_err(y, want), rel_err(y, plain)
+        check(e_o < bar and e_p < bar, f"{name} vs torch.fft {e_o:.2e}, vs "
+              f"plain {e_p:.2e} < {bar:g}")
+    del xl, y, plain, want
+    print(f"phase 31: fft2_hp {HP_2D} complex128 fftpack")
+    x2 = torch.complex(*pair(HP_2D, torch.float64, seed=134))
+    y, got = drive(lambda: ct.fft2_hp(x2), total)
+    check(got["K1"] > 0, f"K1 launched by fft2_hp ({got})")
+    with plain_engine():
+        plain = ct.fft2_hp(x2)
+    e_o = rel_err(y, torch.fft.fft2(x2, norm="forward"))
+    e_p = rel_err(y, plain)
+    check(e_o < bar and e_p < bar, f"fft2_hp vs torch.fft {e_o:.2e}, vs plain "
+          f"{e_p:.2e} < {bar:g}")
+    del x2, y, plain
+    print(f"phase 31: sfft_hp {HP_QUAD} quad, both ways")
+    xq = torch.complex(*pair(HP_QUAD, torch.float64, seed=135))
+    nq = HP_QUAD[-1]
+    quad = []
+    for v in (xq.real, xq.imag):
+        hi = v.float()
+        quad += [hi, (v - hi.double()).float()]
+    for inverse in (False, True):
+        q, got = drive(lambda: ct.sfft_hp(*quad, nq, inverse), total)
+        check(got["K1"] > 0, f"K1 launched by sfft_hp ({got})")
+        y = torch.complex(q[0].double() + q[1].double(),
+                          q[2].double() + q[3].double())
+        want = (torch.fft.ifft(xq, norm="forward") if inverse
+                else torch.fft.fft(xq))
+        with plain_engine():
+            p = ct.sfft_hp(*quad, nq, inverse)
+        plain = torch.complex(p[0].double() + p[1].double(),
+                              p[2].double() + p[3].double())
+        e_o, e_p = rel_err(y, want), rel_err(y, plain)
+        check(all(v.dtype == torch.float32 for v in q) and e_o < bar
+              and e_p < bar, f"sfft_hp inverse={inverse} quad vs torch.fft "
+              f"{e_o:.2e}, vs plain {e_p:.2e} < {bar:g}")
+    hp_ms = median_ms(lambda: ct.fft_hp(xc))
+    torch_ms = median_ms(lambda: torch.fft.fft(xc, norm="forward"))
+    print(f"  fft_hp {HP_SHAPE} complex128: {hp_ms:.4f} ms, torch.fft.fft "
+          f"complex128 {torch_ms:.4f} ms ({hp_ms / torch_ms:.2f}x)  [{card}]")
+
+
+GOLDEN = "tests/golden/golden.npz"
+COMPAT_FAMILIES = ("fft", "rfft", "dct", "dct1", "dst", "dst1", "dct4", "dst4",
+                   "dct5", "dct6", "dct7", "dct8", "dst5", "dst6", "dst7",
+                   "dst8")
+
+
+def golden_tol(n) -> float:
+    """tests/test_golden.py's bar: absolute, 1e-12 * max(1, sqrt(n))."""
+    return 1e-12 * max(1.0, n ** 0.5)
+
+
+def phase_compat(total: dict, card: str) -> None:
+    """Phase 32: every compat family, forward and inverse, on the golden
+    inputs moved to the card at test_golden.py's bars; then two plans
+    over a (4096, 1024) float64 batch against the plain engine."""
+    from cfftpack_tpu_torch import compat as cc
+    gold = np.load(Path(__file__).resolve().parent / GOLDEN)
+
+    def dev(key):
+        return torch.from_numpy(gold[key]).to(DEV)
+
+    def close(got, key, atol, what):
+        err = float(np.abs(got.cpu().numpy() - gold[key]).max())
+        check(err <= atol, f"{what} vs golden {err:.2e} <= {atol:.2e}")
+
+    print("phase 32: compat families on the golden inputs, on the card")
+    t0 = time.perf_counter()
+    zero_counts()
+    for fam in COMPAT_FAMILIES:
+        sizes = sorted(int(k.split("_")[-1]) for k in gold.files
+                       if k.startswith(f"{fam}_in_"))
+        for n in sizes:
+            if (fam == "dct1" and n < 2) or (fam in ("dct4", "dst4")
+                                             and n % 2):
+                continue
+            for ortho, sfx in ((False, ""), (True, "_ortho")):
+                f = getattr(cc, f"{fam}_create")(n)
+                cc.fft_ortho(f, ortho)
+                x = dev(f"{fam}_in_{n}")
+                fwd = getattr(f, "transform", f.forward)
+                bar = golden_tol(n) * (n if (fam, ortho) == ("dct1", True)
+                                       else 1)
+                close(fwd(x), f"{fam}_fwd_{n}{sfx}", bar,
+                      f"{fam}{sfx} forward n={n}")
+                if f"{fam}_inv_{n}{sfx}" in gold.files:
+                    close(f.inverse(x), f"{fam}_inv_{n}{sfx}",
+                          golden_tol(n) * n, f"{fam}{sfx} inverse n={n}")
+                if fam == "rfft":
+                    back = f.inverse(dev(f"rfft_fwd_{n}{sfx}"))
+                    err = float((back - x).abs().max())
+                    check(err <= golden_tol(n), f"rfft{sfx} round trip n={n} "
+                          f"{err:.2e}")
+    for l, m in ((4, 4), (8, 6), (6, 10)):
+        f = cc.fft2_create(l, m)
+        x = dev(f"fft2_in_{l}x{m}")
+        close(cc.fft2_forward(f, x), f"fft2_fwd_{l}x{m}", golden_tol(l * m),
+              f"fft2 forward {l}x{m}")
+        close(cc.fft2_inverse(f, x), f"fft2_inv_{l}x{m}",
+              golden_tol(l * m) * l * m, f"fft2 inverse {l}x{m}")
+    for M, N in ((4, 4), (8, 6), (6, 10), (64, 48)):
+        f = cc.dct_2d_create(M, N)
+        x = dev(f"dct2d_in_{M}x{N}")
+        close(cc.dct_2d_forward(f, x), f"dct2d_fwd_{M}x{N}",
+              golden_tol(M * N), f"dct_2d forward {M}x{N}")
+        close(cc.dct_2d_inverse(f, x), f"dct2d_inv_{M}x{N}",
+              golden_tol(M * N) * M * N, f"dct_2d inverse {M}x{N}")
+    for n in (4, 8, 16, 60, 960):
+        for a, b in ((0.0, 0.0), (0.5, 0.0), (0.0, 0.5), (0.5, 0.5),
+                     (0.25, 0.1)):
+            key = f"{n}_{a}_{b}"
+            f = cc.gdft_create(n, a, b)
+            x = dev(f"gdft_in_{key}")
+            y = cc.gdft_forward(f, x)
+            close(y, f"gdft_fwd_{key}", golden_tol(n), f"gdft forward {key}")
+            err = float((cc.gdft_inverse(f, y) - x).abs().max())
+            check(err <= golden_tol(n), f"gdft round trip {key} {err:.2e}")
+    torch.cuda.synchronize()
+    got = counts()
+    for k in KERNELS:
+        total[k] += got[k]
+    check(got["K1"] > 0, f"K1 launched by the golden families ({got}); "
+          f"{time.perf_counter() - t0:.2f} s wall [{card}]")
+    for name, plan, x in (
+            (f"FFTPlan({HP_SHAPE[-1]})", cc.fft_create(HP_SHAPE[-1]),
+             torch.complex(*pair(HP_SHAPE, torch.float64, seed=141))),
+            (f"DCTPlan({HP_SHAPE[-1]})", cc.dct_create(HP_SHAPE[-1]),
+             real(HP_SHAPE, torch.float64, seed=142))):
+        for ortho in (False, True):
+            cc.fft_ortho(plan, ortho)
+            print(f"phase 32: {name} ortho={ortho} over {HP_SHAPE} f64")
+            for way in ("forward", "inverse"):
+                fn = getattr(plan, way)
+                y, got = drive(lambda: fn(x), total)
+                check(got["K1"] > 0, f"K1 launched by {name}.{way} ({got})")
+                with plain_engine():
+                    want = fn(x)
+                e_p = rel_err(y, want)
+                check(e_p < 1e-12, f"{name}.{way} vs plain {e_p:.2e} < 1e-12")
+
+
+# the reference binary's anchors (tests/test_models.py)
+ASIAN_ANCHORS = (1.331389466495620, 1.330757038060973, 1.326960062625530)
+VG_CDF_ANCHORS = {512: 0.000098313654346, 1024: 0.344910732462461,
+                  1536: 0.999999669680804, 2047: 1.000000000000000}
+VG_TARGET = 9.3424659413582116       # QuantLib (vargammaql.cpp)
+
+
+def timed_drive(name: str, fn, total: dict, card: str):
+    t0 = time.perf_counter()
+    out, got = drive(fn, total)
+    wall = time.perf_counter() - t0
+    print(f"  {name}: {wall * 1e3:.1f} ms wall, launches {got}  [{card}]")
+    return out, got
+
+
+def phase_models(total: dict, card: str) -> None:
+    """Phase 33: the Monte-Carlo, QMC and short-rate models on the card
+    at full width, against the reference binary's anchors, their
+    float64 runs and their CPU runs."""
+    from cfftpack_tpu_torch.models import (asian_option_qmc,
+                                           asian_option_qmc_device,
+                                           callable_bond_demo,
+                                           vg_mc_price_device)
+    from cfftpack_tpu_torch.models.montecarlo import vg_distribution_grid
+
+    print("phase 33: asian_option_qmc samples=500 steps=128 f64, runs 0..2")
+    for run, want in enumerate(ASIAN_ANCHORS):
+        v, got = timed_drive(f"asian_option_qmc run {run}", lambda: (
+            asian_option_qmc(steps=128, samples=500, run_index=run,
+                             device=DEV)), total, card)
+        check(got["K1"] > 0, f"K1 launched ({got})")
+        check(abs(v - want) < 1e-12, f"run {run}: {v!r} vs the reference "
+              f"binary {want!r}, {abs(v - want):.2e} < 1e-12")
+    print(f"phase 33: asian_option_qmc_device samples={ASIAN_SAMPLES} "
+          "steps=128 f32")
+    v32, got = timed_drive("asian_option_qmc_device f32", lambda: (
+        asian_option_qmc_device(steps=128, samples=ASIAN_SAMPLES,
+                                device=DEV)), total, card)
+    check(got["K1"] > 0, f"K1 launched by the f32 pipeline ({got})")
+    v64, _ = timed_drive("asian_option_qmc_device f64", lambda: (
+        asian_option_qmc_device(steps=128, samples=ASIAN_SAMPLES, device=DEV,
+                                dtype=torch.float64)), total, card)
+    check(np.isfinite(v32) and abs(v32 - v64) < 2e-3,
+          f"f32 {v32!r} vs f64 {v64!r}, {abs(v32 - v64):.2e} < 2e-3")
+    print("phase 33: vg_distribution_grid n=2048 f64")
+    (_, pdf), got = timed_drive("vg_distribution_grid", lambda: (
+        vg_distribution_grid(0.12, -0.14, 0.2, 0.05, 1.0, 2048, device=DEV)),
+        total, card)
+    check(got["K1"] > 0, f"K1 launched ({got})")
+    cum = np.cumsum(pdf)
+    err = max(abs(cum[i] - w) for i, w in VG_CDF_ANCHORS.items())
+    check(err < 1e-12, f"CDF vs the reference binary {err:.2e} < 1e-12")
+    print(f"phase 33: vg_mc_price_device n=2048 samples={VG_SAMPLES} f32")
+    vg, got = timed_drive("vg_mc_price_device", lambda: vg_mc_price_device(
+        n=2048, samples=VG_SAMPLES, device=DEV), total, card)
+    check(got["K1"] > 0, f"K1 launched ({got})")
+    check(abs(vg - VG_TARGET) < 0.2,
+          f"{vg!r} vs the QuantLib target {abs(vg - VG_TARGET):.2e} < 0.2")
+    print("phase 33: callable_bond_demo model=1 nstep=200 n_fft=1024 f64")
+    bond, got = timed_drive("callable_bond_demo", lambda: callable_bond_demo(
+        model=1, nstep=200, n_fft=1024, device=DEV), total, card)
+    check(got["K1"] > 0, f"K1 launched ({got})")
+    t0 = time.perf_counter()
+    host = callable_bond_demo(model=1, nstep=200, n_fft=1024, device="cpu")
+    print(f"  callable_bond_demo on the CPU: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
+    err = max(abs(a - b) / abs(b) for a, b in zip(bond, host))
+    check(err < 1e-9, f"{bond} vs the CPU run {host}: {err:.2e} < 1e-9 "
+          "relative")
 
 
 def main() -> None:
@@ -1507,6 +1809,12 @@ def main() -> None:
     check(torch.equal(ct.ifftshift(ct.fftshift(c, axes=-1), axes=-1), c),
           "ifftshift(fftshift(x)) is x")
     del c, want, xb2, xo
+
+    # ---- phases 31-33: the f64 *_hp surface, the compat plans and the
+    # Monte-Carlo, QMC and short-rate models
+    phase_f64_surface(total, card)
+    phase_compat(total, card)
+    phase_models(total, card)
 
     for k in KERNELS:
         check(total[k] > 0, f"main path launched {k} {total[k]} times")
