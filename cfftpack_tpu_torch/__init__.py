@@ -1,15 +1,17 @@
 """cfftpack_tpu_torch: the PyTorch and CUDA port of cfftpack_tpu.
 
-The same public names and signatures as ``cfftpack_tpu`` for the part
-ported so far: complex and real FFTs in 1-D, 2-D and N-D (tensor and
-split (re, im) forms), the fused real filter, DCT/DST types I-VIII with
+The same public names and signatures as ``cfftpack_tpu``: complex and
+real FFTs in 1-D, 2-D and N-D (tensor and split (re, im) forms), the fused real filter, DCT/DST types I-VIII with
 their N-D forms, the generalized DFT, spectrum shifts, frequency grids,
 circular convolution, fast-size planning, the ``*_hp`` names in native
 float64 with the f64 policy names, the reference-shaped plan API
 (``compat``), the finance models (``models``: the conv pricer, the
 Monte-Carlo and QMC pricers, the short-rate lattice; ``apps`` re-exports
-them) and their numerics (``utils``).  The parallel layer is not ported
-yet.  Transforms run through the
+them), their numerics and the plan, profiling and NaN-check utils
+(``utils``), and the parallel layer over ``torch.distributed``
+(``cfftpack_tpu_torch.parallel``: mesh helpers, batch-sharded,
+four-step, sharded 2-D and row-column transforms, one process a rank;
+``dryrun`` drives it on n ranks).  Transforms run through the
 hand-written CUDA kernels in ``csrc/`` on CUDA tensors and through their
 plain PyTorch versions on CPU tensors.  This package never imports JAX.
 """
@@ -34,4 +36,4 @@ from .ops import (fft, ifft, fft2, ifft2, fftn, ifftn,  # noqa: F401
                   dctn_hp, idctn_hp, dstn_hp, idstn_hp,
                   gdft_hp, igdft_hp)
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"

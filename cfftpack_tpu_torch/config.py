@@ -59,6 +59,9 @@ def inv_scale(norm: str, n: int) -> float:
     return 1.0 / n  # backward
 
 
+# NaN checks at the API layer's exit (``utils.enable_nan_checks``)
+NAN_CHECKS = False
+
 # ---------------------------------------------------------- f64 policy
 
 _F64_POLICY = "hp"

@@ -17,15 +17,21 @@ Counterpart of ``cfftpack_tpu/models/montecarlo.py``:
 ``jax.random`` cannot be reproduced in torch: uniform and normal draws
 come from a ``torch.Generator`` on the run's device seeded with
 ``seed``.  Every function runs on ``device`` (the card unless the caller
-names another, ``config.resolve_device``).  ``mesh`` (sharded draws)
-waits for the parallel layer's port.
+names another, ``config.resolve_device``).  With ``mesh`` (a
+``DeviceMesh``, ``parallel.make_mesh``) the draws are sharded over every
+mesh axis: each rank runs on its own device, draws samples/D of them and
+the means combine by one ``all_reduce``; every rank of the mesh calls
+it and gets the price.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import resolve_device
+from ..parallel._comm import (all_axes_group, check_mesh, linear_index,
+                              mesh_device)
 from ..ops.cfft import fft_split, ifft_split
 from ..ops.dct import dct
 from ..ops.shift import fftshift, ifftshift
@@ -36,11 +42,23 @@ __all__ = ["vg_mc_price", "vg_mc_price_device", "asian_option_qmc",
            "asian_option_qmc_device", "brownian_paths_qmc"]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the parallel layer is not ported yet (ROADMAP.md "
-            "queue 1, item 13)")
+def _mesh_shard(mesh, samples: int):
+    """(D, this rank's linear index, its device) of a sample-sharded
+    pipeline; ``samples`` must be divisible by the mesh's rank count."""
+    check_mesh(mesh)
+    nd = mesh.size()
+    if samples % nd:
+        raise ValueError(f"samples={samples} must be divisible by the "
+                         f"mesh device count {nd}")
+    return nd, linear_index(mesh), mesh_device(mesh)
+
+
+def _mesh_mean(local, mesh, nd: int) -> float:
+    """The mean over every rank of the mesh of a 0-d tensor: one SUM
+    ``all_reduce`` over all axes, then / D."""
+    total = local.reshape(1).clone()
+    dist.all_reduce(total, group=all_axes_group(mesh))
+    return float(total[0]) / nd
 
 
 def _vg_grid_setup(sigma, theta, kappa, r, t, n: int):
@@ -140,13 +158,21 @@ def vg_mc_price_device(S=100.0, K=98.0, sigma=0.12, theta=-0.14, kappa=0.2,
     """VG call by inverse-CDF Monte Carlo with the whole pipeline on
     ``device`` in ``dtype``: distribution build, draws, CDF lookup and
     payoff mean; only the host float64 characteristic-function table
-    and one scalar cross the host boundary."""
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    and one scalar cross the host boundary.
+
+    ``mesh``: rank d of D draws samples/D from a generator seeded
+    ``seed*D + d`` (disjoint streams, as the JAX package's); the
+    N-point distribution is built on every rank.  ``samples`` must be
+    divisible by D."""
+    if mesh is None:
+        nd, d, device = 1, 0, resolve_device(device)
+    else:
+        nd, d, device = _mesh_shard(mesh, int(samples))
     dx, phr, phi_ = _vg_tables(sigma, theta, kappa, r, t, n, dtype, device)
-    draws = _uniform(samples, seed, dtype, device)
-    return float(_vg_mc_body(draws, int(n), bool(is_call), (S, K, r, t),
-                             phr, phi_, float(dx)))
+    draws = _uniform(int(samples) // nd, seed * nd + d, dtype, device)
+    price = _vg_mc_body(draws, int(n), bool(is_call), (S, K, r, t), phr,
+                        phi_, float(dx))
+    return float(price) if mesh is None else _mesh_mean(price, mesh, nd)
 
 
 def brownian_paths_qmc(n_paths: int, steps: int, start_index: int = 1,
@@ -168,7 +194,7 @@ def _asian_value(z, S, K, sigma, t, r, steps: int, is_call: bool):
     s_path = S * torch.exp(torch.cumsum(z * var + drift, dim=-1))
     pay = (torch.clamp(s_path - K, min=0.0) if is_call
            else torch.clamp(K - s_path, min=0.0))
-    return float(pay.mean(dim=-1).mean() * float(np.exp(-r * t)))
+    return pay.mean(dim=-1).mean() * float(np.exp(-r * t))
 
 
 def asian_option_qmc_device(S=100.0, K=98.0, sigma=0.17, t=0.25, r=0.02,
@@ -180,15 +206,24 @@ def asian_option_qmc_device(S=100.0, K=98.0, sigma=0.17, t=0.25, r=0.02,
     ``device`` in ``dtype`` (vs ``asian_option_qmc``'s host Halton
     setup): Halton digits, inverse normal CDF, orthonormal DCT-IV path
     build, cumulative log-return walk and payoff mean; no host-to-device
-    transfer scales with the sample count."""
-    _no_mesh(mesh)
+    transfer scales with the sample count.
+
+    ``mesh``: rank d of D draws the Halton indices start + d*S/D ..
+    (start = samples*run_index + 1), so the mesh prices the same point
+    set as the single-device call.  ``samples`` must be divisible by
+    D."""
     if steps % 2:
         raise ValueError("steps must be even (DCT-IV path construction)")
-    device = resolve_device(device)
-    pts = halton_batch(samples * run_index + 1, samples, steps, dtype,
-                       device)
+    if mesh is None:
+        nd, d, device = 1, 0, resolve_device(device)
+    else:
+        nd, d, device = _mesh_shard(mesh, int(samples))
+    local = int(samples) // nd
+    pts = halton_batch(samples * run_index + 1 + d * local, local, steps,
+                       dtype, device)
     z = dct(normal_icdf(pts), type=4, norm="ortho")
-    return _asian_value(z, S, K, sigma, t, r, steps, is_call)
+    price = _asian_value(z, S, K, sigma, t, r, steps, is_call)
+    return float(price) if mesh is None else _mesh_mean(price, mesh, nd)
 
 
 def asian_option_qmc(S=100.0, K=98.0, sigma=0.17, t=0.25, r=0.02,
@@ -209,4 +244,4 @@ def asian_option_qmc(S=100.0, K=98.0, sigma=0.17, t=0.25, r=0.02,
         g = torch.Generator(device=device).manual_seed(seed + run_index)
         z = torch.randn((samples, steps), generator=g, dtype=torch.float64,
                         device=device)
-    return _asian_value(z, S, K, sigma, t, r, steps, is_call)
+    return float(_asian_value(z, S, K, sigma, t, r, steps, is_call))

@@ -12,8 +12,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import resolve_device
+from ..parallel._comm import axis_index, axis_size, check_mesh, mesh_device
 from ..ops.rfft import rfilter_split
 from ..plan import fft_next_fast_even_size
 from .chfun import bs_cf, vg_cf
@@ -33,14 +35,19 @@ def conv_option_price(S, K, t, r, phi_fn, n: int = 1 << 14,
     ``grid_sigma`` sets the log-price grid width L = 20*sigma*sqrt(t)
     (the reference's rule of thumb, vargamma.c:52).  The transform runs
     on ``device`` (the card unless the caller names another,
-    ``config.resolve_device``) in ``dtype``.  ``mesh`` (a sharded strike ladder)
-    waits for the parallel layer's port.
+    ``config.resolve_device``) in ``dtype``.
+
+    ``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``).  The strike
+    ladder, padded to a multiple of ``mesh[batch_axis_name]``, is sharded
+    over that axis: each rank prices its slice on its own device, and one
+    ``all_gather_into_tensor`` on the axis's group returns the whole
+    ladder on every rank.  Every rank of the mesh calls it.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the parallel layer is not ported yet (ROADMAP.md "
-            "queue 1, item 13)")
-    device = resolve_device(device)
+        check_mesh(mesh)
+        device = mesh_device(mesh)
+    else:
+        device = resolve_device(device)
     K = np.atleast_1d(np.asarray(K, dtype=np.float64))
     N = fft_next_fast_even_size(n)
     N2 = N // 2
@@ -60,10 +67,32 @@ def conv_option_price(S, K, t, r, phi_fn, n: int = 1 << 14,
         return torch.as_tensor(a, dtype=torch.float64).to(device=device,
                                                           dtype=dtype)
 
-    # standard packed layout: the factor is conj(phi)
-    out = rfilter_split(dev(payoff), dev(phi.real), dev(-phi.imag))
-    value = out[:, N2].cpu().double().numpy() * np.exp(-r * t)
+    if mesh is None:
+        # standard packed layout: the factor is conj(phi)
+        out = rfilter_split(dev(payoff), dev(phi.real), dev(-phi.imag))
+        atm = out[:, N2]
+    else:
+        atm = _ladder_sharded(payoff, phi, N2, mesh, batch_axis_name, dev)
+    value = atm[: len(K)].cpu().double().numpy() * np.exp(-r * t)
     return value if value.size > 1 else float(value[0])
+
+
+def _ladder_sharded(payoff, phi, N2: int, mesh, batch_axis_name: str, dev):
+    """This rank's slice of the padded ladder through ``rfilter_split``,
+    then the at-the-money values of every rank, gathered."""
+    nb = axis_size(mesh, batch_axis_name)
+    pad = (-len(payoff)) % nb
+    if pad:
+        payoff = np.concatenate([payoff, payoff[:1].repeat(pad, 0)], 0)
+    b = len(payoff) // nb
+    i = axis_index(mesh, batch_axis_name)
+    out = rfilter_split(dev(payoff[i * b:(i + 1) * b]), dev(phi.real),
+                        dev(-phi.imag))
+    local = out[:, N2].contiguous()
+    atm = local.new_empty(nb * b)
+    dist.all_gather_into_tensor(atm, local,
+                                group=mesh.get_group(batch_axis_name))
+    return atm
 
 
 def conv_bsvg_option(n, S, K, sigma, theta, kappa, t, r,

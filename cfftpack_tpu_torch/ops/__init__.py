@@ -1,3 +1,7 @@
+"""The public transforms, each behind the API layer's exit
+(``utils.debug.api_exit``: the NaN check while it is on)."""
+import inspect as _inspect
+
 from .cfft import (fft, ifft, fft2, ifft2, fftn, ifftn,  # noqa: F401
                    fft_split, ifft_split, fft2_split, ifft2_split)
 from .rfft import (rfft, irfft, rfft2, irfft2, rfft_split,  # noqa: F401
@@ -15,3 +19,9 @@ from .hp import (fft_hp, ifft_hp, fft2_hp, ifft2_hp,  # noqa: F401
                  dst_hp, idst_hp,
                  dctn_hp, idctn_hp, dstn_hp, idstn_hp,
                  gdft_hp, igdft_hp)
+
+from ..utils.debug import api_exit as _api_exit  # noqa: E402
+
+for _name, _fn in list(globals().items()):
+    if _inspect.isfunction(_fn) and not _name.startswith("_"):
+        globals()[_name] = _api_exit(_fn)

@@ -109,6 +109,14 @@ def _split_pass(xr, xi, axis: int, norm: str, inverse: bool,
     K1, K5) and with one multiply otherwise."""
     n = xr.shape[axis]
     s = inv_scale(norm, n) if inverse else fwd_scale(norm, n)
+    return scaled_pass(xr, xi, axis, inverse, s, impl)
+
+
+def scaled_pass(xr, xi, axis: int, inverse: bool, s: float,
+                impl: str = "xla"):
+    """:func:`_split_pass` with the scale ``s`` given in place of a norm
+    (the parallel layer's passes carry the whole transform's norm)."""
+    n = xr.shape[axis]
     if (impl == "xla" and xr.ndim >= 2 and axis % xr.ndim == xr.ndim - 2
             and colfft.colfft_eligible(n, xr.shape[-1], xr.dtype)):
         return colfft.scolfft(xr, xi, inverse, scale=s)

@@ -855,6 +855,284 @@ def phase_models(total: dict, card: str) -> None:
           "relative")
 
 
+# phase 34 widths: BASELINE configs[2] (one long transform, 2^20 x 64)
+# and configs[3] (the 2-D FFT, 4096^2 x 64), complex64, and the real
+# 2-D FFT at 16 images
+FOURSTEP_SHAPE = (64, 1 << 20)
+FFT2_SHAPE, RFFT2_SHAPE = (64, 4096, 4096), (16, 4096, 4096)
+
+
+@contextlib.contextmanager
+def no_plain_on_card():
+    """K1's and K6's plain versions raise on a CUDA tensor while the
+    parallel path runs: it must launch the kernels."""
+    saved = fused_fft.sfft_plain, colfft.colfft_plain, core._stockham
+
+    def guard(fn):
+        def call(xr, *args, **kwargs):
+            if xr.is_cuda:
+                raise RuntimeError(f"{fn.__name__} ran on the card")
+            return fn(xr, *args, **kwargs)
+        return call
+
+    fused_fft.sfft_plain, colfft.colfft_plain, core._stockham = (
+        guard(f) for f in saved)
+    try:
+        yield
+    finally:
+        fused_fft.sfft_plain, colfft.colfft_plain, core._stockham = saved
+
+
+def counted(fn):
+    """fn's result and the collectives it called."""
+    from cfftpack_tpu_torch.parallel._comm import count_collectives
+    with count_collectives() as cc:
+        out = fn()
+    return out, cc
+
+
+def check_collectives(cc: dict, want: dict, what: str) -> None:
+    full = {"all_to_all_single": 0, "all_reduce": 0,
+            "all_gather_into_tensor": 0, "reduce_scatter_tensor": 0, **want}
+    check(cc == full, f"{what}: collectives {cc}")
+
+
+def chunked_rel_err(got, fn, want_of, step: int = 8) -> float:
+    """max |got - want| / max |want| over the leading axis in steps of
+    ``step`` (``want_of(i, j)`` gives the reference of rows i:j), so the
+    reference of an 8 GiB tensor is never whole."""
+    err = peak = 0.0
+    for i in range(0, got.shape[0], step):
+        w = want_of(i, i + step)
+        err = max(err, float((fn(got[i:i + step]) - w).abs().max()))
+        peak = max(peak, float(w.abs().max()))
+    return err / peak
+
+
+def phase_parallel(total: dict, card: str) -> None:
+    """Phase 34: the parallel layer at world size 1 on a one-rank NCCL
+    group: the four-step at 2^20 x 64 and the sharded 2-D FFT at
+    4096^2 x 64 against torch.fft, the real 2-D FFT, the dry run and
+    the pricers with mesh=, each with its collectives counted and its
+    K1 and K6 launches, beside the single-device entry's time."""
+    import socket
+    import torch.distributed as dist
+    from cfftpack_tpu_torch import parallel as par
+    from cfftpack_tpu_torch.dryrun import dryrun_multichip
+    from cfftpack_tpu_torch.models import (asian_option_qmc_device,
+                                           vg_mc_price_device)
+
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    par.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        with no_plain_on_card():
+            mesh = par.make_mesh((1,), ("data",))
+            print(f"phase 34: one-rank NCCL group, mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+                  f"{torch.cuda.get_device_name(0)}")
+            parallel_fourstep(par, mesh, total, card)
+            parallel_fft2(par, mesh, total, card)
+            print("phase 34: dryrun_multichip(1, device=\"cuda\")")
+            res, got = timed_drive("dryrun_multichip(1)", lambda: (
+                dryrun_multichip(1, device="cuda")), total, card)
+            check(got["K1"] > 0 and got["K6"] > 0,
+                  f"the dry run launched K1 and K6 ({got})")
+            print("phase 34: the pricers with mesh=, against mesh=None")
+            for name, fn in (
+                    ("conv_option_price 80 strikes n=4096 f64",
+                     lambda **kw: conv_option_price(
+                         100.0, np.arange(80.0, 120.0, 0.5), 0.25, 0.03,
+                         lambda u: bs_cf(u, 0.25, 0.2, 0.03), n=4096,
+                         grid_sigma=0.2, **kw)),
+                    (f"asian_option_qmc_device {ASIAN_SAMPLES} x 128 f32",
+                     lambda **kw: asian_option_qmc_device(
+                         steps=128, samples=ASIAN_SAMPLES, **kw)),
+                    (f"vg_mc_price_device n=2048 {VG_SAMPLES} draws f32",
+                     lambda **kw: vg_mc_price_device(
+                         n=2048, samples=VG_SAMPLES, **kw))):
+                (v, cc), got = timed_drive(f"{name} mesh=", lambda: counted(
+                    lambda: fn(mesh=mesh)), total, card)
+                check(got["K1"] > 0, f"{name}: K1 launched ({got})")
+                check_collectives(cc, {"all_gather_into_tensor": 1}
+                                  if "conv" in name else {"all_reduce": 1},
+                                  name)
+                one = fn(device=DEV)
+                err = float(np.abs(np.asarray(v) - np.asarray(one)).max())
+                check(err < 1e-12, f"{name}: mesh= vs mesh=None {err:.2e}")
+                t_mesh = median_ms(lambda: fn(mesh=mesh), 5, 1)
+                t_one = median_ms(lambda: fn(device=DEV), 5, 1)
+                print(f"  {name}: mesh= {t_mesh:.3f} ms, mesh=None "
+                      f"{t_one:.3f} ms  [{card}]")
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def parallel_fourstep(par, mesh, total: dict, card: str) -> None:
+    from cfftpack_tpu_torch.parallel.fourstep_split import _split
+    b, n = FOURSTEP_SHAPE
+    n1, n2 = _split(n, 1)
+    print(f"phase 34: fft_fourstep/ifft_fourstep n=2^20 batch={b} complex64")
+    g = torch.Generator(device=DEV).manual_seed(340)
+    x = torch.randn((b, n), generator=g, device=DEV, dtype=torch.complex64)
+    want = torch.fft.fft(x, norm="forward")
+    wmax, xmax = float(want.abs().max()), float(x.abs().max())
+    layouts = {False: want.reshape(b, n2, n1).transpose(1, 2), True: want}
+    for natural in (False, True):
+        for c in (1, 2):
+            what = f"fft_fourstep reorder={natural} overlap_chunks={c}"
+            (y, cc), got = timed_drive(what, lambda: counted(
+                lambda: par.fft_fourstep(x, mesh, reorder=natural,
+                                         overlap_chunks=c)), total, card)
+            check(got["K1"] > 0 and got["K6"] > 0,
+                  f"{what}: K1 and K6 launched ({got})")
+            check_collectives(cc, {"all_to_all_single": c + natural}, what)
+            err = float((y - layouts[natural]).abs().max()) / wmax
+            check(err < 1e-4, f"{what}: vs torch.fft.fft {err:.2e} < 1e-4 "
+                  "of max |X|")
+            what = f"ifft_fourstep reordered={natural} overlap_chunks={c}"
+            (back, cc), got = timed_drive(what, lambda: counted(
+                lambda: par.ifft_fourstep(y, mesh, reordered=natural,
+                                          overlap_chunks=c)), total, card)
+            check(got["K1"] > 0 and got["K6"] > 0,
+                  f"{what}: K1 and K6 launched ({got})")
+            check_collectives(cc, {"all_to_all_single": c + natural}, what)
+            err = float((back - x).abs().max()) / xmax
+            check(err < 1e-4, f"{what}: round trip {err:.2e} < 1e-4 of "
+                  "max |x|")
+            del y, back
+    del want, layouts
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    times = {
+        "fft_fourstep reorder=False": lambda: par.fft_fourstep(
+            x, mesh, reorder=False),
+        "fft_fourstep reorder=False overlap_chunks=2": lambda: (
+            par.fft_fourstep(x, mesh, reorder=False, overlap_chunks=2)),
+        "fft_fourstep reorder=True": lambda: par.fft_fourstep(x, mesh),
+        "fft_fourstep_split reorder=True": lambda: par.fft_fourstep_split(
+            xr, xi, mesh),
+        "single-device fft (K5)": lambda: ct.fft(x),
+        "single-device fft_split (K5)": lambda: ct.fft_split(xr, xi),
+        "torch.fft.fft": lambda: torch.fft.fft(x, norm="forward")}
+    for name, fn in times.items():
+        print(f"  {name} (64, 2^20): {median_ms(fn, 10, 2):.4f} ms  [{card}]")
+    del x, xr, xi
+
+
+def parallel_fft2(par, mesh, total: dict, card: str) -> None:
+    b, n0, n1 = FFT2_SHAPE
+    print(f"phase 34: fft2_sharded/ifft2_sharded shape {FFT2_SHAPE} "
+          "complex64 (8 GiB a tensor)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=DEV).manual_seed(341)
+    x = torch.randn(FFT2_SHAPE, generator=g, device=DEV,
+                    dtype=torch.complex64)
+    (y, cc), got = timed_drive("fft2_sharded", lambda: counted(
+        lambda: par.fft2_sharded(x, mesh)), total, card)
+    check(got["K1"] > 0 and got["K6"] > 0, f"K1 and K6 launched ({got})")
+    check_collectives(cc, {"all_to_all_single": 2}, "fft2_sharded")
+    err = chunked_rel_err(y, lambda t: t, lambda i, j: torch.fft.fft2(
+        x[i:j], norm="forward"))
+    check(err < 1e-4, f"fft2_sharded vs torch.fft.fft2 (8 images at a time) "
+          f"{err:.2e} < 1e-4 of max |X|")
+    (back, cc), got = timed_drive("ifft2_sharded", lambda: counted(
+        lambda: par.ifft2_sharded(y, mesh)), total, card)
+    check(got["K1"] > 0 and got["K6"] > 0, f"K1 and K6 launched ({got})")
+    check_collectives(cc, {"all_to_all_single": 2}, "ifft2_sharded")
+    del y
+    err = chunked_rel_err(back, lambda t: t, lambda i, j: x[i:j])
+    check(err < 1e-4, f"ifft2_sharded round trip {err:.2e} < 1e-4 of max |x|")
+    del back
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB"
+          f"  [{card}]")
+    for name, fn in (("fft2_sharded", lambda: par.fft2_sharded(x, mesh)),
+                     ("single-device fft2", lambda: ct.fft2(x))):
+        print(f"  {name} {FFT2_SHAPE}: {median_ms(fn, 5, 1):.4f} ms  "
+              f"[{card}]")
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    del x
+    for name, fn in (("fft2_sharded_split",
+                      lambda: par.fft2_sharded_split(xr, xi, mesh)),
+                     ("single-device fft2_split",
+                      lambda: ct.fft2_split(xr, xi))):
+        print(f"  {name} {FFT2_SHAPE}: {median_ms(fn, 5, 1):.4f} ms  "
+              f"[{card}]")
+    del xr, xi
+    torch.cuda.empty_cache()
+    print(f"phase 34: rfft2_sharded_split shape {RFFT2_SHAPE} f32")
+    v = torch.randn(RFFT2_SHAPE, generator=g, device=DEV)
+    ((yr, yi), cc), got = timed_drive("rfft2_sharded_split", lambda: counted(
+        lambda: par.rfft2_sharded_split(v, mesh)), total, card)
+    check(got["K1"] > 0 and got["K6"] > 0, f"K1 and K6 launched ({got})")
+    check_collectives(cc, {"all_to_all_single": 2}, "rfft2_sharded_split")
+    y = torch.complex(yr, yi)
+    err = chunked_rel_err(y, lambda t: t, lambda i, j: torch.fft.rfft2(
+        v[i:j], norm="forward"))
+    check(err < 1e-4, f"rfft2_sharded_split vs torch.fft.rfft2 {err:.2e} < "
+          "1e-4 of max |X|")
+    (back, cc), got = timed_drive("irfft2_sharded_split", lambda: counted(
+        lambda: par.irfft2_sharded_split(yr, yi, n1, mesh)), total, card)
+    check_collectives(cc, {"all_to_all_single": 2}, "irfft2_sharded_split")
+    err = chunked_rel_err(back, lambda t: t, lambda i, j: v[i:j])
+    check(err < 1e-4, f"irfft2_sharded_split round trip {err:.2e} < 1e-4")
+    t_par = median_ms(lambda: par.rfft2_sharded_split(v, mesh), 5, 1)
+    t_one = median_ms(lambda: ct.rfft2_split(v), 5, 1)
+    print(f"  rfft2_sharded_split {RFFT2_SHAPE}: {t_par:.4f} ms, "
+          f"single-device rfft2_split {t_one:.4f} ms  [{card}]")
+    del v, y, yr, yi, back
+
+
+def phase_utils(card: str) -> None:
+    """Phase 35: the four small utils on the card."""
+    import tempfile
+    from cfftpack_tpu_torch import plan
+    from cfftpack_tpu_torch import utils as pu
+
+    print("phase 35: warm_plans, precompile, trace, Timer, check_finite")
+    pu.warm_plans([1009, 4096], device=DEV)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    check(all((n, torch.float32, dev) in plan._DEVICE_TABLES
+              for n in (1009, 4096)), "warm_plans built the device tables")
+    x = real((4096, 1024), torch.float32, seed=350)
+    run = pu.precompile(ct.rfft_split, x)
+    yr, yi = run(x)
+    err = rel_err(torch.complex(yr, yi), torch.fft.rfft(x, norm="forward"))
+    check(err < 1e-5, f"precompile(rfft_split) vs torch.fft.rfft {err:.2e}")
+    xr, xi = pair((4096, 1024), torch.float32, seed=351)
+    with tempfile.TemporaryDirectory() as logdir:
+        with pu.trace(logdir):
+            ct.fft_split(xr, xi)
+        events = json.loads((Path(logdir) / "trace.json").read_text())
+    kern = sorted({e["name"] for e in events["traceEvents"]
+                   if e.get("cat") == "kernel"})
+    check(bool(kern), f"trace.json names kernel rows: {kern[:2]}")
+    with pu.Timer(sync=xr) as t:
+        ct.fft_split(xr, xi)
+    check(t.seconds > 0.0, f"Timer on CUDA events: {t.seconds * 1e3:.4f} ms "
+          f"[{card}]")
+    bad = torch.tensor([1.0, float("nan")], device=DEV)
+    raised = False
+    try:
+        pu.check_finite(bad)
+    except FloatingPointError as e:
+        raised = True
+        print(f"  check_finite raised: {e}")
+    check(raised, "check_finite raises on a NaN")
+    pu.enable_nan_checks(True)
+    raised = False
+    try:
+        ct.fft(bad)
+    except FloatingPointError:
+        raised = True
+    finally:
+        pu.enable_nan_checks(False)
+    check(raised, "enable_nan_checks: fft of a NaN raises at the API exit")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1816,6 +2094,9 @@ def main() -> None:
     phase_compat(total, card)
     phase_models(total, card)
 
+    # ---- phase 34: the parallel layer on a one-rank NCCL group
+    phase_parallel(total, card)
+
     for k in KERNELS:
         check(total[k] > 0, f"main path launched {k} {total[k]} times")
 
@@ -2449,6 +2730,10 @@ def main() -> None:
             finally:
                 stream_fft._filter_cluster_size = frule
         del ar, ai
+
+    # ---- phase 35: the four small utils (after phase 25: a profiler
+    # session before it makes its traces lose kernel rows)
+    phase_utils(card)
 
     # each kernel's bound at the shape its times were taken at: every
     # input read once and every output written once (the data planes; the

@@ -174,4 +174,4 @@ def test_exports():
     for name in ("gdft", "igdft", "gdft_split", "igdft_split", "fftshift",
                  "ifftshift", "fftfreq", "rfftfreq", "circular_convolve"):
         assert callable(getattr(pt, name)) and hasattr(jt, name)
-    assert pt.__version__ == "0.5.0"
+    assert pt.__version__ == "0.6.0"

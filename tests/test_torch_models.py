@@ -21,7 +21,9 @@ from cfftpack_tpu_torch import utils as pu
 from cfftpack_tpu_torch.models import montecarlo, shortrate
 from cfftpack_tpu_torch.models.chfun import alpha_stable_cf, normal_cf
 
-from torch_parity import rel_err, to_np
+from cfftpack_tpu_torch.parallel._comm import count_collectives
+
+from torch_parity import one_rank_mesh, rel_err, to_np  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -214,10 +216,19 @@ def test_vg_mc_prices_hit_the_target():
     assert abs(dev - host) < 1e-3
 
 
-def test_mesh_waits_for_the_parallel_layer():
-    for fn in (pm.vg_mc_price_device, pm.asian_option_qmc_device):
-        with pytest.raises(NotImplementedError, match="item 13"):
+def test_mesh_waits_for_the_parallel_layer(one_rank_mesh):
+    """The sample-sharded pricers: a mesh that is not a DeviceMesh raises
+    TypeError; on a one-rank gloo mesh each matches its mesh=None call
+    with one all_reduce."""
+    for fn, kw in ((pm.vg_mc_price_device, {"n": 256, "samples": 4096}),
+                   (pm.asian_option_qmc_device, {"steps": 16,
+                                                 "samples": 512})):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             fn(mesh=object())
+        with count_collectives() as cc:
+            got = fn(mesh=one_rank_mesh, **kw)
+        assert cc["all_reduce"] == 1
+        assert abs(got - fn(**kw, **CPU)) < 1e-12
 
 
 def test_levy_maps_match_reference():

@@ -27,7 +27,9 @@ from cfftpack_tpu_torch.models import (asian_option_qmc_device,
 from cfftpack_tpu_torch.ops import colfft, fourstep_fft, fused_fft, stream_fft
 from cfftpack_tpu_torch.utils import halton_batch
 
-from torch_parity import rel_err, to_np
+from cfftpack_tpu_torch.parallel._comm import count_collectives
+
+from torch_parity import one_rank_mesh, rel_err, to_np  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -69,12 +71,20 @@ def test_conv_bsvg_option_vg_matches_reference(is_call):
     assert abs(got - want) < 1e-12 * abs(want)
 
 
-def test_pricer_mesh_waits_for_the_parallel_layer():
-    # no device given: the mesh error comes before any device is resolved
-    with pytest.raises(NotImplementedError, match="parallel"):
-        conv_option_price(100.0, 100.0, 0.25, 0.03,
-                          lambda u: bs_cf(u, 0.25, 0.2, 0.03), n=64,
-                          grid_sigma=0.2, mesh=object())
+def test_pricer_mesh_waits_for_the_parallel_layer(one_rank_mesh):
+    """The sharded ladder: a mesh that is not a DeviceMesh raises
+    TypeError (before any device is resolved); on a one-rank gloo mesh
+    it matches the mesh=None call and gathers once."""
+    def price(**kw):
+        return conv_option_price(100.0, STRIKES, 0.25, 0.03, _phi, n=4096,
+                                 grid_sigma=0.2, **kw)
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        price(mesh=object())
+    with count_collectives() as cc:
+        got = price(mesh=one_rank_mesh)
+    assert cc["all_gather_into_tensor"] == 1
+    assert rel_err(got, price(device="cpu")) < 1e-15
 
 
 def test_import_leaves_jax_out():
@@ -87,7 +97,11 @@ def test_import_leaves_jax_out():
             "cfftpack_tpu_torch.ops.hp, cfftpack_tpu_torch.compat, "
             "cfftpack_tpu_torch.apps, cfftpack_tpu_torch.utils, "
             "cfftpack_tpu_torch.models.montecarlo, "
-            "cfftpack_tpu_torch.models.shortrate; "
+            "cfftpack_tpu_torch.models.shortrate, "
+            "cfftpack_tpu_torch.parallel, cfftpack_tpu_torch.dryrun, "
+            "cfftpack_tpu_torch.utils.cache, cfftpack_tpu_torch.utils.aot, "
+            "cfftpack_tpu_torch.utils.profiling, "
+            "cfftpack_tpu_torch.utils.debug; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'cfftpack_tpu.'))] ; "
             "assert not bad, bad")
@@ -96,20 +110,18 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0, res.stderr
 
 
-# names of the JAX package not ported yet: the parallel layer (ROADMAP.md
-# queue 1, item 13) exports none of these modules' names; item 14's
-# small utils are in ``cfftpack_tpu.utils``
-NOT_PORTED = {"cfftpack_tpu.utils": {
-    "enable_compilation_cache", "warm_plans", "enable_nan_checks",
-    "check_finite", "trace", "Timer", "precompile"}}
+# names of the JAX package not ported yet: none
+NOT_PORTED = {}
 
 
 @pytest.mark.parametrize("ref", ["cfftpack_tpu", "cfftpack_tpu.models",
                                  "cfftpack_tpu.apps", "cfftpack_tpu.utils",
-                                 "cfftpack_tpu.compat"])
+                                 "cfftpack_tpu.compat",
+                                 "cfftpack_tpu.parallel"])
 def test_port_has_every_public_name(ref):
     """Every public name of the JAX package's top level, models, apps,
-    utils and compat.__all__ exists in the port, bar the listed ones."""
+    utils, compat.__all__ and parallel exists in the port, bar the
+    listed ones."""
     import importlib
     import inspect
     mod = importlib.import_module(ref)

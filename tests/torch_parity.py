@@ -6,8 +6,12 @@ counterpart in ``cfftpack_tpu_torch``; the results are compared as
 numpy arrays.  Bars are the reference's (conftest.py): an error
 relative to max |X| of 1e-4 in float32 and 1e-12 in float64.
 """
+import socket
+
 import numpy as np
+import pytest
 import torch
+import torch.distributed as dist
 
 BARS = {np.float32: 1e-4, np.float64: 1e-12,
         np.complex64: 1e-4, np.complex128: 1e-12}
@@ -39,3 +43,18 @@ def complex_input(shape, dtype, seed: int) -> np.ndarray:
     r = np.random.default_rng(seed)
     x = r.standard_normal(shape) + 1j * r.standard_normal(shape)
     return x.astype(dtype)
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A one-rank gloo process group in this process and a 1-D CPU mesh
+    ("data") over it; the group is destroyed after the test."""
+    from cfftpack_tpu_torch.parallel import init_distributed, make_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cpu")
+    try:
+        yield make_mesh((1,), ("data",), devices="cpu")
+    finally:
+        dist.destroy_process_group()
