@@ -25,7 +25,9 @@ the same lengths.  The reference's ``n1 % 128 == 0`` is its lane tile
 and does not apply: the kernel masks its last lane group, so any
 n1 >= 1 runs.  On a CPU tensor each wrapper runs its plain version; on
 a CUDA tensor it launches the kernel or raises.  ``launches`` counts
-kernel launches.
+kernel launches.  Both wrappers are differentiable (``_adjoint``): K6's
+backward is the other direction, K9's the other DCT type with the row
+weight moved across (:func:`_dct_adjoint_weight`).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import plan
-from . import _build, core, stream_fft
+from . import _adjoint, _build, core, stream_fft
 
 __all__ = ["colfft_eligible", "colfft_plain", "scolfft", "coldct2_plain",
            "coldct3_plain", "coldct_plain", "scoldct"]
@@ -349,7 +351,12 @@ def scolfft(xr, xi, inverse: bool = False, scale: float = 1.0):
     """DFT over axis -2 of split (re, im) planes of shape (..., n0, n1)
     through K6: natural order, no transposes, the output multiplied by
     ``scale`` in the kernel's store.  Needs ``colfft_eligible``.  A view
-    that is not contiguous is copied first."""
+    that is not contiguous is copied first.  The adjoint is the other
+    direction times ``scale``."""
+    if _adjoint.needs_grad(xr, xi):
+        return _adjoint.linear(
+            lambda a, b: scolfft(a, b, inverse, scale),
+            lambda a, b: scolfft(a, b, not inverse, scale), xr, xi)
     shape = xr.shape
     n0, n1 = shape[-2], shape[-1]
     _check(n0, n1, xr, xi)
@@ -361,6 +368,18 @@ def scolfft(xr, xi, inverse: bool = False, scale: float = 1.0):
     return yr.reshape(shape), yi.reshape(shape)
 
 
+def _dct_adjoint_weight(w, n0: int, t: int, device):
+    """The row weight of the adjoint of :func:`scoldct` type ``t`` with
+    weight ``w`` (ones when None).  The DCT-III core is C3 = C2^T diag(1/2,
+    1, ..., 1), C2 the DCT-II's matrix, so the adjoint of diag(w) C2 (type
+    2, w on the output) is C3 diag(2 w_0, w_1, ...) (type 3, w on the
+    input) and that of C3 diag(w) is diag(w_0/2, w_1, ...) C2."""
+    v = (torch.ones(n0, dtype=torch.float32, device=device) if w is None
+         else w.clone())
+    v[0] *= 2.0 if t == 2 else 0.5
+    return v
+
+
 def scoldct(x, t: int, w=None, scale: float = 1.0):
     """DCT-II (``t == 2``) or DCT-III (``t == 3``) over axis -2 of real
     (..., n0, n1) images through K9, the flat image count even:
@@ -369,6 +388,11 @@ def scoldct(x, t: int, w=None, scale: float = 1.0):
     ``w`` an (n0,) row weight or None."""
     if t not in (2, 3):
         raise ValueError(f"the column DCT is type 2 or 3, got {t}")
+    if _adjoint.needs_grad(x):
+        return _adjoint.linear(
+            lambda v: scoldct(v, t, w, scale),
+            lambda g: scoldct(g, 5 - t, _dct_adjoint_weight(
+                w, g.shape[-2], t, g.device), scale), x)
     shape = x.shape
     n0, n1 = shape[-2], shape[-1]
     _check(n0, n1, x)

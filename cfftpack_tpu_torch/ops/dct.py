@@ -36,7 +36,7 @@ import torch
 
 from ..config import DEFAULT_NORM, as_tensor, check_norm
 from .. import plan
-from . import colfft, core, fused_fft, oddtypes, rstream, stream_fft
+from . import _adjoint, colfft, core, fused_fft, oddtypes, rstream, stream_fft
 from .cfft import _apply_axis, _check_axis, _check_length
 
 __all__ = ["dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn"]
@@ -319,7 +319,11 @@ def _dct4_stream_plain(x, n: int, scale: float = 1.0, dst: bool = False):
 
 def _dct4_stream(x, n: int, scale: float = 1.0, dst: bool = False):
     """Even-n DCT-IV (DST-IV with ``dst``) times ``scale`` through K8 on
-    a CUDA tensor (or raises), its plain version on a CPU tensor."""
+    a CUDA tensor (or raises), its plain version on a CPU tensor.  Both
+    matrices are symmetric, so the adjoint is the same call."""
+    if _adjoint.needs_grad(x):
+        return _adjoint.linear(lambda v: _dct4_stream(v, n, scale, dst),
+                               lambda g: _dct4_stream(g, n, scale, dst), x)
     if x.device.type == "cpu":
         return _dct4_stream_plain(x, n, scale, dst)
     out = rstream.launch("dct4", n, x, scale=scale, dst=dst)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import plan
-from . import _build, core, stream_fft
+from . import _adjoint, _build, core, stream_fft
 
 __all__ = ["fourstep_eligible", "sfft_fourstep", "sfft_fourstep_plain"]
 
@@ -182,8 +182,13 @@ def sfft_fourstep(xr, xi, n: int, inverse: bool):
     """Unscaled DFT over the last axis through K10.
 
     Same contract as ``core.sfft`` (any leading shape, any batch); the
-    caller guarantees ``fourstep_eligible(n, dtype)``.
+    caller guarantees ``fourstep_eligible(n, dtype)``.  The adjoint is the
+    other direction.
     """
+    if _adjoint.needs_grad(xr, xi):
+        return _adjoint.linear(
+            lambda a, b: sfft_fourstep(a, b, n, inverse),
+            lambda a, b: sfft_fourstep(a, b, n, not inverse), xr, xi)
     shape = xr.shape
     xr2 = xr.reshape(-1, n)
     xi2 = xi.reshape(-1, n)

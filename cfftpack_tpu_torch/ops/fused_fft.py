@@ -15,7 +15,9 @@ Every other length runs the stage loop.  The choice is by length alone.
 
 On a CPU tensor :func:`sfft_fused` runs the plain PyTorch version
 (``core._stockham``, the same stage schedule and tables); on a CUDA
-tensor it launches the kernel or raises.  A launch plan per (n, dtype,
+tensor it launches the kernel or raises.  Its gradient is the adjoint
+transform, the other direction at the same scale, through the same
+wrapper (``_adjoint``).  A launch plan per (n, dtype,
 inverse, device) holds what the C entry takes besides the data, so a
 launch is the checks, two ``torch.empty`` and one C call.  ``launches``
 counts kernel launches.
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import plan
-from . import _build, core
+from . import _adjoint, _build, core
 
 __all__ = ["fused_eligible", "sfft_fused", "sfft_plain", "REG_LENGTHS"]
 
@@ -182,8 +184,13 @@ def sfft_fused(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     kernel's store).
 
     Same contract as ``core.sfft``; the caller guarantees
-    ``fused_eligible(n, dtype)``.
+    ``fused_eligible(n, dtype)``.  Differentiable: the adjoint of the DFT
+    times ``scale`` is the other direction times ``scale``.
     """
+    if _adjoint.needs_grad(xr, xi):
+        return _adjoint.linear(
+            lambda a, b: sfft_fused(a, b, n, inverse, scale),
+            lambda a, b: sfft_fused(a, b, n, not inverse, scale), xr, xi)
     shape = xr.shape
     xr2 = xr.reshape(-1, n)
     xi2 = xi.reshape(-1, n)

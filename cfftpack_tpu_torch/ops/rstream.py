@@ -23,7 +23,10 @@ versions below keep the reference's separate passes, built on
 ``stream_fft.stream_plain``.  On a CPU tensor each wrapper runs its
 plain version; on a CUDA tensor it launches the kernel or raises.
 ``launches`` counts kernel launches (K8 is launched from ``dct.py``
-through :func:`launch`).
+through :func:`launch`).  The four wrappers are differentiable
+(``_adjoint``), each backward one call of another mode: rfft's is the
+irfft of the cotangent with bins 1 .. n/2-1 halved, irfft's the rfft of
+the cotangent with those bins doubled, DCT-II's the DCT-III and back.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import plan
-from . import _build, stream_fft
+from . import _adjoint, _build, stream_fft
 
 __all__ = ["rstream_eligible", "srfft_stream", "sirfft_stream",
            "sdct2_stream", "sdct3_stream"]
@@ -405,11 +408,60 @@ def launch(mode: str, n: int, x, xi=None, *, scale: float = 1.0,
     return (yr, yi) if mode == "rfft" else yr
 
 
+# ---------------------------------------------------------- adjoints
+
+@functools.lru_cache(maxsize=32)
+def _bin_weights(n: int, device):
+    """Float32 weights of the n/2 + 1 packed bins: (1, 2, ..., 2, 1), each
+    interior bin of a real row's spectrum standing for itself and its
+    mirror; its inverse; and the inverse with bins 0 and n/2 zero."""
+    w = torch.full((n // 2 + 1,), 2.0, dtype=torch.float32, device=device)
+    w[0] = w[-1] = 1.0
+    half = 1.0 / w
+    half_im = half.clone()
+    half_im[0] = half_im[-1] = 0.0
+    return w, half, half_im
+
+
+def _rfft_adjoint(gr, gi, n: int, scale: float):
+    """The adjoint of ``srfft_stream(., n, scale)``: y_k = scale * sum_t
+    x_t e^{-2i pi kt/n}, k = 0 .. n/2, so x_t = scale * sum_k (gr_k cos -
+    gi_k sin), which is the c2r of g with bins 1 .. n/2-1 halved (the c2r
+    counts each twice) and the imaginary parts of bins 0 and n/2 dropped
+    (the forward's are exact zeros that depend on no input)."""
+    _, half, half_im = _bin_weights(n, gr.device)
+    return sirfft_stream(gr * half, gi * half_im, n, scale)
+
+
+def _irfft_adjoint(g, n: int, scale: float):
+    """The adjoint of ``sirfft_stream(., ., n, scale)``: x_t = scale *
+    (Y_0 + (-1)^t Y_{n/2} + 2 sum_{0<k<n/2} Re(Y_k e^{2i pi kt/n})), so the
+    real planes' gradient is scale * (1, 2, ..., 2, 1) * rfft(g).  The
+    forward decodes rows 2p and 2p+1 from one complex row, Z = U + iV, so
+    the imaginary parts of bins 0 and n/2 (which a real row's spectrum
+    does not have) cross the pair: row 2p takes -Im V there, row 2p+1
+    Im U, and their gradients are scale * rfft(g[2p+1]) and
+    -scale * rfft(g[2p]) at those bins."""
+    h = n // 2
+    w = _bin_weights(n, g.device)[0]
+    Gr, Gi = srfft_stream(g, n, scale)
+    ends = Gr[..., ::h].reshape(-1, 2, 2)      # (pairs, rows, bins 0 and h)
+    cross = torch.stack([ends[:, 1], -ends[:, 0]], dim=1).reshape(
+        Gr.shape[:-1] + (2,))
+    gi = torch.cat([cross[..., :1], Gi[..., 1:h] * 2.0, cross[..., 1:]],
+                   dim=-1)
+    return Gr * w, gi
+
+
 # ---------------------------------------------------------- wrappers
 
 def srfft_stream(x, n: int, scale: float = 1.0):
     """``core.srfft`` contract (r2c, natural packed n/2 + 1 bins) through
     K7, times ``scale``.  Needs ``rstream_eligible``."""
+    if _adjoint.needs_grad(x):
+        return _adjoint.linear(
+            lambda v: srfft_stream(v, n, scale),
+            lambda gr, gi: _rfft_adjoint(gr, gi, n, scale), x)
     lead = x.shape[:-1]
     if x.device.type == "cpu":
         yr, yi = _rfft_plain(x.reshape(-1, n), n, scale)
@@ -421,6 +473,10 @@ def srfft_stream(x, n: int, scale: float = 1.0):
 
 def sirfft_stream(yr, yi, n: int, scale: float = 1.0):
     """``core.sirfft`` contract (c2r: returns n*scale*x) through K7."""
+    if _adjoint.needs_grad(yr, yi):
+        return _adjoint.linear(
+            lambda a, b: sirfft_stream(a, b, n, scale),
+            lambda g: _irfft_adjoint(g, n, scale), yr, yi)
     lead = yr.shape[:-1]
     if yr.device.type == "cpu":
         h1 = n // 2 + 1
@@ -432,7 +488,14 @@ def sirfft_stream(yr, yi, n: int, scale: float = 1.0):
 
 def sdct2_stream(x, n: int, scale: float = 1.0, w0: float = 1.0):
     """``dct._dct2_core`` contract (DCT-II, natural order) through K7,
-    times ``scale``, bin 0 times ``w0`` as well."""
+    times ``scale``, bin 0 times ``w0`` as well.  With C2[k, j] =
+    cos(pi k (2j+1)/(2n)) and the DCT-III core C3 = C2^T diag(1/2, 1, ...,
+    1), the adjoint of scale * diag(w0, 1, ...) C2 is the DCT-III with
+    y_0 times 2*w0."""
+    if _adjoint.needs_grad(x):
+        return _adjoint.linear(
+            lambda v: sdct2_stream(v, n, scale, w0),
+            lambda g: sdct3_stream(g, n, scale, 2.0 * w0), x)
     lead = x.shape[:-1]
     if x.device.type == "cpu":
         out = _dct2_plain(x.reshape(-1, n), n, scale, w0)
@@ -443,7 +506,12 @@ def sdct2_stream(x, n: int, scale: float = 1.0, w0: float = 1.0):
 
 def sdct3_stream(y, n: int, scale: float = 1.0, w0: float = 1.0):
     """``dct._dct3_core`` contract (DCT-III, natural order) through K7 of
-    y with y_0 times ``w0``, times ``scale``."""
+    y with y_0 times ``w0``, times ``scale``.  The adjoint is the DCT-II
+    with bin 0 times w0/2 (see :func:`sdct2_stream`)."""
+    if _adjoint.needs_grad(y):
+        return _adjoint.linear(
+            lambda v: sdct3_stream(v, n, scale, w0),
+            lambda g: sdct2_stream(g, n, scale, 0.5 * w0), y)
     lead = y.shape[:-1]
     if y.device.type == "cpu":
         out = _dct3_plain(y.reshape(-1, n), n, scale, w0)

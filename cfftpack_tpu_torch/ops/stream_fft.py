@@ -43,7 +43,11 @@ On a CPU tensor every wrapper runs the plain PyTorch version
 (:func:`stream_plain`, built from ``core._stockham`` and a float32
 matmul; :func:`sfft_mm2_plain`, two float32 matmuls); on a CUDA tensor
 it launches the kernel or raises.  ``launches`` counts kernel launches
-per kernel.
+per kernel.  Each wrapper is differentiable (``_adjoint``): its backward
+is the other direction on the same kernel (natural <-> permuted for K2
+and K11), and K4's is the filter with the conjugate spectrum, plus, for
+the filter, one forward transform of the input's and the cotangent's
+row pairs (K3, or K5 past the cap).
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ import numpy as np
 import torch
 
 from .. import plan
-from . import _build, core
+from . import _adjoint, _build, core
 
 __all__ = ["stream_eligible", "stream_filter_eligible", "stream_plain",
            "sfft_stream", "sfft_stream_permuted", "sfilter_stream",
@@ -676,7 +680,12 @@ def sfft_stream_permuted(xr, xi, n: int, inverse: bool):
     """Permuted-layout FFT over the last axis (K2): forward natural ->
     permuted, X[k2 + m*k1] at flat [k2*128 + k1]; inverse permuted ->
     natural (unscaled).  Rows in any layout: copied only where K2 does
-    not read them as they are."""
+    not read them as they are.  The adjoint of each direction is the
+    other."""
+    if _adjoint.needs_grad(xr, xi):
+        return _adjoint.linear(
+            lambda a, b: sfft_stream_permuted(a, b, n, inverse),
+            lambda a, b: sfft_stream_permuted(a, b, n, not inverse), xr, xi)
     shape = xr.shape
     m = n // _N1
     xr, xi, _ = _rows(xr.reshape(-1, n), xi.reshape(-1, n), n)
@@ -688,7 +697,12 @@ def sfft_stream_permuted(xr, xi, n: int, inverse: bool):
 def sfft_stream(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     """Natural-order FFT over the last axis (K3): the ``core.sfft``
     contract times ``scale``, the permuted <-> natural transpose and the
-    scale done in the kernel."""
+    scale done in the kernel.  The adjoint is the other direction times
+    ``scale``."""
+    if _adjoint.needs_grad(xr, xi):
+        return _adjoint.linear(
+            lambda a, b: sfft_stream(a, b, n, inverse, scale),
+            lambda a, b: sfft_stream(a, b, n, not inverse, scale), xr, xi)
     shape = xr.shape
     m = n // _N1
     if inverse:
@@ -735,7 +749,14 @@ def sfilter_stream(x, ffr, ffi, n: int, scale: float = 1.0):
     then conj(scale * fft(Y)) = scale * ifft(fft(z) * F) written straight
     into the rows; both read and write the pairs through their row
     stride.
+
+    Differentiable in ``x`` and in the filter (:func:`_filter_adjoint`).
     """
+    if _adjoint.needs_grad(x, ffr, ffi):
+        return _adjoint.bilinear(
+            lambda v, fr, fi: sfilter_stream(v, fr, fi, n, scale),
+            lambda g, saved, needs: _filter_adjoint(g[0], *saved, needs, n,
+                                                    scale), x, ffr, ffi)
     lead = x.shape[:-1]
     B = lead.numel()
     if B % 2:
@@ -760,6 +781,36 @@ def sfilter_stream(x, ffr, ffi, n: int, scale: float = 1.0):
     return out.reshape(lead + (n,))
 
 
+def _filter_adjoint(g, x, ffr, ffi, needs, n: int, scale: float):
+    """The gradients of :func:`sfilter_stream` for the cotangent ``g``.
+
+    Per row pair the filter maps z = x[2p] + i*x[2p+1] to
+    w = scale * ifft(F * fft(z)) (unnormalized inverse), whose halves are
+    the output rows; a complex-linear map, so its adjoint is the same
+    filter with conj(F): ``sfilter_stream(g, ffr, -ffi)``.  With
+    Z = fft(z) and H = fft(h), h = g[2p] + i*g[2p+1], the loss
+    sum_p Re(<h, w>) = scale * sum_p sum_k Re(conj(H_k) F_k Z_k) gives
+    d/dFr = scale * sum_p Re(conj(H) Z), d/dFi = -scale * sum_p
+    Im(conj(H) Z) at every bin.  For a conjugate-symmetric F the terms
+    that mix a pair's two rows cancel between a bin and its mirror once
+    the caller folds the mirror bins back; those of the imaginary parts
+    of bins 0 and n/2 stay, as the forward mixes the pair there."""
+    gx = gfr = gfi = None
+    if needs[0]:
+        gx = sfilter_stream(g, ffr, -ffi, n, scale)
+    if needs[1] or needs[2]:
+        P = x.shape[:-1].numel() // 2
+        xp = x.reshape(P, 2, n)
+        gp = g.reshape(P, 2, n)
+        Zr, Zi = core.sfft(xp[:, 0], xp[:, 1], n, False)
+        Hr, Hi = core.sfft(gp[:, 0], gp[:, 1], n, False)
+        if needs[1]:
+            gfr = scale * (Hr * Zr + Hi * Zi).sum(0)
+        if needs[2]:
+            gfi = scale * (Hi * Zr - Hr * Zi).sum(0)
+    return gx, gfr, gfi
+
+
 def sfft_stream_split(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     """Natural-order FFT for n past the kernel's cap (K5): n = s * n_in
     with s = ``_filter_split_factor(n)``; the s-point DFT and the split
@@ -774,6 +825,11 @@ def sfft_stream_split(xr, xi, n: int, inverse: bool, scale: float = 1.0):
             f"multiple of {_TAIL})")
     if s == 1:
         return sfft_stream(xr, xi, n, inverse, scale)
+    if _adjoint.needs_grad(xr, xi):
+        return _adjoint.linear(
+            lambda a, b: sfft_stream_split(a, b, n, inverse, scale),
+            lambda a, b: sfft_stream_split(a, b, n, not inverse, scale),
+            xr, xi)
     shape = xr.shape
     yr, yi = _run(xr.reshape(-1, n), xi.reshape(-1, n), n,
                   "split_inv" if inverse else "split", scale=scale)
@@ -888,6 +944,12 @@ def _mm2_launch(xr, xi, n: int, inverse: bool, natural: bool):
 
 
 def _mm2_run(xr, xi, n: int, inverse: bool, natural: bool):
+    """K11 in either direction and layout; the adjoint is the other
+    direction in the same layout."""
+    if _adjoint.needs_grad(xr, xi):
+        return _adjoint.linear(
+            lambda a, b: _mm2_run(a, b, n, inverse, natural),
+            lambda a, b: _mm2_run(a, b, n, not inverse, natural), xr, xi)
     shape = xr.shape
     xr2 = xr.reshape(-1, n)
     xi2 = xi.reshape(-1, n)

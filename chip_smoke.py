@@ -33,11 +33,20 @@ names at (4096, 1024), (64, 65536) and (4, 1024, 1024), every
 ``compat`` family on the golden inputs and two plans over (4096, 1024),
 the QMC Asian option against the reference binary and at 2^20 x 128 in
 float32, the VG distribution and Monte-Carlo at 2^24 draws, and the
-callable bond on the short-rate lattice) and checks each result.
-Each path runs with the launch counts set to 0 just before it and read
-just after.  Prints CUDA-event times of the kernels, their plain
-versions and the PyTorch calls that compute the same functions, the
-measurements behind K1's rows a block, a profiler breakdown of the 2-D
+callable bond on the short-rate lattice; then, in phase 36, the
+backward of every kernel at its PERF.md §6 shape and of the full-width
+paths (the flagship step at batch 64 and 4096, ``fft_split`` at (4096,
+1024), ``rfilter_split`` at (64, 65536) and (16, 2^20), ``dct``/``idct``
+type 2 and ``dst`` type 4 at (64, 65536), ``fft2_split``,
+``rfft2_split`` and ``dctn`` at (64, 1024, 1024), ``fft_hp`` at (4096,
+1024) complex128) with every plain version refused on the card, its
+launches, its gradients against torch.fft's autograd, autograd through
+the plain versions or scipy, and its times and peak memory) and checks
+each result.  Each path runs with the launch counts set to 0 just
+before it and read just after.  Prints CUDA-event times of the
+kernels, their plain versions and the PyTorch calls that compute the
+same functions, the measurements behind K1's rows a block, one JSON
+line of the backwards (phase 36), a profiler breakdown of the 2-D
 routes, of K10's and K11's passes and of K1, K2, K3, K4, K5, K7 and K8
 with their kernel rows a call, sweeps of the cluster size,
 K6 and K9
@@ -66,8 +75,8 @@ import cfftpack_tpu_torch as ct
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
-from cfftpack_tpu_torch.ops import _build, colfft, core, fourstep_fft
-from cfftpack_tpu_torch.ops import fused_fft, rstream, stream_fft
+from cfftpack_tpu_torch.ops import _adjoint, _build, colfft, core
+from cfftpack_tpu_torch.ops import fourstep_fft, fused_fft, rstream, stream_fft
 
 # the modules, not the functions of the same names that ops exports
 rfft_ops = importlib.import_module("cfftpack_tpu_torch.ops.rfft")
@@ -862,11 +871,24 @@ FOURSTEP_SHAPE = (64, 1 << 20)
 FFT2_SHAPE, RFFT2_SHAPE = (64, 4096, 4096), (16, 4096, 4096)
 
 
+# the plain versions that the kernels' wrappers call on CPU tensors, as
+# (module, name): no_plain_on_card makes each raise on a CUDA tensor
+PLAIN_VERSIONS = (
+    (fused_fft, "sfft_plain"), (core, "_stockham"),
+    (stream_fft, "stream_plain"), (stream_fft, "sfft_mm2_plain"),
+    (rstream, "_rfft_plain"), (rstream, "_irfft_plain"),
+    (rstream, "_dct2_plain"), (rstream, "_dct3_plain"),
+    (dct_ops, "_dct4_stream_plain"), (colfft, "colfft_plain"),
+    (colfft, "coldct_plain"), (colfft, "coldct2_plain"),
+    (colfft, "coldct3_plain"), (fourstep_fft, "sfft_fourstep_plain"))
+
+
 @contextlib.contextmanager
 def no_plain_on_card():
-    """K1's and K6's plain versions raise on a CUDA tensor while the
-    parallel path runs: it must launch the kernels."""
-    saved = fused_fft.sfft_plain, colfft.colfft_plain, core._stockham
+    """Every kernel's plain version raises on a CUDA tensor while a path
+    runs (the parallel layer, the backwards): it must launch the
+    kernels."""
+    saved = [getattr(mod, name) for mod, name in PLAIN_VERSIONS]
 
     def guard(fn):
         def call(xr, *args, **kwargs):
@@ -875,12 +897,13 @@ def no_plain_on_card():
             return fn(xr, *args, **kwargs)
         return call
 
-    fused_fft.sfft_plain, colfft.colfft_plain, core._stockham = (
-        guard(f) for f in saved)
+    for (mod, name), fn in zip(PLAIN_VERSIONS, saved):
+        setattr(mod, name, guard(fn))
     try:
         yield
     finally:
-        fused_fft.sfft_plain, colfft.colfft_plain, core._stockham = saved
+        for (mod, name), fn in zip(PLAIN_VERSIONS, saved):
+            setattr(mod, name, fn)
 
 
 def counted(fn):
@@ -1084,6 +1107,367 @@ def parallel_fft2(par, mesh, total: dict, card: str) -> None:
     print(f"  rfft2_sharded_split {RFFT2_SHAPE}: {t_par:.4f} ms, "
           f"single-device rfft2_split {t_one:.4f} ms  [{card}]")
     del v, y, yr, yi, back
+
+
+# ---- phase 36: gradients on the card
+
+@contextlib.contextmanager
+def plain_autograd():
+    """Autograd through the plain versions on the card: the kernels'
+    plain versions in their place (:func:`plain_engine`) and every
+    wrapper's autograd Function out, so that autograd records the plain
+    versions' torch ops.  For the oracles of phase 36 only."""
+    gate = _adjoint.needs_grad
+    _adjoint.needs_grad = lambda *t: False
+    try:
+        with plain_engine():
+            yield
+    finally:
+        _adjoint.needs_grad = gate
+
+
+def as_tuple(y) -> tuple:
+    return tuple(y) if isinstance(y, (tuple, list)) else (y,)
+
+
+def planes(z) -> tuple:
+    return z.real, z.imag
+
+
+def leaves(xs) -> list:
+    return [x.detach().clone().requires_grad_() for x in xs]
+
+
+def fwd_bwd(fn, xs, cots):
+    """The gradients of sum(cot * y) over fn's outputs y on leaves copied
+    from xs (torch.autograd.grad: nothing accumulates)."""
+    ls = leaves(xs)
+    return torch.autograd.grad(as_tuple(fn(*ls)), ls, cots)
+
+
+def pair_filter(x, ffr, ffi, scale: float):
+    """The streaming filter's forward (``stream_fft.sfilter_stream``) with
+    torch.fft in float64, any filter planes: row pairs z = x[2p] +
+    i*x[2p+1], w = scale * n * ifft(F * fft(z)), rows Re w and Im w."""
+    n = x.shape[-1]
+    xp = x.double().reshape(-1, 2, n)
+    F = torch.complex(ffr.double(), ffi.double())
+    w = torch.fft.ifft(F * torch.fft.fft(torch.complex(xp[:, 0], xp[:, 1])))
+    y = torch.stack([w.real, w.imag], dim=1).reshape(x.shape) * (n * scale)
+    return y.to(x.dtype)
+
+
+def packed_filter_ext(fr, fi):
+    """rfilter_split's conjugate-symmetric extension of a packed filter
+    (``rfft._rfilter_stream``)."""
+    h = fr.shape[-1] - 1
+    return (torch.cat([fr, fr[1:h].flip(-1)]),
+            torch.cat([fi, -fi[1:h].flip(-1)]))
+
+
+def packed_filter(n: int, seed: int):
+    """A packed (n/2 + 1)-bin float32 filter with real DC and Nyquist
+    bins, rfilter_split's contract."""
+    fr, fi = pair((n // 2 + 1,), torch.float32, seed)
+    fi[0] = fi[-1] = 0.0
+    return fr, fi
+
+
+def grad_rows():
+    """(name, shape, inputs, fn, oracle, oracle kind, torch.fft function
+    of the same map (True: the oracle) or None, the backward's expected
+    launches) for each kernel at its PERF.md §6 row shape: the backward
+    of fn, on the kernels, against the oracle's gradient by autograd
+    through torch.fft ("torch.fft"), through the plain versions called
+    directly ("plain") or through the filter written with torch.fft in
+    float64 ("torch.fft f64")."""
+    f32 = torch.float32
+    n, b = 65536, 64
+    h, m = n // 2, n // 128
+    ortho = float(1 / np.sqrt(n))
+
+    def cx(xr, xi):
+        return torch.complex(xr, xi)
+
+    def perm(X, rows, length):
+        return X.reshape(rows, 128, length // 128).transpose(1, 2).reshape(
+            rows, length)
+
+    big = list(pair((b, n), f32, seed=360))
+    x = real((b, n), f32, seed=361)
+    ffr, ffi = packed_filter_ext(*packed_filter(n, seed=362))
+    spec = list(pair((b, h + 1), f32, seed=363))
+    img = real((64, 1024, 1024), f32, seed=364)
+    w2, w3 = dct_ops._tab("weights", 1024, img)[:2]
+    k7s = float(np.sqrt(2.0 / n))
+    k7w = (float(np.sqrt(0.5)), float(np.sqrt(2.0)))
+    return [
+        ("K1 sfft_fused fwd", (4096, 1024),
+         list(pair((4096, 1024), f32, 365)),
+         lambda a, c: fused_fft.sfft_fused(a, c, 1024, False, 1 / 32),
+         lambda a, c: planes(torch.fft.fft(cx(a, c), norm="ortho")),
+         "torch.fft", True, {"K1": 1}),
+        ("K2 sfft_stream_permuted fwd", (b, n), big,
+         lambda a, c: stream_fft.sfft_stream_permuted(a, c, n, False),
+         lambda a, c: planes(perm(torch.fft.fft(cx(a, c)), *a.shape)),
+         "torch.fft", True, {"K2": 1}),
+        ("K2 sfft_stream_permuted inv", (b, n), big,
+         lambda a, c: stream_fft.sfft_stream_permuted(a, c, n, True),
+         lambda a, c: planes(torch.fft.ifft(
+             cx(a, c).reshape(b, m, 128).transpose(1, 2).reshape(b, n),
+             norm="forward")), "torch.fft", True, {"K2": 1}),
+        ("K3 sfft_stream fwd", (b, n), big,
+         lambda a, c: stream_fft.sfft_stream(a, c, n, False, ortho),
+         lambda a, c: planes(torch.fft.fft(cx(a, c), norm="ortho")),
+         "torch.fft", True, {"K3": 1}),
+        ("K3 sfft_stream inv", (b, n), big,
+         lambda a, c: stream_fft.sfft_stream(a, c, n, True, ortho),
+         lambda a, c: planes(torch.fft.ifft(cx(a, c), norm="ortho")),
+         "torch.fft", True, {"K3": 1}),
+        ("K4 sfilter_stream, input and filter", (b, n), [x, ffr, ffi],
+         lambda v, p, q: stream_fft.sfilter_stream(v, p, q, n, 1 / n),
+         lambda v, p, q: pair_filter(v, p, q, 1 / n), "torch.fft f64",
+         lambda v, p, q: torch.fft.irfft(
+             torch.fft.rfft(v) * torch.complex(p[:h + 1], q[:h + 1]), n),
+         {"K2": 1, "K4": 1, "K3": 2}),
+        ("K5 sfft_stream_split fwd", (8, 1 << 20),
+         list(pair((8, 1 << 20), f32, 366)),
+         lambda a, c: stream_fft.sfft_stream_split(a, c, 1 << 20, False,
+                                                   1 / 1024),
+         lambda a, c: planes(torch.fft.fft(cx(a, c), norm="ortho")),
+         "torch.fft", True, {"K5": 1}),
+        ("K6 scolfft fwd", (64, 1024, 1024),
+         list(pair((64, 1024, 1024), f32, 367)),
+         lambda a, c: colfft.scolfft(a, c, False, a.shape[-2] ** -0.5),
+         lambda a, c: planes(torch.fft.fft(cx(a, c), dim=-2,
+                                           norm="ortho")),
+         "torch.fft", True, {"K6": 1}),
+        ("K7 srfft_stream", (b, n), [x],
+         lambda v: rstream.srfft_stream(v, n, 1 / n),
+         lambda v: planes(torch.fft.rfft(v, norm="forward")), "torch.fft",
+         True, {"K7": 1}),
+        ("K7 sirfft_stream", (b, n), spec,
+         lambda a, c: rstream.sirfft_stream(a, c, n, 1 / n),
+         lambda a, c: rstream._irfft_plain(a, c, n, 1 / n), "plain",
+         lambda a, c: torch.fft.irfft(cx(a, c), n, norm="forward"),
+         {"K7": 1}),
+        ("K7 sdct2_stream ortho", (b, n), [x],
+         lambda v: rstream.sdct2_stream(v, n, k7s, k7w[0]),
+         lambda v: rstream._dct2_plain(v, n, k7s, k7w[0]), "plain", None,
+         {"K7": 1}),
+        ("K7 sdct3_stream ortho", (b, n), [x],
+         lambda v: rstream.sdct3_stream(v, n, k7s, k7w[1]),
+         lambda v: rstream._dct3_plain(v, n, k7s, k7w[1]), "plain", None,
+         {"K7": 1}),
+        ("K8 _dct4_stream ortho", (b, n), [x],
+         lambda v: dct_ops._dct4_stream(v, n, k7s, False),
+         lambda v: dct_ops._dct4_stream_plain(v, n, k7s, False), "plain",
+         None, {"K8": 1}),
+        ("K8 _dct4_stream dst ortho", (b, n), [x],
+         lambda v: dct_ops._dct4_stream(v, n, k7s, True),
+         lambda v: dct_ops._dct4_stream_plain(v, n, k7s, True), "plain",
+         None, {"K8": 1}),
+        ("K9 scoldct type 2 ortho", (64, 1024, 1024), [img],
+         lambda v: colfft.scoldct(v, 2, w2),
+         lambda v: colfft.coldct_plain(v, 2, w2), "plain", None, {"K9": 1}),
+        ("K9 scoldct type 3 ortho", (64, 1024, 1024), [img],
+         lambda v: colfft.scoldct(v, 3, w3),
+         lambda v: colfft.coldct_plain(v, 3, w3), "plain", None, {"K9": 1}),
+        ("K10 sfft_fourstep fwd", (b, n), big,
+         lambda a, c: fourstep_fft.sfft_fourstep(a, c, n, False),
+         lambda a, c: planes(torch.fft.fft(cx(a, c))), "torch.fft", True,
+         {"K10": 1}),
+        ("K11 sfft_mm2 fwd", (128, 32768),
+         list(pair((128, 32768), f32, 368)),
+         lambda a, c: stream_fft.sfft_mm2(a, c, 32768, False),
+         lambda a, c: planes(torch.fft.fft(cx(a, c))), "torch.fft", True,
+         {"K11": 1}),
+        ("K11 sfft_mm2_permuted fwd", (128, 32768),
+         list(pair((128, 32768), f32, 369)),
+         lambda a, c: stream_fft.sfft_mm2_permuted(a, c, 32768, False),
+         lambda a, c: planes(perm(torch.fft.fft(cx(a, c)), *a.shape)),
+         "torch.fft", True, {"K11": 1}),
+    ]
+
+
+def grad_times(fn, xs, cots, torch_fn, reps: int = 10) -> dict:
+    """CUDA-event medians of fn alone (on inputs that need no grad), of fn
+    with its backward and of torch_fn with its backward; the peak device
+    memory of one forward and backward above what was allocated before
+    it."""
+    ls = leaves(xs)
+    out = {"fwd_ms": median_ms(lambda: fn(*xs), reps),
+           "fwd_bwd_ms": median_ms(lambda: torch.autograd.grad(
+               as_tuple(fn(*ls)), ls, cots), reps),
+           "torch_fwd_bwd_ms": None}
+    if torch_fn is not None:
+        out["torch_fwd_bwd_ms"] = median_ms(lambda: torch.autograd.grad(
+            as_tuple(torch_fn(*ls)), ls, cots), reps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.autograd.grad(as_tuple(fn(*ls)), ls, cots)
+    torch.cuda.synchronize()
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return out
+
+
+def grad_check(name: str, fn, xs, cots, want, total: dict, card: str,
+               expect, torch_fn=None) -> dict:
+    """fn's backward on the kernels with every plain version refused on
+    the card, run right after the forward with no sync between them: the
+    launches it makes (those of the forward and backward less those of
+    the forward alone; ``expect``: the exact counts, or the kernels that
+    must appear), its gradients against ``want`` to 1e-4 of max |g|, and
+    its times."""
+    with no_plain_on_card():
+        _, fwd = drive(lambda: fn(*xs), total)
+        ls = leaves(xs)
+        grads, both = drive(lambda: torch.autograd.grad(
+            as_tuple(fn(*ls)), ls, cots), total)
+    bwd = {k: both[k] - fwd[k] for k in both if both[k] != fwd[k]}
+    if isinstance(expect, dict):
+        check(bwd == expect, f"{name}: the backward launched {bwd}, "
+              f"expected {expect}")
+    else:
+        check(all(bwd.get(k, 0) > 0 for k in expect),
+              f"{name}: the backward launched {bwd} ({', '.join(expect)} "
+              "expected)")
+    err = max(rel_err(g, w) for g, w in zip(grads, want))
+    check(all(bool(torch.isfinite(g).all()) for g in grads) and err < 1e-4,
+          f"{name}: gradients finite, vs the oracle {err:.2e} < 1e-4 of "
+          "max |g|")
+    del grads
+    t = grad_times(fn, xs, cots, torch_fn)
+    lib = ("not measured" if t["torch_fwd_bwd_ms"] is None
+           else f"{t['torch_fwd_bwd_ms']:.4f} ms")
+    print(f"  grad {name}: fwd {t['fwd_ms']:.4f} ms, fwd+bwd "
+          f"{t['fwd_bwd_ms']:.4f} ms, torch.fft fwd+bwd {lib}, peak "
+          f"{t['peak_mib']:.1f} MiB  [{card}]")
+    return {"name": name, "bwd_launches": bwd, "max_rel_err": err, **t}
+
+
+def cotangents(fn, xs) -> list:
+    """Random cotangents of fn's outputs (the forward run once)."""
+    return [real(tuple(y.shape), y.dtype, seed=370 + i)
+            for i, y in enumerate(as_tuple(fn(*xs)))]
+
+
+def phase_grad(total: dict, card: str) -> list:
+    """Phase 36: every kernel's backward at its PERF.md §6 row shape and
+    the full-width paths forward and backward through the public entries,
+    each against an oracle with the plain versions refused on the card;
+    K3's and K4's backward again on a side stream."""
+    records = []
+    print("phase 36: each kernel's backward (the adjoint on its kernels)")
+    for name, shape, xs, fn, oracle, kind, torch_fn, expect in grad_rows():
+        cots = cotangents(fn, xs)
+        if kind == "plain":
+            with plain_autograd():
+                want = fwd_bwd(oracle, xs, cots)
+        else:
+            want = fwd_bwd(oracle, xs, cots)
+        rec = grad_check(f"{name} {shape} vs {kind}", fn, xs, cots, want,
+                         total, card, expect,
+                         oracle if torch_fn is True else torch_fn)
+        records.append({**rec, "shape": list(shape)})
+        del want
+        if name.startswith(("K3 sfft_stream fwd", "K4")):
+            # the same backward on a side stream, with no sync between the
+            # forward and the backward on either stream
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), no_plain_on_card():
+                ls = leaves(xs)
+                g_side = torch.autograd.grad(as_tuple(fn(*ls)), ls, cots)
+            torch.cuda.current_stream().wait_stream(side)
+            g_main = fwd_bwd(fn, xs, cots)
+            err = max(rel_err(a, c) for a, c in zip(g_side, g_main))
+            check(err < 1e-6, f"{name}: the backward on a side stream vs "
+                  f"the current stream {err:.2e} < 1e-6")
+            del g_side, g_main
+    torch.cuda.empty_cache()
+    records += phase_grad_paths(total, card)
+    return records
+
+
+def phase_grad_paths(total: dict, card: str) -> list:
+    """Phase 36's full-width paths, forward and backward through the
+    public entries: the flagship step, the bench headline, the streaming
+    filter at (64, 65536) and at the float32 pricer's 2^20 (K5), the
+    DCT/DST at (64, 65536), the 2-D forms at (64, 1024, 1024) and the
+    float64 fft_hp."""
+    records = []
+    f32 = torch.float32
+    print("phase 36: paths forward and backward through the public entries")
+    for batch in (64, 4096):
+        step, args = entry(DEV, batch=batch)
+        cots = cotangents(step, args)
+        with plain_autograd():
+            want = fwd_bwd(step, args, cots)
+        rec = grad_check(f"flagship step ({batch}, 960) d/d(v, phi_r, "
+                         "phi_i) vs plain", step, list(args), cots, want,
+                         total, card, ("K1",))
+        records.append({**rec, "shape": [batch, 960]})
+    paths = [("fft_split (4096, 1024) ortho",
+              list(pair((4096, 1024), f32, seed=380)),
+              lambda a, c: ct.fft_split(a, c, norm="ortho"),
+              lambda a, c: planes(torch.fft.fft(torch.complex(a, c),
+                                                norm="ortho")),
+              ("K1",), True)]
+    for b, n in ((64, 65536), (16, 1 << 20)):
+        paths.append((f"rfilter_split ({b}, {n}) d/d(x, fr, fi)",
+                      [real((b, n), f32, seed=381), *packed_filter(n, 382)],
+                      lambda v, p, q: ct.rfilter_split(v, p, q),
+                      lambda v, p, q, n=n: pair_filter(
+                          v, *packed_filter_ext(p, q), 1 / n),
+                      ("K2", "K4", "K3") if n == 65536 else ("K5",),
+                      lambda v, p, q, n=n: torch.fft.irfft(
+                          torch.fft.rfft(v) * torch.complex(p, q), n)))
+    x = real((64, 65536), f32, seed=383)
+    for name, fn, inv, kern in (
+            ("dct type 2", lambda v: ct.dct(v, 2, norm="ortho"),
+             lambda w: scipy.fft.idct(w, 2, norm="ortho"), "K7"),
+            ("idct type 2", lambda v: ct.idct(v, 2, norm="ortho"),
+             lambda w: scipy.fft.dct(w, 2, norm="ortho"), "K7"),
+            ("dst type 4", lambda v: ct.dst(v, 4, norm="ortho"),
+             lambda w: scipy.fft.dst(w, 4, norm="ortho"), "K8")):
+        paths.append((f"{name} (64, 65536) ortho", [x], fn, inv, (kern,),
+                      None))
+    img = list(pair((64, 1024, 1024), f32, seed=384))
+    paths += [
+        ("fft2_split (64, 1024, 1024)", img,
+         lambda a, c: ct.fft2_split(a, c),
+         lambda a, c: planes(torch.fft.fft2(torch.complex(a, c),
+                                            norm="forward")),
+         ("K6", "K1"), True),
+        ("rfft2_split (64, 1024, 1024)", img[:1],
+         lambda v: ct.rfft2_split(v),
+         lambda v: planes(torch.fft.rfft2(v, norm="forward")),
+         ("K6", "K1"), True),
+        ("dctn type 2 (64, 1024, 1024) ortho", img[:1],
+         lambda v: ct.dctn(v, 2, axes=(-2, -1), norm="ortho"),
+         lambda w: scipy.fft.idctn(w, 2, axes=(-2, -1), norm="ortho"),
+         ("K9", "K1"), None),
+        ("fft_hp (4096, 1024) complex128",
+         [torch.complex(*pair((4096, 1024), torch.float64, seed=385))],
+         lambda v: ct.fft_hp(v),
+         lambda v: torch.fft.fft(v, norm="forward"), ("K1",), True)]
+    for name, xs, fn, oracle, kern, torch_fn in paths:
+        cots = cotangents(fn, xs)
+        if torch_fn is None:
+            # an orthonormal transform: the gradient is the inverse
+            # transform of the cotangent (scipy, float64, on the host)
+            want = [torch.from_numpy(oracle(
+                cots[0].double().cpu().numpy())).to(DEV)]
+        else:
+            want = fwd_bwd(oracle, xs, cots)
+        rec = grad_check(name, fn, xs, cots, want, total, card, kern,
+                         oracle if torch_fn is True else torch_fn)
+        records.append({**rec, "shape": list(xs[0].shape)})
+        del want
+    torch.cuda.empty_cache()
+    return records
 
 
 def phase_utils(card: str) -> None:
@@ -2097,6 +2481,10 @@ def main() -> None:
     # ---- phase 34: the parallel layer on a one-rank NCCL group
     phase_parallel(total, card)
 
+    # ---- phase 36: gradients, each kernel's backward and the full-width
+    # paths forward and backward
+    grad_records = phase_grad(total, card)
+
     for k in KERNELS:
         check(total[k] > 0, f"main path launched {k} {total[k]} times")
 
@@ -2823,6 +3211,7 @@ def main() -> None:
         print(f"  bound {e['name']}: {e['bound_ms']:.4f} ms by "
               f"{e['bound_by']}, kernel {e['ms']:.4f} ms "
               f"({e['bound_ms'] / e['ms']:.2f} of the bound's rate)  [{card}]")
+    print(json.dumps({"grad": grad_records}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
