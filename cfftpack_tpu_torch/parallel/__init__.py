@@ -14,6 +14,23 @@ the mesh is a ``DeviceMesh`` (:func:`make_mesh`).
 
 Every all-to-all is ``_comm.all_to_all_tiled``;
 ``_comm.count_collectives`` counts them.
+
+Gradients.  Every function here is differentiable: the local passes
+through the kernels' backward (``ops/_adjoint.py``), each all-to-all
+through its adjoint, the all-to-all with the axes swapped
+(``_comm._AllToAll``), so a forward and backward calls twice the
+forward's ``all_to_all_single`` and no other collective.  As for
+``torch.distributed.nn``'s functions:
+
+* every rank of the group runs the backward through the same exchanges
+  in the same order.  A rank whose loss does not use its block still
+  calls ``backward`` on a loss that depends on it, for example
+  ``(y * 0).sum()``; otherwise the other ranks wait in the backward's
+  all-to-all;
+* an output plane with no cotangent takes zeros (autograd's
+  ``materialize_grads``);
+* the gradient a rank receives is its block of the gradient of
+  sum_r L_r(y_r), where L_r is rank r's loss on its block y_r.
 """
 from .mesh import make_mesh, local_mesh, init_distributed  # noqa: F401
 from .batch import shard_batch, pfft, pifft, prfft, pirfft, pdct  # noqa: F401

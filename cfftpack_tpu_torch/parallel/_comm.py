@@ -11,6 +11,19 @@ holds its own block of the global array (the JAX function's
 layer.  :func:`count_collectives` records the collectives a block of
 code calls; its counts stand in for the JAX tests' budgets of
 collectives in the compiled program.
+
+Gradients.  A tiled all-to-all is a permutation of the global array, so
+its adjoint is the tiled all-to-all with the two axes swapped (split
+the concat axis, concatenate on the split axis, the same group).  When
+autograd records the call (``ops._adjoint.needs_grad`` of the planes),
+:func:`all_to_all_tiled` enters the ``torch.autograd.Function``
+:class:`_AllToAll`, whose backward is that exchange: one more
+``all_to_all_single`` a forward exchange, the tuple of planes in one
+call, nothing saved, and a second derivative through the Function
+again.  Otherwise it runs with no ``apply``, as before.  The received
+planes are views of one receive buffer: under autograd they must not be
+modified in place.  The package docstring gives the rules every rank of
+a backward follows.
 """
 from __future__ import annotations
 
@@ -20,6 +33,8 @@ import functools
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+from ..ops import _adjoint
 
 __all__ = ["COLLECTIVES", "count_collectives", "all_to_all_tiled",
            "check_mesh", "axis_size", "axis_index", "linear_index",
@@ -72,13 +87,33 @@ def all_to_all_tiled(t, group, split_axis: int, concat_axis: int,
     The chunks move to dim 0 (``unflatten``/``movedim``) into one
     contiguous send buffer, then ``dist.all_to_all_single``, then back.
     With ``async_op=True`` it returns a function that waits for the
-    collective and returns the result."""
+    collective and returns the result.  Under autograd the call is
+    recorded as :class:`_AllToAll` (the module docstring gives the
+    contract); with ``async_op=True`` it is applied inside that
+    function, once the collective is waited on."""
     multi = not isinstance(t, torch.Tensor)
     planes = tuple(t) if multi else (t,)
-    d = dist.get_world_size(group)
     nd = planes[0].ndim
     split_axis %= nd
     concat_axis %= nd
+    grad = _adjoint.needs_grad(*planes)
+    # under grad the pack is not recorded: _AllToAll stands for it
+    with torch.no_grad() if grad else contextlib.nullcontext():
+        finish = _issue(planes, group, split_axis, concat_axis, async_op)
+
+    def done():
+        out = (_AllToAll.apply(group, split_axis, concat_axis, finish,
+                               *planes) if grad else finish())
+        return out if multi else out[0]
+
+    return done if async_op else done()
+
+
+def _issue(planes, group, split_axis: int, concat_axis: int,
+           async_op: bool):
+    """Pack ``planes`` and issue the collective; returns the function
+    that waits for it and unpacks the received planes as a tuple."""
+    d = dist.get_world_size(group)
     if planes[0].shape[split_axis] % d:
         raise ValueError(f"all_to_all_tiled: axis {split_axis} of length "
                          f"{planes[0].shape[split_axis]} does not split "
@@ -94,13 +129,29 @@ def all_to_all_tiled(t, group, split_axis: int, concat_axis: int,
         if work is not None:
             work.wait()
         send = None                              # free the pack buffer
-        out = tuple(recv[:, i].movedim(0, concat_axis).reshape(
+        return tuple(recv[:, i].movedim(0, concat_axis).reshape(
             recv.shape[2:2 + concat_axis]
             + (d * recv.shape[2 + concat_axis],)
             + recv.shape[3 + concat_axis:]) for i in range(len(planes)))
-        return out if multi else out[0]
 
-    return finish if async_op else finish()
+    return finish
+
+
+class _AllToAll(torch.autograd.Function):
+    """The received planes of an issued exchange (``finish``, which waits
+    for it), recorded as a function of the sent planes; the backward is
+    the exchange with the axes swapped, on the cotangents."""
+
+    @staticmethod
+    def forward(ctx, group, split_axis, concat_axis, finish, *planes):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return finish()
+
+    @staticmethod
+    def backward(ctx, *grads):
+        split_axis, concat_axis = ctx.axes
+        return (None, None, None, None) + all_to_all_tiled(
+            grads, ctx.group, concat_axis, split_axis)
 
 
 def check_mesh(mesh) -> DeviceMesh:

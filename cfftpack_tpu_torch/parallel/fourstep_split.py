@@ -95,7 +95,9 @@ def _exchange(ar, ai, group, d: int, split: int, concat: int, c: int, fn):
     then ``fn`` on each chunk's planes; the results are concatenated
     along ``split``.  Chunk i is the i-th sub-slice of every rank's range
     of ``split``, so each rank's chunks assemble its range in order;
-    chunk i + 1's collective is in flight while ``fn`` runs on chunk i."""
+    chunk i + 1's collective is in flight while ``fn`` runs on chunk i.
+    Under autograd each chunk's exchange is recorded when it is waited
+    on, so the graph has ``c`` exchanges, each with its adjoint."""
     split %= ar.ndim
     w = ar.shape[split] // (c * d)
 

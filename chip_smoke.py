@@ -41,18 +41,22 @@ type 2 and ``dst`` type 4 at (64, 65536), ``fft2_split``,
 ``rfft2_split`` and ``dctn`` at (64, 1024, 1024), ``fft_hp`` at (4096,
 1024) complex128) with every plain version refused on the card, its
 launches, its gradients against torch.fft's autograd, autograd through
-the plain versions or scipy, and its times and peak memory) and checks
-each result.  Each path runs with the launch counts set to 0 just
-before it and read just after.  Prints CUDA-event times of the
-kernels, their plain versions and the PyTorch calls that compute the
-same functions, the measurements behind K1's rows a block, one JSON
-line of the backwards (phase 36), a profiler breakdown of the 2-D
-routes, of K10's and K11's passes and of K1, K2, K3, K4, K5, K7 and K8
-with their kernel rows a call, sweeps of the cluster size,
-K6 and K9
-alone by device time with a sweep of K6's lanes and cluster size, one
-JSON line describing the kernels (each with its bound on this card),
-and as its last line
+the plain versions or scipy, and its times and peak memory); in phase
+37 the backward through the parallel layer on a one-rank NCCL group
+(``fft_fourstep_split`` at (64, 2^20) in both orders and
+``fft_fourstep`` with ``overlap_chunks=4``, ``fft2_sharded_split`` and
+``rfft2_sharded_split`` at (16, 4096, 4096), ``dctn2_sharded`` at
+(64, 1024, 1024)) against float64 oracles, with its collectives
+counted; and checks each result.  Each path runs with the launch
+counts set to 0 just before it and read just after.  Prints CUDA-event
+times of the kernels, their plain versions and the PyTorch calls that
+compute the same functions, the measurements behind K1's rows a block,
+one JSON line of the backwards (phase 36) and one of phase 37, a
+profiler breakdown of the 2-D routes, of K10's and K11's passes and of
+K1, K2, K3, K4, K5, K7 and K8 with their kernel rows a call, sweeps of
+the cluster size, K6 and K9 alone by device time with a sweep of K6's
+lanes and cluster size, one JSON line describing the kernels (each with
+its bound on this card), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
 exits non-zero; without a CUDA card it exits non-zero before printing a
 result.
@@ -411,7 +415,10 @@ def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
             torch.cuda.synchronize()
         rows, count, per_call = {}, {}, 0
         for k in prof.key_averages():
-            if k.device_type == torch.autograd.DeviceType.CUDA:
+            # NCCL's ranges on the device timeline ("nccl:...") span the
+            # kernels or copies the collective issues: not kernel rows
+            if (k.device_type == torch.autograd.DeviceType.CUDA
+                    and not k.key.startswith("nccl:")):
                 t = getattr(k, "self_device_time_total", None)
                 if t is None:
                     t = k.self_cuda_time_total
@@ -1470,6 +1477,156 @@ def phase_grad_paths(total: dict, card: str) -> list:
     return records
 
 
+# ---- phase 37: gradients through the parallel layer
+
+# phase 37 widths: the four-step at BASELINE configs[2] (phase 34's
+# shape); the 2-D forms at 16 of configs[3]'s 64 images (forward alone
+# peaks at 48.9 GiB at 64, and the backward's cotangents, gradients and
+# exchange buffers would not fit in 80 GiB); dctn2 at (64, 1024, 1024)
+PAR_GRAD_FFT2 = (16, 4096, 4096)
+PAR_GRAD_DCT = (64, 1024, 1024)
+
+
+def par_grad_rows(par, mesh):
+    """(name, inputs, fn, oracle in float64, torch.fft function of the same
+    map in float32 or None, the kernels the backward must launch) of
+    phase 37."""
+    f32 = torch.float32
+    from cfftpack_tpu_torch.parallel.fourstep_split import _split
+    b, n = FOURSTEP_SHAPE
+    n1, n2 = _split(n, 1)
+
+    def fourstep_oracle(natural, dt):
+        def fn(a, c):
+            y = torch.fft.fft(torch.complex(a.to(dt), c.to(dt)),
+                              norm="forward")
+            return planes(y if natural else y.reshape(b, n2, n1).transpose(
+                1, 2))
+        return fn
+
+    rows = []
+    xs = list(pair(FOURSTEP_SHAPE, f32, seed=371))
+    for natural in (False, True):
+        rows.append((f"fft_fourstep_split reorder={natural} (64, 2^20)", xs,
+                     lambda a, c, nat=natural: par.fft_fourstep_split(
+                         a, c, mesh, reorder=nat),
+                     fourstep_oracle(natural, torch.float64),
+                     fourstep_oracle(natural, f32), ("K6", "K1")))
+    rows.append(("fft_fourstep reorder=False overlap_chunks=4 (64, 2^20) "
+                 "complex64 from the planes", xs,
+                 lambda a, c: planes(par.fft_fourstep(
+                     torch.complex(a, c), mesh, reorder=False,
+                     overlap_chunks=4)),
+                 fourstep_oracle(False, torch.float64),
+                 fourstep_oracle(False, f32), ("K6", "K1")))
+
+    def fft2(dt):
+        return lambda a, c: planes(torch.fft.fft2(
+            torch.complex(a.to(dt), c.to(dt)), norm="forward"))
+
+    def rfft2(dt):
+        return lambda v: planes(torch.fft.rfft2(v.to(dt), norm="forward"))
+
+    img = list(pair(PAR_GRAD_FFT2, f32, seed=372))
+    rows.append((f"fft2_sharded_split {PAR_GRAD_FFT2}", img,
+                 lambda a, c: par.fft2_sharded_split(a, c, mesh),
+                 fft2(torch.float64), fft2(f32), ("K1", "K6")))
+    rows.append((f"rfft2_sharded_split {PAR_GRAD_FFT2}", img[:1],
+                 lambda v: par.rfft2_sharded_split(v, mesh),
+                 rfft2(torch.float64), rfft2(f32), ("K1", "K6")))
+    rows.append((f"dctn2_sharded type 2 ortho {PAR_GRAD_DCT}",
+                 [real(PAR_GRAD_DCT, f32, seed=373)],
+                 lambda v: par.dctn2_sharded(v, mesh, type=2, norm="ortho"),
+                 None, None, ("K1",)))
+    return rows
+
+
+def par_grad_check(name: str, fn, xs, want, torch_fn, kern, total: dict,
+                   card: str) -> dict:
+    """One row of phase 37 with every plain version refused on the card:
+    the collectives of the forward and of the forward and backward, the
+    backward's launches, the gradients against ``want`` to 1e-6 of max
+    |g|, and the times and peak memory of :func:`grad_times`."""
+    cots = cotangents(fn, xs)
+    if want is None:
+        # the ortho DCT-II is orthonormal: the gradient is the 2-D
+        # DCT-III of the cotangent (scipy, float64, on the host)
+        want = [torch.from_numpy(scipy.fft.idctn(
+            cots[0].double().cpu().numpy(), 2, axes=(-2, -1),
+            norm="ortho")).to(DEV)]
+    else:
+        want = fwd_bwd(want, [x.double() for x in xs],
+                       [c.double() for c in cots])
+    with no_plain_on_card():
+        (_, fwd_cc), fwd = drive(lambda: counted(lambda: fn(*xs)), total)
+        ls = leaves(xs)
+        (grads, both_cc), both = drive(lambda: counted(
+            lambda: torch.autograd.grad(as_tuple(fn(*ls)), ls, cots)), total)
+    bwd = {k: both[k] - fwd[k] for k in both if both[k] != fwd[k]}
+    check(all(bwd.get(k, 0) > 0 for k in kern),
+          f"{name}: the backward launched {bwd} ({', '.join(kern)} "
+          "expected)")
+    a2a = fwd_cc["all_to_all_single"]
+    check_collectives(fwd_cc, {"all_to_all_single": a2a}, f"{name} forward")
+    check_collectives(both_cc, {"all_to_all_single": 2 * a2a},
+                      f"{name} forward and backward")
+    err = max(rel_err(g, w) for g, w in zip(grads, want))
+    check(all(bool(torch.isfinite(g).all()) for g in grads) and err < 1e-6,
+          f"{name}: gradients vs the float64 oracle {err:.2e} < 1e-6 of "
+          "max |g|")
+    del grads, want
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn(*xs)
+    torch.cuda.synchronize()
+    fwd_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    del out
+    t = grad_times(fn, xs, cots, torch_fn, reps=5)
+    lib = ("not measured" if t["torch_fwd_bwd_ms"] is None
+           else f"{t['torch_fwd_bwd_ms']:.4f} ms")
+    print(f"  grad {name}: fwd {t['fwd_ms']:.4f} ms, fwd+bwd "
+          f"{t['fwd_bwd_ms']:.4f} ms, torch.fft fwd+bwd {lib}, peak fwd "
+          f"{fwd_peak / 1024:.2f} GiB, fwd+bwd {t['peak_mib'] / 1024:.2f} "
+          f"GiB, all_to_all_single {a2a} -> {2 * a2a}  [{card}]")
+    torch.cuda.empty_cache()
+    return {"name": name, "bwd_launches": bwd, "max_rel_err": err,
+            "all_to_all_single": [a2a, 2 * a2a], "fwd_peak_mib": fwd_peak,
+            **t}
+
+
+def phase_parallel_grad(total: dict, card: str) -> None:
+    """Phase 37: gradients through the parallel layer at world size 1 on a
+    one-rank NCCL group, each row's backward on the kernels and the
+    collectives with every plain version refused on the card."""
+    import socket
+    import torch.distributed as dist
+    from cfftpack_tpu_torch import parallel as par
+
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    par.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = par.make_mesh((1,), ("data",))
+        print(f"phase 37: gradients through the parallel layer, one-rank "
+              f"NCCL group on {torch.cuda.get_device_name(0)}")
+        print(f"  reduced: fft2_sharded_split and rfft2_sharded_split at "
+              f"{PAR_GRAD_FFT2} (16 of BASELINE configs[3]'s 64 images: the "
+              "backward's buffers beside phase 34's 48.9 GiB forward would "
+              "not fit in 80 GiB)")
+        records = []
+        for name, xs, fn, want, torch_fn, kern in par_grad_rows(par, mesh):
+            records.append(par_grad_check(name, fn, xs, want, torch_fn, kern,
+                                          total, card))
+            del xs
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    print(json.dumps({"parallel_grad": records}))
+
+
 def phase_utils(card: str) -> None:
     """Phase 35: the four small utils on the card."""
     import tempfile
@@ -2484,6 +2641,9 @@ def main() -> None:
     # ---- phase 36: gradients, each kernel's backward and the full-width
     # paths forward and backward
     grad_records = phase_grad(total, card)
+
+    # ---- phase 37: gradients through the parallel layer
+    phase_parallel_grad(total, card)
 
     for k in KERNELS:
         check(total[k] > 0, f"main path launched {k} {total[k]} times")

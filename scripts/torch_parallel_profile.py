@@ -1,7 +1,7 @@
 """Where the parallel layer's time goes at world size 1 on one CUDA card,
 for this checkout or another one.
 
-    python3 scripts/torch_parallel_profile.py [--root DIR]
+    python3 scripts/torch_parallel_profile.py [--root DIR] [--grad]
 
 Imports ``cfftpack_tpu_torch`` and ``chip_smoke.py`` from DIR (default:
 this checkout), opens a one-rank NCCL group and, with ``torch.profiler``
@@ -11,7 +11,12 @@ time and the idle share of the four-step (``fft_fourstep_split`` at
 (64, 2^20) float32 planes, forward without and with the natural order,
 the inverse) beside the single-device ``fft_split`` (K5), and of
 ``fft2_sharded_split`` at (64, 4096, 4096) beside ``fft2_split``, with
-the card's name and power limit.  Needs the card.
+the card's name and power limit.  ``--grad`` profiles instead the rows
+of the smoke's phase 37 (``chip_smoke.par_grad_rows``: the four-step at
+(64, 2^20), ``fft2_sharded_split`` and ``rfft2_sharded_split`` at
+(16, 4096, 4096), ``dctn2_sharded`` at (64, 1024, 1024)), each forward
+alone and forward with its backward (``torch.autograd.grad`` of a random
+cotangent).  Needs the card.
 """
 from __future__ import annotations
 
@@ -26,7 +31,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose package and chip_smoke.py to use")
-    root = Path(ap.parse_args().root).resolve()
+    ap.add_argument("--grad", action="store_true",
+                    help="profile phase 37's rows forward and backward")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
     import torch.distributed as dist
@@ -45,6 +53,9 @@ def main() -> None:
     par.init_distributed(f"127.0.0.1:{port}", 1, 0)
     try:
         mesh = par.make_mesh((1,), ("data",))
+        if args.grad:
+            profile_grad(cs, par, mesh, card)
+            return
         xr, xi = cs.pair((64, 1 << 20), torch.float32, seed=360)
         yr, yi = par.fft_fourstep_split(xr, xi, mesh, reorder=False)
         for name, fn in (
@@ -69,6 +80,22 @@ def main() -> None:
             cs.profile_route(name, fn, card, calls=3)
     finally:
         dist.destroy_process_group()
+
+
+def profile_grad(cs, par, mesh, card: str) -> None:
+    """Each row of phase 37 forward, then forward and backward."""
+    import torch
+    for name, xs, fn, *_ in cs.par_grad_rows(par, mesh):
+        cots = cs.cotangents(fn, xs)
+        ls = cs.leaves(xs)
+        calls = 3 if "4096, 4096" in name else 10
+        cs.profile_route(f"{name} forward", lambda: fn(*xs), card, calls)
+        cs.profile_route(
+            f"{name} forward and backward",
+            lambda: torch.autograd.grad(cs.as_tuple(fn(*ls)), ls, cots),
+            card, calls)
+        del xs, cots, ls
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
