@@ -47,7 +47,12 @@ the plain versions or scipy, and its times and peak memory); in phase
 ``fft_fourstep`` with ``overlap_chunks=4``, ``fft2_sharded_split`` and
 ``rfft2_sharded_split`` at (16, 4096, 4096), ``dctn2_sharded`` at
 (64, 1024, 1024)) against float64 oracles, with its collectives
-counted; and checks each result.  Each path runs with the launch
+counted; in phase 38 the port's demos and validation (the five tables of
+``examples/torch_pricing_demo.py``, ``examples/torch_sharded_demo.py``
+on a one-rank NCCL group and the float32 golden table of
+``scripts/torch_validate.py``) with every plain version refused, their
+launches and wall times, the deterministic tables against their CPU
+runs; and checks each result.  Each path runs with the launch
 counts set to 0 just before it and read just after.  Prints CUDA-event
 times of the kernels, their plain versions and the PyTorch calls that
 compute the same functions, the measurements behind K1's rows a block,
@@ -65,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -1627,6 +1633,103 @@ def phase_parallel_grad(total: dict, card: str) -> None:
     print(json.dumps({"parallel_grad": records}))
 
 
+# ---- phase 38: the port's demos and validation table on the card
+
+def load_script(rel: str):
+    """A script of the checkout (not a package) as a module."""
+    path = Path(__file__).resolve().parent / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launched(got: dict) -> dict:
+    return {k: v for k, v in got.items() if v}
+
+
+def norm_err(got, want) -> float:
+    """max |got - want| / max |want| over the numbers of a table."""
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def phase_demos(total: dict, card: str) -> None:
+    """Phase 38: the pricing demo's five tables, the sharded demo on a
+    one-rank NCCL group and the float32 validation table, each at its
+    full width with every plain version refused on the card, its
+    launches and wall time printed; the deterministic rows against the
+    port's CPU run of the same function."""
+    import io
+    import torch.distributed as dist
+    from cfftpack_tpu_torch import parallel as par
+    from cfftpack_tpu_torch.dryrun import _free_port
+
+    pricing = load_script("examples/torch_pricing_demo.py")
+    sharded = load_script("examples/torch_sharded_demo.py")
+    validate = load_script("scripts/torch_validate.py")
+    print("phase 38: the demos and the validation table on the card "
+          "(every plain version refused)")
+    t0 = time.perf_counter()
+    tables, kernels = {}, {}
+    with no_plain_on_card():
+        for name, fn in pricing.DEMOS.items():
+            tables[name], got = timed_drive(
+                f"pricing demo {name}", lambda: fn(DEV), total, card)
+            kernels[f"pricing {name}"] = launched(got)
+        par.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+        try:
+            shard_res, got = timed_drive("sharded demo, one NCCL rank",
+                                         lambda: sharded.main([]), total,
+                                         card)
+        finally:
+            dist.destroy_process_group()
+        kernels["sharded"] = launched(got)
+        rows, got = timed_drive("torch_validate", lambda: (
+            validate.validate(DEV)), total, card)
+        kernels["validate"] = launched(got)
+    bad = validate.report(rows)
+    for name, got in kernels.items():
+        print(f"  launches of {name}: {got}")
+        check(bool(got), f"{name} launched a kernel")
+    check(bad == 0, f"torch_validate: {bad} of {len(rows)} rows FAIL")
+    for line, (err, rel) in shard_res["rows"].items():
+        check(rel <= 1e-4, f"sharded demo {line}: {rel:.2e} <= 1e-4 of "
+              "max |X|")
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = {name: pricing.DEMOS[name]("cpu")
+                for name in ("bsvg", "strikes", "qmc", "shortrate")}
+    for col, what in ((1, "BS"), (3, "VG")):
+        err = norm_err([r[col] for r in tables["bsvg"]],
+                       [r[col] for r in host["bsvg"]])
+        check(err < 1e-12, f"bsvg {what} column vs the CPU run {err:.2e} "
+              "< 1e-12")
+    err = norm_err([r[2] for r in tables["strikes"]],
+                   [r[2] for r in host["strikes"]])
+    check(err < 1e-12, f"strikes vs the CPU run {err:.2e} < 1e-12")
+    for got, want in zip(tables["qmc"], host["qmc"]):
+        if got[1]:
+            err = norm_err(got[4], want[4])
+            check(err < 1e-12, f"QMC samples={got[0]} vs the CPU run "
+                  f"{err:.2e} < 1e-12")
+        else:
+            qmc_mean = next(r[2] for r in tables["qmc"]
+                            if r[0] == got[0] and r[1])
+            check(abs(got[2] - qmc_mean) < 0.2,
+                  f"MC samples={got[0]} mean {got[2]:.6f} within 0.2 of "
+                  f"the QMC mean {qmc_mean:.6f}")
+    for way, price in tables["vgmc"]:
+        check(abs(price - VG_TARGET) < 0.2, f"vgmc {way} {price:.6f} vs "
+              f"the QuantLib target {abs(price - VG_TARGET):.2e} < 0.2")
+    for got, want in zip(tables["shortrate"], host["shortrate"]):
+        err = max(abs(a - b) / abs(b) for a, b in zip(got[1:], want[1:]))
+        check(err < 1e-9, f"shortrate model {got[0]} vs the CPU run "
+              f"{err:.2e} < 1e-9 relative")
+    print(f"  phase 38: {time.perf_counter() - t0:.1f} s wall, the CPU runs "
+          f"included  [{card}]")
+
+
 def phase_utils(card: str) -> None:
     """Phase 35: the four small utils on the card."""
     import tempfile
@@ -2644,6 +2747,10 @@ def main() -> None:
 
     # ---- phase 37: gradients through the parallel layer
     phase_parallel_grad(total, card)
+
+    # ---- phase 38: the pricing and sharded demos and the validation
+    # table
+    phase_demos(total, card)
 
     for k in KERNELS:
         check(total[k] > 0, f"main path launched {k} {total[k]} times")

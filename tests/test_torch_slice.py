@@ -110,6 +110,22 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("script", ["examples/torch_pricing_demo.py",
+                                    "examples/torch_sharded_demo.py",
+                                    "scripts/torch_validate.py",
+                                    "chip_smoke.py"])
+def test_scripts_leave_jax_out(script):
+    code = ("import importlib.util, sys; "
+            f"spec = importlib.util.spec_from_file_location('d', {script!r}); "
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'cfftpack_tpu.'))] ; "
+            "assert not bad, bad")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 # names of the JAX package not ported yet: none
 NOT_PORTED = {}
 
