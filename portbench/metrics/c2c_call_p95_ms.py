@@ -1,0 +1,8 @@
+"""c2c_call_p95_ms: the 95th percentile of a block's time, submission to
+the host's observing its completion event, over every call of the
+window."""
+from portbench import readers
+
+
+def read(run):
+    return readers.call_p95_ms(run)
