@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["needs_grad", "linear", "bilinear"]
 
 
@@ -44,11 +46,12 @@ class _Map(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        if ctx.keep:
-            out = ctx.adjoint(grads, ctx.saved_tensors,
-                              ctx.needs_input_grad[3:])
-        else:
-            out = ctx.adjoint(*grads)
+        with profiling.span("cfftpack.adjoint"):
+            if ctx.keep:
+                out = ctx.adjoint(grads, ctx.saved_tensors,
+                                  ctx.needs_input_grad[3:])
+            else:
+                out = ctx.adjoint(*grads)
         return (None, None, None) + (out if isinstance(out, tuple)
                                      else (out,))
 

@@ -8,7 +8,9 @@ at the root of the checkout, named by a hash of the sources and flags,
 so an edited source builds anew and an unchanged one loads at once;
 ``ptxas`` reports each kernel's registers and spills into a ``.log``
 beside it.  This runs at the first kernel launch on a CUDA tensor,
-never at import.
+never at import.  Every C entry is called through :func:`call`, which
+holds the entry's span and counts its launches
+(``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
+
+_SPANS = {k: "cfftpack." + k for k in profiling.KERNELS}
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "cfftpack_tpu_torch")
@@ -146,10 +151,20 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def call(fn, device, *args) -> int:
-    """Call a kernel's C entry with PyTorch's current stream on ``device``
-    as its last argument and ``device`` as the current CUDA device;
-    returns the entry's CUDA error code."""
+def call(kernel: str, fn, device, *args) -> int:
+    """Call the C entry ``fn`` of ``kernel`` (its K-name) with PyTorch's
+    current stream on ``device`` as its last argument and ``device`` as
+    the current CUDA device, inside the span ``cfftpack.<kernel>``;
+    returns the entry's CUDA error code, and counts the launch in
+    ``profiling.launches`` when it is 0."""
+    with profiling.span(_SPANS[kernel]):
+        err = _enter(fn, device, args)
+    if err == 0:
+        profiling.launches[kernel] += 1
+    return err
+
+
+def _enter(fn, device, args) -> int:
     if device.index == torch.cuda.current_device():
         return fn(*args, torch.cuda.current_stream(device).cuda_stream)
     with torch.cuda.device(device):

@@ -19,6 +19,7 @@ import torch
 
 from ..config import (DEFAULT_NORM, as_tensor, check_norm, complex_dtype_of,
                       fwd_scale, inv_scale)
+from ..utils.profiling import span
 from . import colfft, core, fourstep_fft, fused_fft
 
 __all__ = ["fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
@@ -46,7 +47,9 @@ def _fft_impl(x, axis: int, norm: str, inverse: bool):
     _check_axis(x, axis)
     x = x.to(complex_dtype_of(x.dtype))
     _check_length(x.shape[axis])
-    return torch.complex(*_split_pass(x.real, x.imag, axis, norm, inverse))
+    yr, yi = _split_pass(x.real, x.imag, axis, norm, inverse)
+    with span("cfftpack.unpack"):
+        return torch.complex(yr, yi)
 
 
 def fft(x, axis: int = -1, norm: str = DEFAULT_NORM):
@@ -88,7 +91,8 @@ def _kernel_engine(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     if fourstep_fft.fourstep_eligible(n, xr.dtype):
         yr, yi = fourstep_fft.sfft_fourstep(xr, xi, n, inverse)
         if scale != 1.0:
-            yr, yi = yr * scale, yi * scale
+            with span("cfftpack.scale"):
+                yr, yi = yr * scale, yi * scale
         return yr, yi
     if fused_fft.fused_eligible(n, xr.dtype):
         return fused_fft.sfft_fused(xr, xi, n, inverse, scale)

@@ -24,10 +24,10 @@ multiple of 16 up to 4096), so both packages take the column route at
 the same lengths.  The reference's ``n1 % 128 == 0`` is its lane tile
 and does not apply: the kernel masks its last lane group, so any
 n1 >= 1 runs.  On a CPU tensor each wrapper runs its plain version; on
-a CUDA tensor it launches the kernel or raises.  ``launches`` counts
-kernel launches.  Both wrappers are differentiable (``_adjoint``): K6's
-backward is the other direction, K9's the other DCT type with the row
-weight moved across (:func:`_dct_adjoint_weight`).
+a CUDA tensor it launches the kernel or raises, each launch counted in
+``utils.profiling.launches``.  Both wrappers are differentiable
+(``_adjoint``): K6's backward is the other direction, K9's the other
+DCT type with the row weight moved across (:func:`_dct_adjoint_weight`).
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import plan
+from ..utils import profiling
 from . import _adjoint, _build, core, stream_fft
 
 __all__ = ["colfft_eligible", "colfft_plain", "scolfft", "coldct2_plain",
@@ -45,7 +46,6 @@ __all__ = ["colfft_eligible", "colfft_plain", "scolfft", "coldct2_plain",
 
 _MODES = ("fwd", "inv", "dct2", "dct3")
 _KERNEL = {"fwd": "K6", "inv": "K6", "dct2": "K9", "dct3": "K9"}
-launches = {"K6": 0, "K9": 0}
 
 
 def colfft_eligible(n0: int, n1: int, dtype) -> bool:
@@ -255,6 +255,12 @@ def _launch_plan(mode: str, n0: int, n1: int, device) -> _LaunchPlan:
     lp = _PLANS.get(key)
     if lp is not None and lp.version == plan.VERSION:
         return lp
+    with profiling.planning():
+        lp = _PLANS[key] = _build_plan(mode, n0, n1, device)
+    return lp
+
+
+def _build_plan(mode: str, n0: int, n1: int, device) -> _LaunchPlan:
     ct = plan.device_tables(n0, torch.float32, device)
     keep = (ct,)
     route, lanes = _route(n0, n1)
@@ -273,11 +279,9 @@ def _launch_plan(mode: str, n0: int, n1: int, device) -> _LaunchPlan:
         ph = tuple(t.data_ptr() for t in pt)
     tables = (ct.twr.data_ptr(), ct.twi.data_ptr(), len(ct.factors),
               _build.ints(ct.factors), _build.ints(ct.offs[:-1]), *reg, *ph)
-    lp = _LaunchPlan(tables, lanes.bit_length() - 1,
-                     _reg_cluster(n0, n1) if route == "reg" else 1, keep,
-                     plan.VERSION)
-    _PLANS[key] = lp
-    return lp
+    return _LaunchPlan(tables, lanes.bit_length() - 1,
+                       _reg_cluster(n0, n1) if route == "reg" else 1, keep,
+                       plan.VERSION)
 
 
 def _launch(mode: str, x, xi=None, w=None, scale: float = 1.0):
@@ -323,7 +327,7 @@ def _launch(mode: str, x, xi=None, w=None, scale: float = 1.0):
     if mode == "dct3":
         scale = 0.5 * scale          # the core's 1/2 rides in the store
     err = _build.call(
-        _build.load().col_fft_f32, dev, x.data_ptr(),
+        _KERNEL[mode], _build.load().col_fft_f32, dev, x.data_ptr(),
         None if dct else xi.data_ptr(), yr.data_ptr(),
         None if dct else yi.data_ptr(), *lp.tables,
         None if w is None else w.data_ptr(), B // 2 if dct else B, n0, n1,
@@ -331,7 +335,6 @@ def _launch(mode: str, x, xi=None, w=None, scale: float = 1.0):
     if err != 0:
         raise RuntimeError(f"column kernel launch failed at shape "
                            f"{tuple(x.shape)}, mode={mode}: CUDA error {err}")
-    launches[_KERNEL[mode]] += 1
     return yr if dct else (yr, yi)
 
 

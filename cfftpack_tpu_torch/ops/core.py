@@ -16,7 +16,9 @@ transforms of float32 stream lengths with an even batch past K1's half
 length take the real-stream kernel (K7, ``rstream``).  The device
 decides one thing only, inside the kernels' wrappers: a CPU tensor runs
 the plain version (``_stockham`` below for K1), a CUDA tensor launches
-the kernel.
+the kernel.  The real transforms' steps around the engine run in the
+spans ``cfftpack.merge`` (the packed spectrum's merge and unmerge),
+``cfftpack.scale`` and ``cfftpack.unpack`` (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import plan
+from ..utils.profiling import span
 from . import fused_fft, rstream, stream_fft
 
 __all__ = ["sfft", "srfft", "sirfft", "s_shifted_dft_real"]
@@ -241,7 +244,8 @@ def _fft_any(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     else:
         yr, yi = _fourstep_local(xr, xi, n, inverse)
     if scale != 1.0:
-        yr, yi = yr * scale, yi * scale
+        with span("cfftpack.scale"):
+            yr, yi = yr * scale, yi * scale
     return yr, yi
 
 
@@ -299,17 +303,19 @@ def _srfft_batchpair(x, n: int):
     h = n // 2
     xp = x.reshape(B // 2, 2, n)
     Zr, Zi = sfft(xp[:, 0], xp[:, 1], n, inverse=False)
-    Z0r = Zr[..., : h + 1]
-    Z0i = Zi[..., : h + 1]
-    # Zm bins 0..h: bin 0 is Z_0; k>=1 reads Z_{n-k} = slice+flip
-    Zmr = torch.cat([Zr[..., :1], Zr[..., n - h:].flip(-1)], dim=-1)
-    Zmi = torch.cat([Zi[..., :1], Zi[..., n - h:].flip(-1)], dim=-1)
-    Ur = 0.5 * (Z0r + Zmr)
-    Ui = 0.5 * (Z0i - Zmi)
-    Vr = 0.5 * (Z0i + Zmi)
-    Vi = 0.5 * (Zmr - Z0r)
-    yr = torch.stack([Ur, Vr], dim=-2).reshape(lead + (h + 1,))
-    yi = torch.stack([Ui, Vi], dim=-2).reshape(lead + (h + 1,))
+    with span("cfftpack.merge"):
+        Z0r = Zr[..., : h + 1]
+        Z0i = Zi[..., : h + 1]
+        # Zm bins 0..h: bin 0 is Z_0; k>=1 reads Z_{n-k} = slice+flip
+        Zmr = torch.cat([Zr[..., :1], Zr[..., n - h:].flip(-1)], dim=-1)
+        Zmi = torch.cat([Zi[..., :1], Zi[..., n - h:].flip(-1)], dim=-1)
+        Ur = 0.5 * (Z0r + Zmr)
+        Ui = 0.5 * (Z0i - Zmi)
+        Vr = 0.5 * (Z0i + Zmi)
+        Vi = 0.5 * (Zmr - Z0r)
+    with span("cfftpack.unpack"):
+        yr = torch.stack([Ur, Vr], dim=-2).reshape(lead + (h + 1,))
+        yi = torch.stack([Ui, Vi], dim=-2).reshape(lead + (h + 1,))
     return yr, yi
 
 
@@ -323,17 +329,20 @@ def _sirfft_batchpair(yr, yi, n: int):
     ai = yi.reshape(B // 2, 2, h + 1)
     Ur, Vr = ar[:, 0], ar[:, 1]
     Ui, Vi = ai[:, 0], ai[:, 1]
-    # bins 0..h: Z = U + iV; bins h+1..n-1: conj(U_{n-k}) + i conj(V_{n-k})
-    Zr_low = Ur - Vi
-    Zi_low = Ui + Vr
-    Umr = Ur[..., 1: n - h].flip(-1)
-    Umi = Ui[..., 1: n - h].flip(-1)
-    Vmr = Vr[..., 1: n - h].flip(-1)
-    Vmi = Vi[..., 1: n - h].flip(-1)
-    Zr = torch.cat([Zr_low, Umr + Vmi], dim=-1)
-    Zi = torch.cat([Zi_low, Vmr - Umi], dim=-1)
+    with span("cfftpack.merge"):
+        # bins 0..h: Z = U + iV; bins h+1..n-1: conj(U_{n-k}) +
+        # i conj(V_{n-k})
+        Zr_low = Ur - Vi
+        Zi_low = Ui + Vr
+        Umr = Ur[..., 1: n - h].flip(-1)
+        Umi = Ui[..., 1: n - h].flip(-1)
+        Vmr = Vr[..., 1: n - h].flip(-1)
+        Vmi = Vi[..., 1: n - h].flip(-1)
+        Zr = torch.cat([Zr_low, Umr + Vmi], dim=-1)
+        Zi = torch.cat([Zi_low, Vmr - Umi], dim=-1)
     zr, zi = sfft(Zr, Zi, n, inverse=True)
-    return torch.stack([zr, zi], dim=-2).reshape(lead + (n,))
+    with span("cfftpack.unpack"):
+        return torch.stack([zr, zi], dim=-2).reshape(lead + (n,))
 
 
 def _use_pair(n: int, B: int) -> bool:
@@ -366,7 +375,8 @@ def srfft(x, n: int, scale: float = 1.0):
         return rstream.srfft_stream(x, n, scale)
     yr, yi = _srfft(x, n)
     if scale != 1.0:
-        yr, yi = yr * scale, yi * scale
+        with span("cfftpack.scale"):
+            yr, yi = yr * scale, yi * scale
     return yr, yi
 
 
@@ -378,25 +388,28 @@ def _srfft(x, n: int):
         return _srfft_batchpair(x, n)
     if n % 2 == 0:
         Zr, Zi = sfft(x[..., 0::2], x[..., 1::2], n // 2, inverse=False)
-        a1, a2, a3, a4, b1, b2, b3, b4 = (
-            t[1:] for t in plan.device_tables(n, x.dtype,
-                                              x.device).rfft_merge)
-        Zrc = Zr[..., 1:]
-        Zic = Zi[..., 1:]
-        Zrf = Zrc.flip(-1)
-        Zif = Zic.flip(-1)
-        yr_c = Zrc * a1 + Zic * a2 + Zrf * a3 + Zif * a4
-        yi_c = Zrc * b1 + Zic * b2 + Zrf * b3 + Zif * b4
-        # DC and Nyquist from bin 0; their imag parts are exact zeros
-        dc = Zr[..., :1] + Zi[..., :1]
-        nyq = Zr[..., :1] - Zi[..., :1]
-        z1 = torch.zeros_like(dc)
-        return (torch.cat([dc, yr_c, nyq], dim=-1),
-                torch.cat([z1, yi_c, z1], dim=-1))
-    Yr, Yi = sfft(x, torch.zeros_like(x), n, inverse=False)
-    yr = Yr[..., : n // 2 + 1]
-    yi = Yi[..., : n // 2 + 1].clone()
-    yi[..., 0] = 0.0
+        tabs = plan.device_tables(n, x.dtype, x.device).rfft_merge
+        with span("cfftpack.merge"):
+            a1, a2, a3, a4, b1, b2, b3, b4 = (t[1:] for t in tabs)
+            Zrc = Zr[..., 1:]
+            Zic = Zi[..., 1:]
+            Zrf = Zrc.flip(-1)
+            Zif = Zic.flip(-1)
+            yr_c = Zrc * a1 + Zic * a2 + Zrf * a3 + Zif * a4
+            yi_c = Zrc * b1 + Zic * b2 + Zrf * b3 + Zif * b4
+            # DC and Nyquist from bin 0; their imag parts are exact zeros
+            dc = Zr[..., :1] + Zi[..., :1]
+            nyq = Zr[..., :1] - Zi[..., :1]
+            z1 = torch.zeros_like(dc)
+            return (torch.cat([dc, yr_c, nyq], dim=-1),
+                    torch.cat([z1, yi_c, z1], dim=-1))
+    with span("cfftpack.pack"):
+        zi = torch.zeros_like(x)
+    Yr, Yi = sfft(x, zi, n, inverse=False)
+    with span("cfftpack.merge"):
+        yr = Yr[..., : n // 2 + 1]
+        yi = Yi[..., : n // 2 + 1].clone()
+        yi[..., 0] = 0.0
     return yr, yi
 
 
@@ -406,7 +419,10 @@ def sirfft(yr, yi, n: int, scale: float = 1.0):
     if _use_rstream(n, yr.shape[:-1].numel(), yr.dtype):
         return rstream.sirfft_stream(yr, yi, n, scale)
     x = _sirfft(yr, yi, n)
-    return x * scale if scale != 1.0 else x
+    if scale != 1.0:
+        with span("cfftpack.scale"):
+            x = x * scale
+    return x
 
 
 def _sirfft(yr, yi, n: int):
@@ -417,20 +433,24 @@ def _sirfft(yr, yi, n: int):
         return _sirfft_batchpair(yr, yi, n)
     if n % 2 == 0:
         h = n // 2
-        ya = yr[..., :h]
-        yb = yi[..., :h]
-        ymr = yr[..., 1:].flip(-1)
-        ymi = yi[..., 1:].flip(-1)
         a1, a2, a3, a4, b1, b2, b3, b4 = plan.device_tables(
             n, yr.dtype, yr.device).irfft_merge
-        Zr = ya * a1 + yb * a2 + ymr * a3 + ymi * a4
-        Zi = ya * b1 + yb * b2 + ymr * b3 + ymi * b4
+        with span("cfftpack.merge"):
+            ya = yr[..., :h]
+            yb = yi[..., :h]
+            ymr = yr[..., 1:].flip(-1)
+            ymi = yi[..., 1:].flip(-1)
+            Zr = ya * a1 + yb * a2 + ymr * a3 + ymi * a4
+            Zi = ya * b1 + yb * b2 + ymr * b3 + ymi * b4
         zr, zi = sfft(Zr, Zi, h, inverse=True)
-        return _interleave(zr, zi)
-    tr = yr[..., 1:].flip(-1)
-    ti = -yi[..., 1:].flip(-1)
-    zr, _ = sfft(torch.cat([yr, tr], dim=-1), torch.cat([yi, ti], dim=-1),
-                 n, inverse=True)
+        with span("cfftpack.unpack"):
+            return _interleave(zr, zi)
+    with span("cfftpack.merge"):
+        tr = yr[..., 1:].flip(-1)
+        ti = -yi[..., 1:].flip(-1)
+        Zr = torch.cat([yr, tr], dim=-1)
+        Zi = torch.cat([yi, ti], dim=-1)
+    zr, _ = sfft(Zr, Zi, n, inverse=True)
     return zr
 
 

@@ -20,7 +20,8 @@ transforms of the batch (:func:`_column_groups`).
 On a CPU tensor :func:`sfft_fourstep` runs the plain PyTorch version
 (:func:`sfft_fourstep_plain`: ``torch.matmul`` on the same DFT matrix
 and ``core._stockham`` on the same stage tables); on a CUDA tensor it
-launches the kernel or raises.  ``launches`` counts kernel launches.
+launches the kernel or raises, each launch counted in
+``utils.profiling.launches["K10"]``.
 The kernel is opt-in (``fft_split(..., impl="pallas")``): the engine's
 dispatch does not pick it.
 """
@@ -32,11 +33,10 @@ import numpy as np
 import torch
 
 from .. import plan
+from ..utils import profiling
 from . import _adjoint, _build, core, stream_fft
 
 __all__ = ["fourstep_eligible", "sfft_fourstep", "sfft_fourstep_plain"]
-
-launches = 0
 
 _N1 = 64           # the dense outer DFT's length
 _TAIL = 16
@@ -103,16 +103,19 @@ def _tables(n: int, inverse: bool):
 
 @functools.lru_cache(maxsize=16)
 def _device_tables(n: int, inverse: bool, device):
-    return tuple(torch.from_numpy(t).to(device) for t in _tables(n, inverse))
+    with profiling.planning():
+        return tuple(torch.from_numpy(t).to(device)
+                     for t in _tables(n, inverse))
 
 
 @functools.lru_cache(maxsize=4)
 def _device_split_dft(inverse: bool, device):
     """The kernel's DFT matrix: (4, 64, 64) float32, re and im of the hi
     halves, then of the lo halves, of the matrix of :func:`_tables`."""
-    Dr, Di = _tables(_N1 * _TAIL, inverse)[:2]
-    (rh, rl), (ih, il) = _tf32_split(Dr), _tf32_split(Di)
-    return torch.from_numpy(np.stack([rh, ih, rl, il])).to(device)
+    with profiling.planning():
+        Dr, Di = _tables(_N1 * _TAIL, inverse)[:2]
+        (rh, rl), (ih, il) = _tf32_split(Dr), _tf32_split(Di)
+        return torch.from_numpy(np.stack([rh, ih, rl, il])).to(device)
 
 
 def sfft_fourstep_plain(xr, xi, n: int, inverse: bool):
@@ -132,7 +135,6 @@ def sfft_fourstep_plain(xr, xi, n: int, inverse: bool):
 
 
 def _launch(xr, xi, n: int, inverse: bool):
-    global launches
     if not (xr.is_cuda and xi.is_cuda) or xr.device != xi.device:
         raise ValueError(f"K10 needs both planes on one CUDA device, got "
                          f"{xr.device} and {xi.device}")
@@ -144,8 +146,9 @@ def _launch(xr, xi, n: int, inverse: bool):
     if tuple(xr.shape[1:]) != (n,) or xi.shape != xr.shape:
         raise ValueError(f"K10 takes (b, {n}) planes, got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
-    xr = xr.contiguous()
-    xi = xi.contiguous()
+    with profiling.span("cfftpack.pack"):
+        xr = xr.contiguous()
+        xi = xi.contiguous()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     b = xr.shape[0]
@@ -162,19 +165,15 @@ def _launch(xr, xi, n: int, inverse: bool):
     # pass B holds R rows k1 of one transform in 16*R*n2 bytes of ping-pong
     # buffers: R by the rule measured for the stream kernels' column pass
     rshift = stream_fft._col_lanes(n2).bit_length() - 1
-    lib = _build.load()
-    with torch.cuda.device(xr.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fourstep_fft_f32(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            sr.data_ptr(), si.data_ptr(), d4.data_ptr(),
-            t1r.data_ptr(), t1i.data_ptr(), t.twr.data_ptr(),
-            t.twi.data_ptr(), len(fac), fac.ctypes.data, off.ctypes.data,
-            b, n2, rshift, int(inverse), stream)
+    err = _build.call(
+        "K10", _build.load().fourstep_fft_f32, xr.device, xr.data_ptr(),
+        xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), sr.data_ptr(),
+        si.data_ptr(), d4.data_ptr(), t1r.data_ptr(), t1i.data_ptr(),
+        t.twr.data_ptr(), t.twi.data_ptr(), len(fac), fac.ctypes.data,
+        off.ctypes.data, b, n2, rshift, int(inverse))
     if err != 0:
         raise RuntimeError(f"K10 launch failed at n={n}, b={b}: CUDA error "
                            f"{err}")
-    launches += 1
     return yr, yi
 
 

@@ -19,8 +19,8 @@ tensor it launches the kernel or raises.  Its gradient is the adjoint
 transform, the other direction at the same scale, through the same
 wrapper (``_adjoint``).  A launch plan per (n, dtype,
 inverse, device) holds what the C entry takes besides the data, so a
-launch is the checks, two ``torch.empty`` and one C call.  ``launches``
-counts kernel launches.
+launch is the checks, two ``torch.empty`` and one C call, counted in
+``utils.profiling.launches["K1"]``.
 """
 from __future__ import annotations
 
@@ -30,11 +30,10 @@ import numpy as np
 import torch
 
 from .. import plan
+from ..utils import profiling
 from . import _adjoint, _build, core
 
 __all__ = ["fused_eligible", "sfft_fused", "sfft_plain", "REG_LENGTHS"]
-
-launches = 0
 
 # Shared memory one block may use on sm_90 (227 KB).
 _SMEM_BUDGET = 232448
@@ -121,6 +120,12 @@ def launch_plan(n: int, dtype: torch.dtype, inverse: bool,
     lp = _PLANS.get(key)
     if lp is not None and lp.version == plan.VERSION:
         return lp
+    with profiling.planning():
+        lp = _PLANS[key] = _build_plan(n, dtype, device)
+    return lp
+
+
+def _build_plan(n: int, dtype: torch.dtype, device) -> LaunchPlan:
     t = plan.device_tables(n, dtype, device)
     lib = _build.load()
     fn = lib.cfft_stockham_f32 if dtype == torch.float32 else \
@@ -142,14 +147,11 @@ def launch_plan(n: int, dtype: torch.dtype, inverse: bool,
     stages = (len(t.factors), _build.ints(t.factors),
               _build.ints(t.offs[:-1]), _build.ints(t.dense_offs), reg[2],
               reg[3])
-    lp = LaunchPlan(fn, tables + stages, reg[1], tb, threads, keep,
-                    plan.VERSION)
-    _PLANS[key] = lp
-    return lp
+    return LaunchPlan(fn, tables + stages, reg[1], tb, threads, keep,
+                      plan.VERSION)
 
 
-def _launch(xr, xi, n: int, inverse: bool, scale: float):
-    global launches
+def _check(xr, xi, n: int) -> None:
     if not (xr.is_cuda and xi.is_cuda) or xr.device != xi.device:
         raise ValueError(f"K1 needs both planes on one CUDA device, got "
                          f"{xr.device} and {xi.device}")
@@ -161,21 +163,26 @@ def _launch(xr, xi, n: int, inverse: bool, scale: float):
     rows = xr.shape[0]
     if rows >= 2 ** 31:
         raise ValueError(f"K1 takes fewer than 2^31 rows, got {rows}")
-    xr = xr.contiguous()
-    xi = xi.contiguous()
+
+
+def _launch(xr, xi, n: int, inverse: bool, scale: float):
+    _check(xr, xi, n)
+    rows = xr.shape[0]
+    with profiling.span("cfftpack.pack"):
+        xr = xr.contiguous()
+        xi = xi.contiguous()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     if rows == 0:
         return yr, yi
     lp = launch_plan(n, xr.dtype, inverse, xr.device)
-    err = _build.call(lp.fn, xr.device, xr.data_ptr(), xi.data_ptr(),
+    err = _build.call("K1", lp.fn, xr.device, xr.data_ptr(), xi.data_ptr(),
                       yr.data_ptr(), yi.data_ptr(), *lp.tables[:5], rows, n,
                       *lp.tables[5:], int(inverse), lp.tile_rows, lp.threads,
                       scale)
     if err != 0:
         raise RuntimeError(f"K1 launch failed at n={n}, rows={rows}, "
                            f"{xr.dtype}: CUDA error {err}")
-    launches += 1
     return yr, yi
 
 

@@ -19,6 +19,7 @@ import torch
 from ..config import (DEFAULT_NORM, as_tensor, check_norm, complex_dtype_of,
                       fwd_scale, inv_scale, real_dtype_of)
 from .. import plan
+from ..utils.profiling import span
 from . import core, fused_fft, stream_fft
 from .cfft import (_apply_axis, _as_real_plane, _check_axis, _check_length,
                    _fft_impl, _fft_split_impl)
@@ -43,7 +44,8 @@ def rfft(x, axis: int = -1, norm: str = DEFAULT_NORM):
 
     def core_fn(v):
         yr, yi = core.srfft(v, n, s)
-        return torch.complex(yr, yi)
+        with span("cfftpack.unpack"):
+            return torch.complex(yr, yi)
 
     return _apply_axis(x, axis, core_fn)
 
@@ -200,7 +202,8 @@ def _rfilter_fused(x, fr, fi, n: int):
                     Zi[..., 1:].flip(-1))
     wr, wi = core.sfft(torch.cat([Z0r, Zcr], dim=-1),
                        torch.cat([Z0i, Zci], dim=-1), h, inverse=True)
-    return core._interleave(wr, wi)
+    with span("cfftpack.unpack"):
+        return core._interleave(wr, wi)
 
 
 def _use_stream_filter(x, fr, fi, n: int) -> bool:
@@ -270,5 +273,6 @@ def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
     # the unscaled pipeline is sirfft(srfft(x)*F); the public
     # composition applies fwd_scale then inv_scale on top
     if s != 1.0:
-        out = out * s
+        with span("cfftpack.scale"):
+            out = out * s
     return out.movedim(-1, axis)

@@ -21,9 +21,9 @@ the wrapper applies them.  Launch plans are cached per (mode, n,
 device), K8's pre-rotation and post-phase tables with them.  The plain
 versions below keep the reference's separate passes, built on
 ``stream_fft.stream_plain``.  On a CPU tensor each wrapper runs its
-plain version; on a CUDA tensor it launches the kernel or raises.
-``launches`` counts kernel launches (K8 is launched from ``dct.py``
-through :func:`launch`).  The four wrappers are differentiable
+plain version; on a CUDA tensor it launches the kernel or raises, each
+launch counted in ``utils.profiling.launches`` (K8 is launched from
+``dct.py`` through :func:`launch`).  The four wrappers are differentiable
 (``_adjoint``), each backward one call of another mode: rfft's is the
 irfft of the cotangent with bins 1 .. n/2-1 halved, irfft's the rfft of
 the cotangent with those bins doubled, DCT-II's the DCT-III and back.
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import plan
+from ..utils import profiling
 from . import _adjoint, _build, stream_fft
 
 __all__ = ["rstream_eligible", "srfft_stream", "sirfft_stream",
@@ -48,7 +49,6 @@ _H = _N1 // 2            # lanes below 64 hold every bin below Nyquist
 _MODES = ("rfft", "irfft", "dct2", "dct3", "dct4")
 _KERNEL = {"rfft": "K7", "irfft": "K7", "dct2": "K7", "dct3": "K7",
            "dct4": "K8"}
-launches = {"K7": 0, "K8": 0}
 
 
 def rstream_eligible(n: int, dtype, flat_batch: int) -> bool:
@@ -237,7 +237,8 @@ def _rows(x, width: int):
     `width` apart (a view where the layout allows; else one copy)."""
     x2 = x.reshape(-1, width)
     if x2.stride(-1) != 1 or (x2.shape[0] > 1 and x2.stride(0) < width):
-        x2 = x2.contiguous()
+        with profiling.span("cfftpack.pack"):
+            x2 = x2.contiguous()
     return x2
 
 
@@ -269,6 +270,12 @@ def _launch_plan(mode: str, n: int, device) -> _LaunchPlan:
     lp = _PLANS.get(key)
     if lp is not None and lp.version == plan.VERSION:
         return lp
+    with profiling.planning():
+        lp = _PLANS[key] = _build_plan(mode, n, device)
+    return lp
+
+
+def _build_plan(mode: str, n: int, device) -> _LaunchPlan:
     f32 = torch.float32
     N = n // 2 if mode == "dct4" else n
     m = N // _N1
@@ -307,11 +314,9 @@ def _launch_plan(mode: str, n: int, device) -> _LaunchPlan:
         rptw = plan.to_device(plan.reg_twiddles(_N1), f32, device)
         reg = (cptw.data_ptr(), rptw.data_ptr())
         keep += (cptw, rptw)
-    lp = _LaunchPlan(tables, pa, pb, reg, cluster,
-                     stream_fft._col_lanes(m).bit_length() - 1, keep,
-                     plan.VERSION)
-    _PLANS[key] = lp
-    return lp
+    return _LaunchPlan(tables, pa, pb, reg, cluster,
+                       stream_fft._col_lanes(m).bit_length() - 1, keep,
+                       plan.VERSION)
 
 
 def launch(mode: str, n: int, x, xi=None, *, scale: float = 1.0,
@@ -356,7 +361,8 @@ def launch(mode: str, n: int, x, xi=None, *, scale: float = 1.0,
     if mode == "irfft":
         xi2 = _rows(xi, width)
         if xi2.stride(0) != x2.stride(0):
-            x2, xi2 = x2.contiguous(), xi2.contiguous()
+            with profiling.span("cfftpack.pack"):
+                x2, xi2 = x2.contiguous(), xi2.contiguous()
     if mode != "dct4" and rows % 2:
         raise ValueError(f"mode {mode} pairs rows: the row count must be "
                          f"even, got {rows}")
@@ -384,7 +390,7 @@ def launch(mode: str, n: int, x, xi=None, *, scale: float = 1.0,
         if dst:
             x2 = x2.flip(-1)
     err = _build.call(
-        _build.load().rstream_fft_f32, dev, x2.data_ptr(),
+        _KERNEL[mode], _build.load().rstream_fft_f32, dev, x2.data_ptr(),
         None if xi is None else xi2.data_ptr(),
         x2.stride(0) if rows > 1 else width, yr.data_ptr(),
         None if yi is None else yi.data_ptr(), *scratch, *lp.tables, *lp.pa,
@@ -394,17 +400,17 @@ def launch(mode: str, n: int, x, xi=None, *, scale: float = 1.0,
     if err != 0:
         raise RuntimeError(f"real-stream kernel launch failed at n={n}, "
                            f"rows={rows}, mode={mode}: CUDA error {err}")
-    launches[_KERNEL[mode]] += 1
     if not lp.cluster and dst:
         yr[:, 1::2].neg_()
     if not lp.cluster and (scale != 1.0 or w0 != 1.0):
-        if mode == "rfft":
-            yr.mul_(scale)
-            yi.mul_(scale)
-        else:
-            if mode == "dct2" and w0 != 1.0:
-                yr[:, 0] *= w0
-            yr.mul_(scale)
+        with profiling.span("cfftpack.scale"):
+            if mode == "rfft":
+                yr.mul_(scale)
+                yi.mul_(scale)
+            else:
+                if mode == "dct2" and w0 != 1.0:
+                    yr[:, 0] *= w0
+                yr.mul_(scale)
     return (yr, yi) if mode == "rfft" else yr
 
 

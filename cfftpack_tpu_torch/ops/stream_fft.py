@@ -42,12 +42,12 @@ dispatch picks it: it is reached through its own functions only.
 On a CPU tensor every wrapper runs the plain PyTorch version
 (:func:`stream_plain`, built from ``core._stockham`` and a float32
 matmul; :func:`sfft_mm2_plain`, two float32 matmuls); on a CUDA tensor
-it launches the kernel or raises.  ``launches`` counts kernel launches
-per kernel.  Each wrapper is differentiable (``_adjoint``): its backward
-is the other direction on the same kernel (natural <-> permuted for K2
-and K11), and K4's is the filter with the conjugate spectrum, plus, for
-the filter, one forward transform of the input's and the cotangent's
-row pairs (K3, or K5 past the cap).
+it launches the kernel or raises, each C call counted by K-name in
+``utils.profiling.launches``.  Each wrapper is differentiable
+(``_adjoint``): its backward is the other direction on the same kernel
+(natural <-> permuted for K2 and K11), and K4's is the filter with the
+conjugate spectrum, plus, for the filter, one forward transform of the
+input's and the cotangent's row pairs (K3, or K5 past the cap).
 """
 from __future__ import annotations
 
@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import plan
+from ..utils import profiling
 from . import _adjoint, _build, core
 
 __all__ = ["stream_eligible", "stream_filter_eligible", "stream_plain",
@@ -87,7 +88,6 @@ _NAT_MODES = ("fwd_nat", "inv_nat")      # K3
 # filter; the value is the entry's conj flags (1 conjugates the load, 2
 # the store)
 _SPLIT_MODES = {"split": 0, "split_inv": 3, "split_conj": 2}
-launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0, "K11": 0}
 # K5's column pass at these m runs in register passes (the engine of
 # K1, csrc/regfft.cuh, compiled for them alone): lanes a block (1024
 # threads, 16 elements each); other m take the stage loop
@@ -206,12 +206,16 @@ def _split_twiddle(n: int, s: int):
 
 @functools.lru_cache(maxsize=64)
 def _device_outer(n: int, inverse: bool, device):
-    return tuple(torch.from_numpy(t).to(device) for t in _tables(n, inverse))
+    with profiling.planning():
+        return tuple(torch.from_numpy(t).to(device)
+                     for t in _tables(n, inverse))
 
 
 @functools.lru_cache(maxsize=16)
 def _device_split(n: int, s: int, device):
-    return tuple(torch.from_numpy(t).to(device) for t in _split_twiddle(n, s))
+    with profiling.planning():
+        return tuple(torch.from_numpy(t).to(device)
+                     for t in _split_twiddle(n, s))
 
 
 def _col_lanes(m: int) -> int:
@@ -343,6 +347,12 @@ def _launch_plan(n_in: int, inverse: bool, s: int, device) -> _LaunchPlan:
     lp = _PLANS.get(key)
     if lp is not None and lp.version == plan.VERSION:
         return lp
+    with profiling.planning():
+        lp = _PLANS[key] = _build_plan(n_in, inverse, s, device)
+    return lp
+
+
+def _build_plan(n_in: int, inverse: bool, s: int, device) -> _LaunchPlan:
     m = n_in // _N1
     t1r, t1i = _device_outer(n_in, inverse, device)
     ct = plan.device_tables(m, torch.float32, device)
@@ -374,10 +384,8 @@ def _launch_plan(n_in: int, inverse: bool, s: int, device) -> _LaunchPlan:
         rest = (spr.data_ptr(), spi.data_ptr(), s,
                 None if ptw is None else ptw.data_ptr(), rptw.data_ptr())
         keep += (spr, spi)
-    lp = _LaunchPlan(col, rest, _col_lanes(m).bit_length() - 1, keep,
-                     plan.VERSION, route, nat)
-    _PLANS[key] = lp
-    return lp
+    return _LaunchPlan(col, rest, _col_lanes(m).bit_length() - 1, keep,
+                       plan.VERSION, route, nat)
 
 
 def _check_dtype(xr, xi):
@@ -415,7 +423,8 @@ def _rows(xr, xi, n: int):
     only when they are not in it."""
     rs = _row_stride(xr, xi, xr.shape[0], n)
     if rs is None:
-        xr, xi, rs = xr.contiguous(), xi.contiguous(), n
+        with profiling.span("cfftpack.pack"):
+            xr, xi, rs = xr.contiguous(), xi.contiguous(), n
     return xr, xi, rs
 
 
@@ -454,7 +463,8 @@ def _split_launch(xr, xi, n: int, mode: str, fr, fi, scale: float, out):
     xr, xi, in_rs = _rows(xr, xi, n)
     fptr = (None, None)
     if fr is not None:
-        fr, fi = fr.contiguous(), fi.contiguous()
+        with profiling.span("cfftpack.pack"):
+            fr, fi = fr.contiguous(), fi.contiguous()
         fptr = (fr.data_ptr(), fi.data_ptr())
     n_in = n // s
     m = n_in // _N1
@@ -462,14 +472,13 @@ def _split_launch(xr, xi, n: int, mode: str, fr, fi, scale: float, out):
     si = torch.empty_like(sr)
     lp = _launch_plan(n_in, False, s, xr.device)
     err = _build.call(
-        _build.load().stream_split_f32, xr.device, xr.data_ptr(),
+        "K5", _build.load().stream_split_f32, xr.device, xr.data_ptr(),
         xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), sr.data_ptr(),
         si.data_ptr(), *lp.col, *lp.rest, *fptr, b, m, lp.lshift, in_rs,
         ys, scale, _SPLIT_MODES[mode])
     if err != 0:
         raise RuntimeError(f"K5 launch failed at n={n}, b={b}, mode={mode}: "
                            f"CUDA error {err}")
-    launches["K5"] += 1
     return out
 
 
@@ -492,7 +501,7 @@ def _nat_launch(xr, xi, n: int, inverse: bool, scale: float):
         si = torch.empty_like(sr)
         scratch = (sr.data_ptr(), si.data_ptr())
     err = _build.call(
-        _build.load().stream_nat_f32, xr.device, xr.data_ptr(),
+        "K3", _build.load().stream_nat_f32, xr.device, xr.data_ptr(),
         xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), *scratch, *lp.nat, b, m,
         int(inverse), arg if route == "cluster" else 0,
         arg.bit_length() - 1 if route == "stage" else 0,
@@ -501,10 +510,10 @@ def _nat_launch(xr, xi, n: int, inverse: bool, scale: float):
         raise RuntimeError(f"K3 launch failed at n={n}, b={b}, "
                            f"inverse={inverse}, route={route}: CUDA error "
                            f"{err}")
-    launches["K3"] += 1
     if route == "stage" and scale != 1.0:
-        yr.mul_(scale)
-        yi.mul_(scale)
+        with profiling.span("cfftpack.scale"):
+            yr.mul_(scale)
+            yi.mul_(scale)
     return yr, yi
 
 
@@ -541,14 +550,16 @@ def _launch(xr, xi, n: int, mode: str, fr=None, fi=None, *,
                 or fr.device != xr.device or fi.device != xr.device):
             raise ValueError(f"mode filter takes float32 (s, {m}, {_N1}) "
                              f"filter planes on {xr.device}")
-        fr = fr.contiguous()
-        fi = fi.contiguous()
+        with profiling.span("cfftpack.pack"):
+            fr = fr.contiguous()
+            fi = fi.contiguous()
         nfilt = fr.shape[0]
         fptr = (fr.data_ptr(), fi.data_ptr())
     if mode in ("fwd", "inv"):
         return _perm_launch(xr, xi, n, mode == "inv")
-    xr = xr.contiguous()
-    xi = xi.contiguous()
+    with profiling.span("cfftpack.pack"):
+        xr = xr.contiguous()
+        xi = xi.contiguous()
     if mode in _NAT_MODES:
         yr, yi = _nat_launch(xr.view(b, n), xi.view(b, n), n,
                              mode == "inv_nat", scale)
@@ -569,7 +580,8 @@ def _perm_launch(xr, xi, n: int, inverse: bool):
     dev = xr.device
     route, arg = _k2_route(m, inverse)
     if route == "stage" or inverse:
-        xr, xi, in_rs = xr.contiguous(), xi.contiguous(), n
+        with profiling.span("cfftpack.pack"):
+            xr, xi, in_rs = xr.contiguous(), xi.contiguous(), n
     else:
         in_rs = _row_stride(xr, xi, b, n)
         if in_rs is None:
@@ -593,14 +605,13 @@ def _perm_launch(xr, xi, n: int, inverse: bool):
         si = torch.empty_like(sr)
         scratch = (sr.data_ptr(), si.data_ptr())
     err = _build.call(
-        _build.load().stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
+        "K2", _build.load().stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
         yr.data_ptr(), yi.data_ptr(), *scratch, *tabs, None, None, 1, b, m,
         _MODES.index("inv" if inverse else "fwd"),
         arg if route == "cluster" else 0, lp.lshift, in_rs, n, 1.0)
     if err != 0:
         raise RuntimeError(f"K2 launch failed at n={n}, b={b}, inverse="
                            f"{inverse}, route={route}: CUDA error {err}")
-    launches["K2"] += 1
     return yr, yi
 
 
@@ -639,7 +650,7 @@ def _filter_launch(xr, xi, n: int, fptr, nfilt: int, scale: float, out):
     lib = _build.load()
     if m in _CLUSTER_M:
         err = _build.call(
-            lib.stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
+            "K4", lib.stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), None, None, *lp.nat,
             *fptr, nfilt, b, m, _MODES.index("filter"),
             _filter_cluster_size(m), 0, n, ys, scale)
@@ -650,21 +661,21 @@ def _filter_launch(xr, xi, n: int, fptr, nfilt: int, scale: float, out):
         sr = torch.empty_like(yr)
         si = torch.empty_like(yr)
         err = _build.call(
-            lib.stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
+            "K4", lib.stream_fft_f32, dev, xr.data_ptr(), xi.data_ptr(),
             yr.data_ptr(), yi.data_ptr(), sr.data_ptr(), si.data_ptr(),
             *lp.col, *lp.rest, None, None, *fptr, nfilt, b, m,
             _MODES.index("filter"), 0, lp.lshift, n, n, 1.0)
     if err != 0:
         raise RuntimeError(f"K4 launch failed at n={n}, b={b}: CUDA error "
                            f"{err}")
-    launches["K4"] += 1
     if yr is not None:
-        for dst, src in zip(out, (yr, yi)):
-            src = src.view(dst.shape)
-            if scale != 1.0:
-                torch.mul(src, scale, out=dst)
-            else:
-                dst.copy_(src)
+        with profiling.span("cfftpack.unpack"):
+            for dst, src in zip(out, (yr, yi)):
+                src = src.view(dst.shape)
+                if scale != 1.0:
+                    torch.mul(src, scale, out=dst)
+                else:
+                    dst.copy_(src)
     return out
 
 
@@ -914,8 +925,9 @@ def _mm2_launch(xr, xi, n: int, inverse: bool, natural: bool):
     if tuple(xr.shape[1:]) != (n,) or xi.shape != xr.shape:
         raise ValueError(f"K11 takes (b, {n}) planes, got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
-    xr = xr.contiguous()
-    xi = xi.contiguous()
+    with profiling.span("cfftpack.pack"):
+        xr = xr.contiguous()
+        xi = xi.contiguous()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     b = xr.shape[0]
@@ -928,18 +940,15 @@ def _mm2_launch(xr, xi, n: int, inverse: bool, natural: bool):
         si = torch.empty_like(xi)
         scratch = (sr.data_ptr(), si.data_ptr())
     tabs = _mm2_device_tables(n, inverse, xr.device)
-    lib = _build.load()
-    with torch.cuda.device(xr.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mm2_fft_f32(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            *scratch, *(t.data_ptr() for t in tabs), b, n // _N1,
-            int(inverse), int(natural), stream)
+    err = _build.call(
+        "K11", _build.load().mm2_fft_f32, xr.device, xr.data_ptr(),
+        xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), *scratch,
+        *(t.data_ptr() for t in tabs), b, n // _N1, int(inverse),
+        int(natural))
     if err != 0:
         raise RuntimeError(f"K11 launch failed at n={n}, b={b}, "
                            f"inverse={inverse}, natural={natural}: CUDA "
                            f"error {err}")
-    launches["K11"] += 1
     return yr, yi
 
 

@@ -22,6 +22,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .utils import profiling
+
 # Largest prime factor handled by a direct in-line DFT stage; beyond it
 # Bluestein's chirp-z algorithm runs.
 MAX_DIRECT_RADIX = 32
@@ -370,9 +372,10 @@ def device_tables(n: int, dtype: torch.dtype, device, source: dict | None
         hit = _DEVICE_TABLES.get(key)
         if hit is not None:
             return hit
-        source = host_tables(n)
     elif key in _DEVICE_TABLES:
         VERSION += 1
-    tables = _build(n, source, dtype, device)
+    with profiling.planning():
+        tables = _build(n, host_tables(n) if source is None else source,
+                        dtype, device)
     _DEVICE_TABLES[key] = tables
     return tables

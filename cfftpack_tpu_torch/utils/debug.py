@@ -5,7 +5,9 @@ offending op under ``jax_debug_nans``; here :func:`enable_nan_checks`
 sets a package flag under which the public transforms run
 :func:`check_finite` on their result at the API layer's one exit
 (:func:`api_exit`, around every name that ``ops`` and ``parallel``
-export), so the check costs one flag test a call when it is off.
+export), so the check costs one flag test a call when it is off.  The
+same exit puts each such call in the span ``cfftpack.<name>``
+(``utils.profiling.span``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import functools
 import torch
 
 from .. import config
+from . import profiling
 
 __all__ = ["enable_nan_checks", "check_finite", "api_exit"]
 
@@ -39,14 +42,18 @@ def check_finite(*tensors, name: str = "array"):
 
 
 def api_exit(fn):
-    """``fn`` with its tensor results passed to :func:`check_finite`
-    while NaN checks are on."""
+    """``fn`` inside the span ``cfftpack.<its name>``, with its tensor
+    results passed to :func:`check_finite` while NaN checks are on."""
+    name = "cfftpack." + fn.__name__
+
     @functools.wraps(fn)
     def entry(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        if config.NAN_CHECKS:
-            outs = out if isinstance(out, tuple) else (out,)
-            check_finite(*(t for t in outs if isinstance(t, torch.Tensor)),
-                         name=fn.__name__)
+        with profiling.span(name):
+            out = fn(*args, **kwargs)
+            if config.NAN_CHECKS:
+                outs = out if isinstance(out, tuple) else (out,)
+                check_finite(*(t for t in outs
+                               if isinstance(t, torch.Tensor)),
+                             name=fn.__name__)
         return out
     return entry

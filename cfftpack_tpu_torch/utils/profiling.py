@@ -3,6 +3,29 @@
 Counterpart of ``cfftpack_tpu/utils/profiling.py``: a ``torch.profiler``
 trace (CPU and, on a card, CUDA activity) exported as a Chrome trace,
 and a block timer that times CUDA work on CUDA events.
+
+The port's own instrumentation lives here too.  :func:`span` marks a
+step of the program with ``torch.profiler.record_function`` while a
+profiler records, so the step's host time and the kernels it launches
+land in the same trace as CUPTI's kernels, on one clock; otherwise it
+costs one flag test.  The names are fixed (metrics read them):
+
+* ``cfftpack.<name>``: every public transform (``utils.debug.api_exit``)
+  and ``cfftpack.step`` (``entry.step``);
+* the leaf steps of a call, which do not overlap: ``cfftpack.pack``
+  (copies into a kernel's row layout), ``cfftpack.merge`` (the packed
+  real spectrum's merge and unmerge), ``cfftpack.scale`` (a norm's
+  multiply no kernel store takes), ``cfftpack.filter`` (the step's
+  multiply), ``cfftpack.unpack`` (copies out of split planes), and
+  ``cfftpack.K1`` .. ``cfftpack.K11`` (and ``cfftpack.cgemm``) around
+  each C call (``ops._build.call``);
+* ``cfftpack.adjoint``: a kernel's backward (``ops._adjoint``);
+* ``cfftpack.plan``: a cache miss that builds device tables or a launch
+  plan (:func:`planning`).
+
+The launch registry: :data:`launches` counts each C entry's successful
+calls by K-name (``ops._build.call``), :data:`plans` the builds under
+``cfftpack.plan``; :func:`counts` reads both, :func:`reset` zeroes them.
 """
 from __future__ import annotations
 
@@ -13,7 +36,48 @@ import time
 
 import torch
 
-__all__ = ["trace", "Timer"]
+__all__ = ["trace", "Timer", "span", "planning", "counts", "reset",
+           "launches", "KERNELS"]
+
+# The C entries' names in the registry: the eleven kernels, and the
+# tensor-core product's own entry (``cgemm_f32``, called by the smoke).
+KERNELS = tuple(f"K{i}" for i in range(1, 12)) + ("cgemm",)
+launches: dict = dict.fromkeys(KERNELS, 0)
+plans = 0
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The span ``name`` around a ``with`` block: a
+    ``torch.profiler.record_function`` while a profiler records on this
+    thread (autograd's device thread inherits the caller's state), else
+    one shared do-nothing context, so that off it makes no object and
+    launches nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def planning():
+    """The span ``cfftpack.plan`` around a cache miss that builds device
+    tables or a launch plan; the build is counted in :data:`plans`."""
+    global plans
+    plans += 1
+    return span("cfftpack.plan")
+
+
+def counts() -> dict:
+    """Launches by K-name, and ``plans``: the builds under
+    ``cfftpack.plan``."""
+    return {**launches, "plans": plans}
+
+
+def reset() -> None:
+    """Every count of the registry back to 0."""
+    global plans
+    for k in launches:
+        launches[k] = 0
+    plans = 0
 
 
 @contextlib.contextmanager

@@ -87,6 +87,7 @@ from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
 from cfftpack_tpu_torch.ops import _adjoint, _build, colfft, core
 from cfftpack_tpu_torch.ops import fourstep_fft, fused_fft, rstream, stream_fft
+from cfftpack_tpu_torch.utils import profiling
 
 # the modules, not the functions of the same names that ops exports
 rfft_ops = importlib.import_module("cfftpack_tpu_torch.ops.rfft")
@@ -329,26 +330,13 @@ def col_lanes(n0: int, lanes: int, csize: int):
         colfft._PLANS.clear()
 
 
-def counts() -> dict:
-    return {"K1": fused_fft.launches, "K10": fourstep_fft.launches,
-            **stream_fft.launches, **rstream.launches, **colfft.launches}
-
-
-def zero_counts() -> None:
-    fused_fft.launches = 0
-    fourstep_fft.launches = 0
-    for d in (stream_fft.launches, rstream.launches, colfft.launches):
-        for k in d:
-            d[k] = 0
-
-
 def drive(fn, total: dict):
     """Run one main path with the counts set to 0 just before it; return
     its result and its launches, which are added to ``total``."""
-    zero_counts()
+    profiling.reset()
     out = fn()
     torch.cuda.synchronize()
-    got = counts()
+    got = dict(profiling.launches)
     for k in KERNELS:
         total[k] += got[k]
     return out, got
@@ -421,10 +409,11 @@ def profile_route(name: str, fn, card: str, calls: int = 10) -> dict:
             torch.cuda.synchronize()
         rows, count, per_call = {}, {}, 0
         for k in prof.key_averages():
-            # NCCL's ranges on the device timeline ("nccl:...") span the
-            # kernels or copies the collective issues: not kernel rows
+            # NCCL's ranges on the device timeline ("nccl:...") and the
+            # port's spans there ("cfftpack.*", utils.profiling) span the
+            # kernels or copies they issue: not kernel rows
             if (k.device_type == torch.autograd.DeviceType.CUDA
-                    and not k.key.startswith("nccl:")):
+                    and not k.key.startswith(("nccl:", "cfftpack."))):
                 t = getattr(k, "self_device_time_total", None)
                 if t is None:
                     t = k.self_cuda_time_total
@@ -505,12 +494,12 @@ def product_alone(lib, M: int, N: int, K: int, batch: int, case: str):
         return (0 if v.shape[0] == 1 else v.stride(0), v.stride(1),
                 v.stride(2))
 
-    err = lib.cgemm_f32(
-        Ar.data_ptr(), Ai.data_ptr(), *strides(Ar), Br.data_ptr(),
-        Bi.data_ptr(), *strides(Br), Cr.data_ptr(), Ci.data_ptr(),
-        *Cr.stride(), *((None, None) if tw is None
-                        else (tw[0].data_ptr(), tw[1].data_ptr())),
-        M, N, K, batch, torch.cuda.current_stream().cuda_stream)
+    err = _build.call(
+        "cgemm", lib.cgemm_f32, Ar.device, Ar.data_ptr(), Ai.data_ptr(),
+        *strides(Ar), Br.data_ptr(), Bi.data_ptr(), *strides(Br),
+        Cr.data_ptr(), Ci.data_ptr(), *Cr.stride(),
+        *((None, None) if tw is None
+          else (tw[0].data_ptr(), tw[1].data_ptr())), M, N, K, batch)
     if err != 0:
         raise RuntimeError(f"cgemm_f32 failed: CUDA error {err}")
     torch.cuda.synchronize()
@@ -733,7 +722,7 @@ def phase_compat(total: dict, card: str) -> None:
 
     print("phase 32: compat families on the golden inputs, on the card")
     t0 = time.perf_counter()
-    zero_counts()
+    profiling.reset()
     for fam in COMPAT_FAMILIES:
         sizes = sorted(int(k.split("_")[-1]) for k in gold.files
                        if k.startswith(f"{fam}_in_"))
@@ -783,7 +772,7 @@ def phase_compat(total: dict, card: str) -> None:
             err = float((cc.gdft_inverse(f, y) - x).abs().max())
             check(err <= golden_tol(n), f"gdft round trip {key} {err:.2e}")
     torch.cuda.synchronize()
-    got = counts()
+    got = dict(profiling.launches)
     for k in KERNELS:
         total[k] += got[k]
     check(got["K1"] > 0, f"K1 launched by the golden families ({got}); "
@@ -1882,9 +1871,9 @@ def main() -> None:
             for mode, sc in (("fwd_nat", 0.5), ("inv_nat", 0.25)):
                 shape = (b, 128, m) if mode == "inv_nat" else (b, m, 128)
                 xr, xi = pair(shape, torch.float32, seed=m + b)
-                before = stream_fft.launches["K3"]
+                before = profiling.launches["K3"]
                 yr, yi = stream_fft._launch(xr, xi, n, mode, scale=sc)
-                check(stream_fft.launches["K3"] == before + 1,
+                check(profiling.launches["K3"] == before + 1,
                       "K3 counts one launch a call")
                 pr, pi = stream_fft.stream_plain(xr, xi, n, mode, scale=sc)
                 torch.cuda.synchronize()
@@ -1911,9 +1900,9 @@ def main() -> None:
                                          ("fwd", pairs, "paired rows"),
                                          ("inv", flat, "planes")):
                 route = stream_fft._k2_route(m, mode == "inv")
-                before = stream_fft.launches["K2"]
+                before = profiling.launches["K2"]
                 yr, yi = stream_fft._launch(xr, xi, n, mode)
-                check(stream_fft.launches["K2"] == before + 1,
+                check(profiling.launches["K2"] == before + 1,
                       "K2 counts one launch a call")
                 pr, pi = stream_fft.stream_plain(xr, xi, n, mode)
                 torch.cuda.synchronize()
@@ -1939,10 +1928,10 @@ def main() -> None:
                 xr, xi = pair((b, m, 128), torch.float32, seed=m + b + s)
                 fr, fi = pair((s, m, 128), torch.float32, seed=m + s)
                 out = torch.full((b, 2, n), float("nan"), device=DEV)
-                before = stream_fft.launches["K4"]
+                before = profiling.launches["K4"]
                 stream_fft._launch(xr, xi, n, "filter", fr, fi, scale=0.5,
                                    out=(out[:, 0], out[:, 1]))
-                check(stream_fft.launches["K4"] == before + 1,
+                check(profiling.launches["K4"] == before + 1,
                       "K4 counts one launch a call")
                 pr, pi = stream_fft.stream_plain(xr, xi, n, "filter", fr, fi,
                                                  scale=0.5)

@@ -30,6 +30,7 @@ from cfftpack_tpu_torch import plan
 from cfftpack_tpu_torch.config import VALID_NORMS, fwd_scale, inv_scale
 from cfftpack_tpu_torch.ops import fused_fft, rstream as rs
 from cfftpack_tpu_torch.ops import stream_fft as sf
+from cfftpack_tpu_torch.utils import profiling
 
 from torch_parity import complex_input, real_input, to_np
 
@@ -436,10 +437,11 @@ def entry(monkeypatch):
         return 0
 
     monkeypatch.setattr(sf, "_check_device", lambda *a: None)
-    monkeypatch.setattr(sf, "launches", dict(sf.launches))
+    monkeypatch.setattr(profiling, "launches", dict(profiling.launches))
     monkeypatch.setattr(sf._build, "load",
                         lambda: types.SimpleNamespace(stream_fft_f32=record))
-    monkeypatch.setattr(sf._build, "call", lambda fn, dev, *a: fn(*a, None))
+    monkeypatch.setattr(sf._build, "_enter",
+                        lambda fn, dev, args: fn(*args, None))
     return calls
 
 
@@ -470,7 +472,7 @@ def test_sfilter_stream_hands_k2_the_paired_rows(monkeypatch, entry):
     assert fwd[:2] == (pr, pi) and fwd[-7] == sf._MODES.index("fwd")
     assert fwd[-6] == sf._cluster_size(512) and fwd[-4] == 2 * n
     assert filt[-7] == sf._MODES.index("filter") and filt[-3] == 2 * n
-    assert sf.launches["K2"] == sf.launches["K4"] == 1
+    assert profiling.launches["K2"] == profiling.launches["K4"] == 1
 
 
 def test_sfilter_stream_copies_only_rows_k2_cannot_read(monkeypatch, entry):
@@ -494,7 +496,7 @@ def test_sfilter_stream_copies_only_rows_k2_cannot_read(monkeypatch, entry):
     assert fwd[-7] == sf._MODES.index("fwd") and fwd[-4] == n
     assert fwd[0] != x.data_ptr()
     assert filt[-7] == sf._MODES.index("filter") and filt[-3] == 2 * n
-    assert sf.launches["K2"] == sf.launches["K4"] == 1
+    assert profiling.launches["K2"] == profiling.launches["K4"] == 1
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -940,9 +942,9 @@ def test_k3_routes_match_plain_on_card(m):
         c = complex_input(shape, np.complex64, seed=m)
         xr = torch.as_tensor(c.real.copy(), device="cuda")
         xi = torch.as_tensor(c.imag.copy(), device="cuda")
-        before = sf.launches["K3"]
+        before = profiling.launches["K3"]
         yr, yi = sf._launch(xr, xi, n, mode, scale=scale)
-        assert sf.launches["K3"] == before + 1
+        assert profiling.launches["K3"] == before + 1
         pr, pi = sf.stream_plain(xr, xi, n, mode, scale=scale)
         torch.cuda.synchronize()
         assert _err(to_np(yr) + 1j * to_np(yi),
@@ -966,9 +968,9 @@ def test_k2_routes_match_plain_on_card(m):
     pairs = (rows[:, 0].reshape(b, m, 128), rows[:, 1].reshape(b, m, 128))
     flat = tuple(v.contiguous() for v in pairs)
     for mode, (xr, xi) in (("fwd", flat), ("fwd", pairs), ("inv", flat)):
-        before = sf.launches["K2"]
+        before = profiling.launches["K2"]
         yr, yi = sf._launch(xr, xi, n, mode)
-        assert sf.launches["K2"] == before + 1
+        assert profiling.launches["K2"] == before + 1
         pr, pi = sf.stream_plain(xr, xi, n, mode)
         torch.cuda.synchronize()
         assert _err(to_np(yr) + 1j * to_np(yi),
@@ -987,11 +989,11 @@ def test_rfilter_split_along_axis_0_on_card():
     F = complex_input((n // 2 + 1,), np.complex64, seed=17)
     F.imag[[0, -1]] = 0.0
     fr, fi = torch.as_tensor(F.real.copy()), torch.as_tensor(F.imag.copy())
-    before = (sf.launches["K2"], sf.launches["K4"])
+    before = (profiling.launches["K2"], profiling.launches["K4"])
     got = pt.rfilter_split(x.cuda(), fr.cuda(), fi.cuda(), axis=0)
     torch.cuda.synchronize()
-    assert (sf.launches["K2"], sf.launches["K4"]) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert (profiling.launches["K2"], profiling.launches["K4"]) == (
+        before[0] + 1, before[1] + 1)
     want = pt.rfilter_split(x, fr, fi, axis=0)
     assert tuple(got.shape) == (n, 64)
     assert _err(to_np(got), to_np(want)) < 1e-5
@@ -1035,12 +1037,12 @@ def test_k4_matches_plain_on_card(m):
         f = complex_input((s, m, 128), np.complex64, seed=m + s + 1)
         xr, xi, fr, fi = (torch.as_tensor(v.copy(), device="cuda") for v in
                           (c.real, c.imag, f.real, f.imag))
-        before = sf.launches["K4"]
+        before = profiling.launches["K4"]
         out = torch.full((b, 2, n), float("nan"), device="cuda")
         sf._launch(xr, xi, n, "filter", fr, fi, scale=0.5,
                    out=(out[:, 0], out[:, 1]))
         yr, yi = sf._launch(xr, xi, n, "filter", fr, fi)
-        assert sf.launches["K4"] == before + 2
+        assert profiling.launches["K4"] == before + 2
         pr, pi = sf.stream_plain(xr, xi, n, "filter", fr, fi)
         torch.cuda.synchronize()
         want = to_np(pr) + 1j * to_np(pi)

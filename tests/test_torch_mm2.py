@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import cfftpack_tpu.ops.pallas_stream as ps
 
 from cfftpack_tpu_torch.ops import stream_fft as sf
+from cfftpack_tpu_torch.utils import profiling
 
 from torch_parity import complex_input, to_np
 
@@ -141,14 +142,14 @@ def test_contract_any_leading_shape_and_batch():
 
 def test_launch_refuses_what_the_kernel_does_not_take():
     x = torch.zeros((2, 2048))
-    before = dict(sf.launches)
+    before = dict(profiling.launches)
     with pytest.raises(ValueError, match="CUDA"):
         sf._mm2_launch(x, x, 2048, False, True)                # CPU tensor
     meta = torch.empty((2, 2048), device="meta")
     for fn in (sf.sfft_mm2, sf.sfft_mm2_permuted):
         with pytest.raises(ValueError, match="CUDA"):
             fn(meta, meta, 2048, False)                        # no fallback
-    assert sf.launches == before and "K11" in before
+    assert profiling.launches == before and "K11" in before
 
 
 @pytest.mark.cuda
