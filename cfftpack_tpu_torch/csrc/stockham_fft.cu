@@ -40,8 +40,24 @@
 //   memory, read through the cache.
 //
 // The grid is ceil(B / T); the last block masks the ragged batch.  The
-// host picks the kernel by length alone.  Left for later: fusing the rfft
-// merge tables or the filter FMA into the epilogue.
+// host picks the kernel by length alone.
+//
+// The real modes (C entries k1_real_f32/f64) are two more IO policies of
+// k1_reg_kernel at the half length h = n/2 of a real transform, one launch
+// where the real route ran K1 between strided copies, a packed merge or
+// unmerge, a scale and an interleave.  r2c (K1RealFwdIO) reads the real
+// row as h complex pairs x[2e] + i x[2e+1], runs the forward passes, and
+// leaves the last in shared memory, where an epilogue writes the h + 1
+// packed bins as a 4-term table FMA over Z[k] and its mirror Z[h - k].
+// c2r (K1RealInvIO) starts with a prologue that reads bins k and h - k of
+// the packed planes and writes the unmerge table FMA over them into
+// shared memory, runs the inverse passes, and stores each z_e as the
+// interleaved pair (x[2e], x[2e+1]).  A thread takes a bin and its mirror
+// for every row of the block, so a block reads each table row once.
+// Both take their coefficients as one float64-built table of 8 per bin
+// (ops/fused_fft.py) and the scale in the store, so a table set and its
+// transpose give a mode and its adjoint.  Left for later: the filter FMA
+// of a conv step.
 #include <cuda_runtime.h>
 
 #include "butterfly.cuh"
@@ -52,6 +68,8 @@
 #define K1_MAX_DEVICES 64
 // elements a thread holds in a register pass
 #define K1_ELEMS 16
+// rows a block of a real mode (the c2r prologue holds them all at once)
+#define K1_REAL_MAX_TB 4
 
 struct StagePlan {
   int nstages;
@@ -223,10 +241,40 @@ __global__ void __launch_bounds__(K1_MAX_THREADS)
   }
 }
 
-// K1's IO in a register pass: row `row` of the planes, held in shared
-// memory at sr, si with a pad word after every 16.
 template <typename T>
+__host__ __device__ constexpr int k1_reg_threads() {
+  return sizeof(T) == 4 ? 512 : 256;
+}
+
+// The padded row of a register schedule, in elements.
+template <int N>
+__host__ __device__ constexpr int k1_reg_row() {
+  return N + (N >> 4);
+}
+
+// Where an IO of a register launch finds its data: the kernel's pointers
+// (inputs a0, a1, outputs b0, b1, a mode's table), the block's shared
+// rows s (row r's planes at s + r*RS and s + (tb + r)*RS), the block's
+// first row row0 of B, and this thread's row rl of the block.
+template <typename T>
+struct K1Block {
+  const T* a0;
+  const T* a1;
+  T* b0;
+  T* b1;
+  const T* tab;
+  T* s;
+  int tb, rl, B;
+  long long row0;
+  T scale;
+};
+
+// K1's IO in a register pass (the complex mode): row `row` of the planes
+// (a0, a1) -> (b0, b1), held in shared memory at sr, si with a pad word
+// after every 16.
+template <typename T, int N>
 struct K1RowIO {
+  static constexpr bool first_in_smem = false;
   static constexpr bool last_in_smem = false;
   const T* __restrict__ xr;
   const T* __restrict__ xi;
@@ -237,6 +285,11 @@ struct K1RowIO {
   long long g0;
   bool active;
   T scale;
+  static __device__ __forceinline__ K1RowIO at(const K1Block<T>& k) {
+    constexpr int RS = k1_reg_row<N>();
+    return {k.a0, k.a1, k.b0, k.b1, k.s + k.rl * RS, k.s + (k.tb + k.rl) * RS,
+            (k.row0 + k.rl) * N, k.row0 + k.rl < k.B, k.scale};
+  }
   __device__ __forceinline__ int sidx(int e) const { return e + (e >> 4); }
   __device__ __forceinline__ void gload(int e, T& vr, T& vi) const {
     vr = active ? xr[g0 + e] : T(0);
@@ -250,36 +303,213 @@ struct K1RowIO {
   }
 };
 
-template <typename T>
-__host__ __device__ constexpr int k1_reg_threads() {
-  return sizeof(T) == 4 ? 512 : 256;
+// Row k of a real mode's coefficient table (bins, 8): two 16-byte loads
+// in float32, four in float64.
+__device__ __forceinline__ void k1_coeffs(const float* __restrict__ tab,
+                                          int k, float* c) {
+  const float4* p = reinterpret_cast<const float4*>(tab) + 2 * k;
+  const float4 u = __ldg(p), v = __ldg(p + 1);
+  c[0] = u.x;
+  c[1] = u.y;
+  c[2] = u.z;
+  c[3] = u.w;
+  c[4] = v.x;
+  c[5] = v.y;
+  c[6] = v.z;
+  c[7] = v.w;
 }
 
-// The padded row of a register schedule, in elements.
-template <int N>
-__host__ __device__ constexpr int k1_reg_row() {
-  return N + (N >> 4);
+__device__ __forceinline__ void k1_coeffs(const double* __restrict__ tab,
+                                          int k, double* c) {
+  const double2* p = reinterpret_cast<const double2*>(tab) + 4 * k;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double2 u = __ldg(p + i);
+    c[2 * i] = u.x;
+    c[2 * i + 1] = u.y;
+  }
 }
+
+// The real modes pair bin p with its mirror N - p, p = 0 .. N/2: both
+// read Z (or y) at p and N - p, so one thread takes both, for every row
+// of the block (a table row is read once a block).
+
+// The r2c mode's IO, N = n/2: the first pass reads real row `row` of a0
+// (2N values) as N complex pairs z_e = x[2e] + i x[2e+1], one 8-byte load
+// a pair (16 in float64); the last pass leaves Z = DFT_N(z) in shared
+// memory, and the epilogue writes bins k = 0 .. N of the packed spectrum
+// into rows of N + 1 of b0, b1:
+//   yr[k] = scale * (c0 Zr + c1 Zi + c2 Zmr + c3 Zmi),
+//   yi[k] = scale * (c4 Zr + c5 Zi + c6 Zmr + c7 Zmi),
+// Z = Z[k % N], Zm = Z[(N - k) % N], c row k of the table (N + 1 rows).
+// Bins 0 and N read Z[0] twice and have rows of their own, so DC and
+// Nyquist need no branch; with their c4..c7 zero, imag is an exact zero.
+template <typename T, int N>
+struct K1RealFwdIO {
+  using T2 = typename RfVec<T>::type;
+  static constexpr bool first_in_smem = false;
+  static constexpr bool last_in_smem = true;
+  static constexpr int RS = k1_reg_row<N>();
+  const T2* __restrict__ x;
+  T* __restrict__ yr;
+  T* __restrict__ yi;
+  const T* __restrict__ tab;
+  T* sr;
+  T* si;
+  T* s;
+  int tb, rows;
+  bool active;
+  T scale;
+  static __device__ __forceinline__ K1RealFwdIO at(const K1Block<T>& k) {
+    const long long row = k.row0 + k.rl;
+    return {reinterpret_cast<const T2*>(k.a0) + row * N,
+            k.b0 + k.row0 * (N + 1), k.b1 + k.row0 * (N + 1), k.tab,
+            k.s + k.rl * RS, k.s + (k.tb + k.rl) * RS, k.s, k.tb,
+            (int)min((long long)k.tb, k.B - k.row0), row < k.B, k.scale};
+  }
+  __device__ __forceinline__ int sidx(int e) const { return e + (e >> 4); }
+  __device__ __forceinline__ void gload(int e, T& vr, T& vi) const {
+    if (active) {
+      const T2 v = x[e];
+      vr = v.x;
+      vi = v.y;
+    } else {
+      vr = vi = T(0);
+    }
+  }
+  // Bins p and N - p of every row of the block.
+  __device__ __forceinline__ void epilogue() const {
+    for (int p = threadIdx.x; 2 * p <= N; p += blockDim.x) {
+      const int q = N - p;
+      const int a = sidx(p), m = sidx(q % N);
+      T c[8], d[8];
+      k1_coeffs(tab, p, c);
+      k1_coeffs(tab, q, d);
+      for (int r = 0; r < rows; ++r) {
+        const T* pr = s + r * RS;
+        const T* pi = s + (tb + r) * RS;
+        const T zr = pr[a], zi = pi[a], mr = pr[m], mi = pi[m];
+        T* outr = yr + r * (N + 1);
+        T* outi = yi + r * (N + 1);
+        outr[p] = scale * (c[0] * zr + c[1] * zi + c[2] * mr + c[3] * mi);
+        outi[p] = scale * (c[4] * zr + c[5] * zi + c[6] * mr + c[7] * mi);
+        if (q != p) {
+          outr[q] = scale * (d[0] * mr + d[1] * mi + d[2] * zr + d[3] * zi);
+          outi[q] = scale * (d[4] * mr + d[5] * mi + d[6] * zr + d[7] * zi);
+        }
+      }
+    }
+  }
+};
+
+// The c2r mode's IO, N = n/2: a prologue reads the packed planes a0, a1
+// (rows of N + 1) of every row of the block, a thread the pair of bins
+// (p, N - p) of each row (both reads coalesced, one ascending and one
+// descending; the table rows read once a block), and writes into the
+// rows' shared planes
+//   Zr[e] = c0 yr[e] + c1 yi[e] + c2 yr[N - e] + c3 yi[N - e],
+//   Zi[e] = c4 yr[e] + c5 yi[e] + c6 yr[N - e] + c7 yi[N - e]
+// for e = p and N - p, c row e of the table (N rows).  The first pass
+// reads Z there, and the last writes z = IDFT_N(Z) into real row `row` of
+// b0 (2N values) as x[2e] = scale Re z_e, x[2e+1] = scale Im z_e, one
+// 8-byte store a pair (16 in float64).
+template <typename T, int N>
+struct K1RealInvIO {
+  using T2 = typename RfVec<T>::type;
+  static constexpr bool first_in_smem = true;
+  static constexpr bool last_in_smem = false;
+  static constexpr int RS = k1_reg_row<N>();
+  const T* __restrict__ yr;
+  const T* __restrict__ yi;
+  T2* __restrict__ x;
+  const T* __restrict__ tab;
+  T* sr;
+  T* si;
+  T* s;
+  int tb, rows;
+  bool active;
+  T scale;
+  static __device__ __forceinline__ K1RealInvIO at(const K1Block<T>& k) {
+    const long long row = k.row0 + k.rl;
+    return {k.a0 + k.row0 * (N + 1), k.a1 + k.row0 * (N + 1),
+            reinterpret_cast<T2*>(k.b0) + row * N, k.tab, k.s + k.rl * RS,
+            k.s + (k.tb + k.rl) * RS, k.s, k.tb,
+            (int)min((long long)k.tb, k.B - k.row0), row < k.B, k.scale};
+  }
+  __device__ __forceinline__ int sidx(int e) const { return e + (e >> 4); }
+  __device__ __forceinline__ void prologue() const {
+    for (int p = threadIdx.x; 2 * p <= N; p += blockDim.x) {
+      const int q = N - p;
+      T ar[K1_REAL_MAX_TB], ai[K1_REAL_MAX_TB];
+      T mr[K1_REAL_MAX_TB], mi[K1_REAL_MAX_TB];
+#pragma unroll
+      for (int r = 0; r < K1_REAL_MAX_TB; ++r) {
+        if (r < rows) {
+          ar[r] = yr[r * (N + 1) + p];
+          ai[r] = yi[r * (N + 1) + p];
+          mr[r] = yr[r * (N + 1) + q];
+          mi[r] = yi[r * (N + 1) + q];
+        }
+      }
+      T c[8];
+      k1_coeffs(tab, p, c);
+#pragma unroll
+      for (int r = 0; r < K1_REAL_MAX_TB; ++r) {
+        if (r < rows) {
+          s[r * RS + sidx(p)] =
+              c[0] * ar[r] + c[1] * ai[r] + c[2] * mr[r] + c[3] * mi[r];
+          s[(tb + r) * RS + sidx(p)] =
+              c[4] * ar[r] + c[5] * ai[r] + c[6] * mr[r] + c[7] * mi[r];
+        }
+      }
+      if (p > 0 && q != p) {
+        k1_coeffs(tab, q, c);
+#pragma unroll
+        for (int r = 0; r < K1_REAL_MAX_TB; ++r) {
+          if (r < rows) {
+            s[r * RS + sidx(q)] =
+                c[0] * mr[r] + c[1] * mi[r] + c[2] * ar[r] + c[3] * ai[r];
+            s[(tb + r) * RS + sidx(q)] =
+                c[4] * mr[r] + c[5] * mi[r] + c[6] * ar[r] + c[7] * ai[r];
+          }
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void gstore(int e, T vr, T vi) const {
+    if (active) {
+      T2 v;
+      v.x = scale * vr;
+      v.y = scale * vi;
+      x[e] = v;
+    }
+  }
+};
 
 // Rows [blockIdx.x * tb, + tb): thread tid of row rl runs its part of
-// every pass.
-template <typename T, int N, class... Ps>
+// every pass through the mode's IO; an IO whose first pass reads shared
+// memory has its prologue run before it, one that leaves the last pass
+// there its epilogue after it.
+template <typename T, int N, class IO, class... Ps>
 __global__ void __launch_bounds__(k1_reg_threads<T>())
-    k1_reg_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                  T* __restrict__ yr, T* __restrict__ yi,
-                  const T* __restrict__ ptw, int B, int tb, int inverse,
-                  T scale) {
+    k1_reg_kernel(const T* __restrict__ a0, const T* __restrict__ a1,
+                  T* __restrict__ b0, T* __restrict__ b1,
+                  const T* __restrict__ tab, const T* __restrict__ ptw,
+                  int B, int tb, int inverse, T scale) {
   extern __shared__ __align__(16) unsigned char k1_reg_smem[];
   constexpr int TPR = (N + K1_ELEMS - 1) / K1_ELEMS;
-  constexpr int RS = k1_reg_row<N>();
   T* s = reinterpret_cast<T*>(k1_reg_smem);
   const int rl = threadIdx.x / TPR;
   const int tid = threadIdx.x - rl * TPR;
-  const long long row = (long long)blockIdx.x * tb + rl;
-  const K1RowIO<T> io{xr, xi, yr, yi, s + rl * RS, s + (tb + rl) * RS,
-                      row * N, row < B, scale};
-  rf_chain<T, N, TPR, 1, 0, true, K1RowIO<T>, Ps...>(
+  const IO io = IO::at(K1Block<T>{a0, a1, b0, b1, tab, s, tb, rl, B,
+                                  (long long)blockIdx.x * tb, scale});
+  if constexpr (IO::first_in_smem) {
+    io.prologue();
+    __syncthreads();
+  }
+  rf_chain<T, N, TPR, 1, 0, !IO::first_in_smem, IO, Ps...>(
       io, tid, ptw, inverse ? T(1) : T(-1));
+  if constexpr (IO::last_in_smem) io.epilogue();
 }
 
 static bool k1_ready[2][K1_MAX_DEVICES];
@@ -301,15 +531,17 @@ static cudaError_t k1_allow_smem(Kernel kernel, bool* done) {
   return cudaSuccess;
 }
 
+// A register launch: inputs a0, a1, outputs b0, b1 and the table as the
+// mode's IO reads them.
 struct K1Args {
-  const void *xr, *xi;
-  void *yr, *yi;
-  const void* ptw;
+  const void *a0, *a1;
+  void *b0, *b1;
+  const void *tab, *ptw;
   int B, tb, threads, inverse;
   double scale;
 };
 
-template <typename T, int N, class... Ps>
+template <typename T, int N, template <typename, int> class IO, class... Ps>
 static int k1_reg_launch(const K1Args& a, int nstages, const int* factors,
                          int npass, const int* pass_len,
                          cudaStream_t stream) {
@@ -320,45 +552,50 @@ static int k1_reg_launch(const K1Args& a, int nstages, const int* factors,
     return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)a.tb * k1_reg_row<N>() * sizeof(T);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = k1_allow_smem(k1_reg_kernel<T, N, Ps...>, ready);
+  cudaError_t err = k1_allow_smem(k1_reg_kernel<T, N, IO<T, N>, Ps...>,
+                                  ready);
   if (err != cudaSuccess) return (int)err;
   const int grid = (a.B + a.tb - 1) / a.tb;
-  k1_reg_kernel<T, N, Ps...><<<grid, a.threads, smem, stream>>>(
-      (const T*)a.xr, (const T*)a.xi, (T*)a.yr, (T*)a.yi, (const T*)a.ptw,
-      a.B, a.tb, a.inverse, (T)a.scale);
+  k1_reg_kernel<T, N, IO<T, N>, Ps...><<<grid, a.threads, smem, stream>>>(
+      (const T*)a.a0, (const T*)a.a1, (T*)a.b0, (T*)a.b1, (const T*)a.tab,
+      (const T*)a.ptw, a.B, a.tb, a.inverse, (T)a.scale);
   return (int)cudaGetLastError();
 }
 
 // The compiled register schedules: plan.factor(n) grouped greedily into
-// passes of radix at most 16 (plan.reg_passes).
-template <typename T>
+// passes of radix at most 16 (plan.reg_passes), each for the IO of a mode.
+template <typename T, template <typename, int> class IO>
 static int k1_reg_dispatch(const K1Args& a, int n, int nstages,
                            const int* factors, int npass, const int* pass_len,
                            cudaStream_t st) {
   switch (n) {
     case 480:
-      return k1_reg_launch<T, 480, RfPass<4, 4>, RfPass<2, 3>, RfPass<5>>(
-          a, nstages, factors, npass, pass_len, st);
+      return k1_reg_launch<T, 480, IO, RfPass<4, 4>, RfPass<2, 3>,
+                           RfPass<5>>(a, nstages, factors, npass, pass_len,
+                                      st);
     case 512:
-      return k1_reg_launch<T, 512, RfPass<4, 4>, RfPass<4, 4>, RfPass<2>>(
-          a, nstages, factors, npass, pass_len, st);
+      return k1_reg_launch<T, 512, IO, RfPass<4, 4>, RfPass<4, 4>,
+                           RfPass<2>>(a, nstages, factors, npass, pass_len,
+                                      st);
     case 960:
-      return k1_reg_launch<T, 960, RfPass<4, 4>, RfPass<4, 3>, RfPass<5>>(
-          a, nstages, factors, npass, pass_len, st);
+      return k1_reg_launch<T, 960, IO, RfPass<4, 4>, RfPass<4, 3>,
+                           RfPass<5>>(a, nstages, factors, npass, pass_len,
+                                      st);
     case 1024:
-      return k1_reg_launch<T, 1024, RfPass<4, 4>, RfPass<4, 4>, RfPass<4>>(
-          a, nstages, factors, npass, pass_len, st);
+      return k1_reg_launch<T, 1024, IO, RfPass<4, 4>, RfPass<4, 4>,
+                           RfPass<4>>(a, nstages, factors, npass, pass_len,
+                                      st);
     case 2048:
-      return k1_reg_launch<T, 2048, RfPass<4, 4>, RfPass<4, 4>,
-                           RfPass<4, 2>>(a, nstages, factors, npass, pass_len,
-                                         st);
+      return k1_reg_launch<T, 2048, IO, RfPass<4, 4>, RfPass<4, 4>,
+                           RfPass<4, 2>>(a, nstages, factors, npass,
+                                         pass_len, st);
     case 4096:
-      return k1_reg_launch<T, 4096, RfPass<4, 4>, RfPass<4, 4>,
-                           RfPass<4, 4>>(a, nstages, factors, npass, pass_len,
-                                         st);
+      return k1_reg_launch<T, 4096, IO, RfPass<4, 4>, RfPass<4, 4>,
+                           RfPass<4, 4>>(a, nstages, factors, npass,
+                                         pass_len, st);
     case 8192:
       if constexpr (sizeof(T) == 4)
-        return k1_reg_launch<T, 8192, RfPass<4, 4>, RfPass<4, 4>,
+        return k1_reg_launch<T, 8192, IO, RfPass<4, 4>, RfPass<4, 4>,
                              RfPass<4, 4>, RfPass<2>>(a, nstages, factors,
                                                       npass, pass_len, st);
       return (int)cudaErrorInvalidValue;
@@ -380,8 +617,10 @@ static int k1_launch(const void* xr, const void* xi, void* yr, void* yi,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (npass > 0) {
-    const K1Args a{xr, xi, yr, yi, ptw, B, tb, threads, inverse, scale};
-    return k1_reg_dispatch<T>(a, n, nstages, factors, npass, pass_len, st);
+    const K1Args a{xr, xi, yr, yi, nullptr, ptw, B, tb, threads, inverse,
+                   scale};
+    return k1_reg_dispatch<T, K1RowIO>(a, n, nstages, factors, npass,
+                                       pass_len, st);
   }
   StagePlan plan;
   plan.nstages = nstages;
@@ -401,6 +640,28 @@ static int k1_launch(const void* xr, const void* xi, void* yr, void* yi,
       (const T*)twi, (const T*)dr, (const T*)di, B, n, tb, plan, inverse,
       (T)scale);
   return (int)cudaGetLastError();
+}
+
+// mode 0 (r2c): a0 the real rows of 2h, b0, b1 the packed planes' rows of
+// h + 1, the table (h + 1, 8); mode 1 (c2r): a0, a1 the packed planes,
+// b0 the real rows, the table (h, 8).  h must be a register length.
+template <typename T>
+static int k1_real_launch(int mode, const void* a0, const void* a1,
+                          void* b0, void* b1, const void* tab,
+                          const void* ptw, int B, int h, int nstages,
+                          const int* factors, int npass, const int* pass_len,
+                          int tb, int threads, double scale, void* stream) {
+  if ((mode != 0 && mode != 1) || nstages < 1 || nstages > K1_MAX_STAGES ||
+      npass < 1 || threads < 1 || threads > K1_MAX_THREADS || tb < 1 ||
+      tb > K1_REAL_MAX_TB || B < 1 || !tab)
+    return (int)cudaErrorInvalidValue;
+  const K1Args a{a0, a1, b0, b1, tab, ptw, B, tb, threads, mode, scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 0)
+    return k1_reg_dispatch<T, K1RealFwdIO>(a, h, nstages, factors, npass,
+                                           pass_len, st);
+  return k1_reg_dispatch<T, K1RealInvIO>(a, h, nstages, factors, npass,
+                                         pass_len, st);
 }
 
 // One launch of K1 on `stream`: the register kernel when npass > 0 (the
@@ -428,4 +689,29 @@ extern "C" int cfft_stockham_f64(
   return k1_launch<double>(xr, xi, yr, yi, twr, twi, dr, di, ptw, B, n,
                            nstages, factors, tw_offs, dense_offs, npass,
                            pass_len, inverse, tb, threads, scale, stream);
+}
+
+// One launch of a real mode of K1 on `stream` (k1_real_launch): the
+// register kernel of the half length h, its schedule as for
+// cfft_stockham_f32, the forward DFT in mode 0 and the inverse in mode 1.
+extern "C" int k1_real_f32(int mode, const void* a0, const void* a1,
+                           void* b0, void* b1, const void* tab,
+                           const void* ptw, int B, int h, int nstages,
+                           const int* factors, int npass,
+                           const int* pass_len, int tb, int threads,
+                           double scale, void* stream) {
+  return k1_real_launch<float>(mode, a0, a1, b0, b1, tab, ptw, B, h, nstages,
+                               factors, npass, pass_len, tb, threads, scale,
+                               stream);
+}
+
+extern "C" int k1_real_f64(int mode, const void* a0, const void* a1,
+                           void* b0, void* b1, const void* tab,
+                           const void* ptw, int B, int h, int nstages,
+                           const int* factors, int npass,
+                           const int* pass_len, int tb, int threads,
+                           double scale, void* stream) {
+  return k1_real_launch<double>(mode, a0, a1, b0, b1, tab, ptw, B, h,
+                                nstages, factors, npass, pass_len, tb,
+                                threads, scale, stream);
 }

@@ -41,6 +41,10 @@ _L = ctypes.c_longlong
 # tw_offs, dense_offs, npass, pass_len, inverse, tb, threads, scale, stream
 _K1_ARGTYPES = ([_P] * 9 + [_I, _I, _I] + [_P] * 3 + [_I, _P, _I, _I, _I,
                                                       ctypes.c_double, _P])
+# mode, a0, a1, b0, b1, tab, ptw, B, h, nstages, factors, npass, pass_len,
+# tb, threads, scale, stream
+_K1_REAL_ARGTYPES = ([_I] + [_P] * 6 + [_I] * 3 + [_P, _I, _P, _I, _I,
+                                                 ctypes.c_double, _P])
 # xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
 # rtwr, rtwi, rstages, rfac, roff, cptw, rptw, fr, fi, nfilt, b, m, mode,
 # csize, lshift, in_rs, ys, scale, stream
@@ -137,6 +141,8 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, types in (("cfft_stockham_f32", _K1_ARGTYPES),
                         ("cfft_stockham_f64", _K1_ARGTYPES),
+                        ("k1_real_f32", _K1_REAL_ARGTYPES),
+                        ("k1_real_f64", _K1_REAL_ARGTYPES),
                         ("stream_fft_f32", _STREAM_ARGTYPES),
                         ("stream_split_f32", _SPLIT_ARGTYPES),
                         ("stream_nat_f32", _NAT_ARGTYPES),

@@ -13,11 +13,16 @@ past its cap, the s-way split K5 (``stream_fft.sfft_stream_split``),
 else the four-step whose row transforms recurse here.  ``sfft`` takes
 an optional scale, which K1 and K5 apply in their store.  Real
 transforms of float32 stream lengths with an even batch past K1's half
-length take the real-stream kernel (K7, ``rstream``).  The device
-decides one thing only, inside the kernels' wrappers: a CPU tensor runs
-the plain version (``_stockham`` below for K1), a CUDA tensor launches
-the kernel.  The real transforms' steps around the engine run in the
-spans ``cfftpack.merge`` (the packed spectrum's merge and unmerge),
+length take the real-stream kernel (K7, ``rstream``); even n whose half
+K1 runs in registers take K1's real modes (``fused_fft.srfft_real``,
+``sirfft_real``: the deinterleave, the packed merge or unmerge, the
+scale and the interleave in one launch, each direction one linear map
+under autograd).  The device decides one thing only, inside the
+kernels' wrappers: a CPU tensor runs the plain version (``_stockham``
+below for K1), a CUDA tensor launches the kernel.  Elsewhere the real
+transforms' steps around the engine run in the spans ``cfftpack.merge``
+(the packed spectrum's merge and unmerge, ``_real_merge`` and
+``_real_unmerge`` over a table set of ``real_tables``),
 ``cfftpack.scale`` and ``cfftpack.unpack`` (``utils.profiling``).
 """
 from __future__ import annotations
@@ -285,6 +290,84 @@ def _irfft_merge_tables(n: int):
             wr, 1 + wi, -wr, wi - 1)
 
 
+def _r2c_adjoint_table(t):
+    """The (h, 8) c2r table of the adjoint of the r2c table ``t`` (h + 1
+    bins): Zr[j] takes (a1_j, b1_j, a3_{h-j}, b3_{h-j}) of (g_r[j], g_i[j],
+    g_r[h-j], g_i[h-j]), Zi[j] the same of a2, b2, a4, b4; bin 0 sums the
+    terms of bins 0 and h, which both read Z[0]."""
+    h = t.shape[0] - 1
+    a1, a2, a3, a4, b1, b2, b3, b4 = t.T
+    j = np.arange(1, h)
+    out = np.empty((h, 8))
+    out[1:] = np.stack([a1[j], b1[j], a3[h - j], b3[h - j],
+                        a2[j], b2[j], a4[h - j], b4[h - j]], axis=-1)
+    out[0] = (a1[0] + a3[0], b1[0] + b3[0], a1[h] + a3[h], b1[h] + b3[h],
+              a2[0] + a4[0], b2[0] + b4[0], a2[h] + a4[h], b2[h] + b4[h])
+    return out
+
+
+def _c2r_adjoint_table(t):
+    """The (h + 1, 8) r2c table of the adjoint of the c2r table ``t`` (h
+    bins): g_r[k] takes (c1_k, d1_k) of Z[k] and (c3_{h-k}, d3_{h-k}) of
+    Z[h-k], g_i[k] the same of c2, d2, c4, d4; bin h takes bin 0's mirror
+    terms, read from Z[0] as its direct term."""
+    h = t.shape[0]
+    c1, c2, c3, c4, d1, d2, d3, d4 = t.T
+    k = np.arange(1, h)
+    out = np.zeros((h + 1, 8))
+    out[1:h] = np.stack([c1[k], d1[k], c3[h - k], d3[h - k],
+                         c2[k], d2[k], c4[h - k], d4[h - k]], axis=-1)
+    out[0, [0, 1, 4, 5]] = c1[0], d1[0], c2[0], d2[0]
+    out[h, [0, 1, 4, 5]] = c3[0], d3[0], c4[0], d4[0]
+    return out
+
+
+def real_tables(rfft_merge, irfft_merge, adjoint: bool = True) -> dict:
+    """The real transforms' table sets, float64 (bins, 8) arrays, one row
+    of 8 coefficients a bin (``_real_merge``, ``fused_fft.srfft_real``):
+    ``rfft``, the r2c form of ``rfft_merge`` over bins 0 .. h, DC = Zr +
+    Zi and Nyquist = Zr - Zi of Z[0] with zero imaginary rows; ``irfft``,
+    the c2r form, ``irfft_merge`` by bin; with ``adjoint``, ``rfft_adj``
+    and ``irfft_adj``, their transposes, the other form each."""
+    h = len(rfft_merge[0])
+    fwd = np.zeros((h + 1, 8))
+    fwd[1:h] = np.stack(rfft_merge, axis=-1)[1:]
+    fwd[0, :2] = 1.0, 1.0
+    fwd[h, :2] = 1.0, -1.0
+    inv = np.stack([np.asarray(t, dtype=np.float64) for t in irfft_merge],
+                   axis=-1)
+    sets = {"rfft": fwd, "irfft": inv}
+    if adjoint:
+        sets.update(rfft_adj=_r2c_adjoint_table(fwd),
+                    irfft_adj=_c2r_adjoint_table(inv))
+    return sets
+
+
+def _real_merge(Zr, Zi, tab):
+    """(yr, yi) at bins 0 .. h of the r2c table ``tab`` (h + 1, 8) over
+    Z[k % h] and its mirror Z[(h - k) % h]: the packed merge."""
+    a1, a2, a3, a4, b1, b2, b3, b4 = tab.unbind(-1)
+    Zkr = torch.cat([Zr, Zr[..., :1]], dim=-1)
+    Zki = torch.cat([Zi, Zi[..., :1]], dim=-1)
+    Zmr = torch.cat([Zr[..., :1], Zr[..., 1:].flip(-1), Zr[..., :1]], dim=-1)
+    Zmi = torch.cat([Zi[..., :1], Zi[..., 1:].flip(-1), Zi[..., :1]], dim=-1)
+    return (Zkr * a1 + Zki * a2 + Zmr * a3 + Zmi * a4,
+            Zkr * b1 + Zki * b2 + Zmr * b3 + Zmi * b4)
+
+
+def _real_unmerge(yr, yi, tab):
+    """(Zr, Zi) at bins 0 .. h-1 of the c2r table ``tab`` (h, 8) over y[k]
+    and y[h - k]: the packed unmerge."""
+    h = tab.shape[0]
+    c1, c2, c3, c4, d1, d2, d3, d4 = tab.unbind(-1)
+    ya = yr[..., :h]
+    yb = yi[..., :h]
+    ymr = yr[..., 1:].flip(-1)
+    ymi = yi[..., 1:].flip(-1)
+    return (ya * c1 + yb * c2 + ymr * c3 + ymi * c4,
+            ya * d1 + yb * d2 + ymr * d3 + ymi * d4)
+
+
 def _interleave(*parts):
     """Riffle s equal-length streams: out[..., s*t+j] = parts[j][..., t]."""
     lead = parts[0].shape[:-1]
@@ -365,14 +448,17 @@ def srfft(x, n: int, scale: float = 1.0):
     """r2c DFT of real x -> (re, im) pair of n//2+1 bins, times ``scale``
     (unscaled by default).
 
-    Even n: the real-stream route (K7) where ``_use_rstream``, which
-    applies the scale in its store, else the half-length complex trick
+    Even n: the real-stream route (K7) where ``_use_rstream``, K1's r2c
+    mode (``fused_fft.srfft_real``) where n/2 is a register length, both
+    with the scale in their store, else the half-length complex trick
     with the fused merge stage; odd n: row pairing, or the complex FFT of
     (x, 0), truncated.  imag(DC) and (even n) imag(Nyquist) are exact
     zeros.
     """
     if _use_rstream(n, x.shape[:-1].numel(), x.dtype):
         return rstream.srfft_stream(x, n, scale)
+    if fused_fft.real_eligible(n, x.dtype):
+        return fused_fft.srfft_real(x, n, scale)
     yr, yi = _srfft(x, n)
     if scale != 1.0:
         with span("cfftpack.scale"):
@@ -381,28 +467,16 @@ def srfft(x, n: int, scale: float = 1.0):
 
 
 def _srfft(x, n: int):
-    """srfft, unscaled, off the K7 route."""
+    """srfft, unscaled, off the K7 and K1 real routes."""
     if n == 1:
         return x, torch.zeros_like(x)
     if _use_pair(n, x.shape[:-1].numel()):
         return _srfft_batchpair(x, n)
     if n % 2 == 0:
         Zr, Zi = sfft(x[..., 0::2], x[..., 1::2], n // 2, inverse=False)
-        tabs = plan.device_tables(n, x.dtype, x.device).rfft_merge
+        tab = plan.device_tables(n, x.dtype, x.device).real["rfft"]
         with span("cfftpack.merge"):
-            a1, a2, a3, a4, b1, b2, b3, b4 = (t[1:] for t in tabs)
-            Zrc = Zr[..., 1:]
-            Zic = Zi[..., 1:]
-            Zrf = Zrc.flip(-1)
-            Zif = Zic.flip(-1)
-            yr_c = Zrc * a1 + Zic * a2 + Zrf * a3 + Zif * a4
-            yi_c = Zrc * b1 + Zic * b2 + Zrf * b3 + Zif * b4
-            # DC and Nyquist from bin 0; their imag parts are exact zeros
-            dc = Zr[..., :1] + Zi[..., :1]
-            nyq = Zr[..., :1] - Zi[..., :1]
-            z1 = torch.zeros_like(dc)
-            return (torch.cat([dc, yr_c, nyq], dim=-1),
-                    torch.cat([z1, yi_c, z1], dim=-1))
+            return _real_merge(Zr, Zi, tab)
     with span("cfftpack.pack"):
         zi = torch.zeros_like(x)
     Yr, Yi = sfft(x, zi, n, inverse=False)
@@ -415,9 +489,12 @@ def _srfft(x, n: int):
 
 def sirfft(yr, yi, n: int, scale: float = 1.0):
     """c2r inverse of a packed pair: returns n * scale * x (real); the K7
-    route applies the scale in its store."""
+    route and K1's c2r mode (``fused_fft.sirfft_real``, where n/2 is a
+    register length) apply the scale in their store."""
     if _use_rstream(n, yr.shape[:-1].numel(), yr.dtype):
         return rstream.sirfft_stream(yr, yi, n, scale)
+    if fused_fft.real_eligible(n, yr.dtype):
+        return fused_fft.sirfft_real(yr, yi, n, scale)
     x = _sirfft(yr, yi, n)
     if scale != 1.0:
         with span("cfftpack.scale"):
@@ -426,23 +503,16 @@ def sirfft(yr, yi, n: int, scale: float = 1.0):
 
 
 def _sirfft(yr, yi, n: int):
-    """sirfft, unscaled, off the K7 route."""
+    """sirfft, unscaled, off the K7 and K1 real routes."""
     if n == 1:
         return yr[..., 0:1]
     if _use_pair(n, yr.shape[:-1].numel()):
         return _sirfft_batchpair(yr, yi, n)
     if n % 2 == 0:
-        h = n // 2
-        a1, a2, a3, a4, b1, b2, b3, b4 = plan.device_tables(
-            n, yr.dtype, yr.device).irfft_merge
+        tab = plan.device_tables(n, yr.dtype, yr.device).real["irfft"]
         with span("cfftpack.merge"):
-            ya = yr[..., :h]
-            yb = yi[..., :h]
-            ymr = yr[..., 1:].flip(-1)
-            ymi = yi[..., 1:].flip(-1)
-            Zr = ya * a1 + yb * a2 + ymr * a3 + ymi * a4
-            Zi = ya * b1 + yb * b2 + ymr * b3 + ymi * b4
-        zr, zi = sfft(Zr, Zi, h, inverse=True)
+            Zr, Zi = _real_unmerge(yr, yi, tab)
+        zr, zi = sfft(Zr, Zi, n // 2, inverse=True)
         with span("cfftpack.unpack"):
             return _interleave(zr, zi)
     with span("cfftpack.merge"):

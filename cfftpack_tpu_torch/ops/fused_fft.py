@@ -21,6 +21,19 @@ wrapper (``_adjoint``).  A launch plan per (n, dtype,
 inverse, device) holds what the C entry takes besides the data, so a
 launch is the checks, two ``torch.empty`` and one C call, counted in
 ``utils.profiling.launches["K1"]``.
+
+The real route of ``core.srfft`` and ``core.sirfft`` (even n with n/2 in
+:data:`REG_LENGTHS`, :func:`real_eligible`) runs K1's two real modes at
+the half length: :func:`srfft_real` (r2c: the pair load, the forward
+passes, the packed merge as a table FMA in the store, the scale) and
+:func:`sirfft_real` (c2r: the unmerge as it loads, the inverse passes,
+the scale and the interleave in the store), one launch each
+(``k1_real_f32``/``f64``, counted as K1).  Each reads one table set of
+``plan.device_tables(n).real`` (8 coefficients a bin, float64-built),
+and the adjoint of either map is the other mode with the transposed set
+at the same scale, so each enters ``_adjoint.linear`` as one map.  On a
+CPU tensor :func:`real_plain` runs the same glue in PyTorch.
+``utils.profiling.real_maps`` counts the maps by direction.
 """
 from __future__ import annotations
 
@@ -33,7 +46,8 @@ from .. import plan
 from ..utils import profiling
 from . import _adjoint, _build, core
 
-__all__ = ["fused_eligible", "sfft_fused", "sfft_plain", "REG_LENGTHS"]
+__all__ = ["fused_eligible", "sfft_fused", "sfft_plain", "REG_LENGTHS",
+           "real_eligible", "srfft_real", "sirfft_real", "real_plain"]
 
 # Shared memory one block may use on sm_90 (227 KB).
 _SMEM_BUDGET = 232448
@@ -76,6 +90,16 @@ def _reg_tile_rows(n: int, dtype: torch.dtype) -> int:
     or within 2% at every length in both dtypes but 512 float32 (32.5
     against 34.0 us)."""
     return 2 if _reg_threads_per_row(n) == 32 else 1
+
+
+# Rows a block of the real modes, by half length: measured on an H100 at
+# 2^26 (float32) and 2^25 (float64) elements, 1, 2 and 4 rows a block,
+# the fastest sum of the two modes (PERF.md).  A block shares its rows'
+# reads of the coefficient table.
+_REAL_TILE_ROWS = {
+    torch.float32: {480: 4, 512: 4, 960: 2, 1024: 4, 2048: 2, 4096: 1,
+                    8192: 1},
+    torch.float64: {480: 4, 512: 4, 960: 4, 1024: 4, 2048: 2, 4096: 1}}
 
 
 def _flat_twiddles(tabs):
@@ -208,3 +232,169 @@ def sfft_fused(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     else:
         yr, yi = _launch(xr2, xi2, n, inverse, scale)
     return yr.reshape(shape), yi.reshape(shape)
+
+
+# ------------------------------------------------------- the real modes
+#
+# A table set of ``plan.device_tables(n).real`` names its mode: r2c sets
+# have h + 1 rows, c2r sets h; the adjoint of a set's map is the other
+# mode with the transposed set.
+_REAL_MODE = {"rfft": "r2c", "irfft_adj": "r2c", "irfft": "c2r",
+              "rfft_adj": "c2r"}
+_REAL_ADJOINT = {"rfft": "rfft_adj", "rfft_adj": "rfft",
+                 "irfft": "irfft_adj", "irfft_adj": "irfft"}
+
+
+def real_eligible(n: int, dtype: torch.dtype) -> bool:
+    """Whether the real transforms of length ``n`` take K1's real modes:
+    n even with n/2 a register length of ``dtype``."""
+    return n % 2 == 0 and n // 2 in REG_LENGTHS.get(dtype, ())
+
+
+def real_plain(a, b, n: int, mode: str, tab, scale: float = 1.0):
+    """A real mode's plain PyTorch version on any device: the real
+    route's glue around K1's plain version, over the table set ``tab``
+    ((h + 1, 8) for r2c of rows ``a``, (h, 8) for c2r of the packed
+    planes ``a``, ``b``), times ``scale``."""
+    h = n // 2
+    if mode == "r2c":
+        Zr, Zi = sfft_plain(a[..., 0::2], a[..., 1::2], h, False)
+        yr, yi = core._real_merge(Zr, Zi, tab)
+        return (yr * scale, yi * scale) if scale != 1.0 else (yr, yi)
+    Zr, Zi = core._real_unmerge(a, b, tab)
+    zr, zi = sfft_plain(Zr, Zi, h, True)
+    x = core._interleave(zr, zi)
+    return x * scale if scale != 1.0 else x
+
+
+def _real_plain_rows(a, b, n: int, tables: str, scale: float):
+    """:func:`real_plain` of the set ``tables`` on rows of any device, in
+    :func:`_real_launch`'s form."""
+    mode = _REAL_MODE[tables]
+    width = n if mode == "r2c" else n // 2 + 1
+    tab = plan.device_tables(n, a.dtype, a.device).real[tables]
+    return real_plain(a.reshape(-1, width),
+                      None if b is None else b.reshape(-1, width), n, mode,
+                      tab, scale)
+
+
+def real_plan(n: int, dtype: torch.dtype, tables: str,
+              device) -> LaunchPlan:
+    """The cached launch plan of a real mode: K1's register schedule at
+    n/2 and the table set ``tables`` of n, rebuilt after ``plan``
+    replaces a table."""
+    key = (n, dtype, tables, device)
+    lp = _PLANS.get(key)
+    if lp is not None and lp.version == plan.VERSION:
+        return lp
+    with profiling.planning():
+        lp = _PLANS[key] = _build_real_plan(n, dtype, tables, device)
+    return lp
+
+
+def _build_real_plan(n: int, dtype: torch.dtype, tables: str,
+                     device) -> LaunchPlan:
+    h = n // 2
+    t = plan.device_tables(h, dtype, device)
+    tab = plan.device_tables(n, dtype, device).real[tables]
+    lib = _build.load()
+    fn = lib.k1_real_f32 if dtype == torch.float32 else lib.k1_real_f64
+    passes = plan.reg_passes(h)
+    ptw = plan.to_device(plan.reg_twiddles(h), dtype, device)
+    tb = _REAL_TILE_ROWS[dtype][h]
+    args = (tab.data_ptr(), ptw.data_ptr(), len(t.factors),
+            _build.ints(t.factors), len(passes),
+            _build.ints([len(q) for q in passes]))
+    return LaunchPlan(fn, args, passes, tb, tb * _reg_threads_per_row(h),
+                      (t, tab, ptw), plan.VERSION)
+
+
+def _real_rows(t, width: int):
+    """``t`` as contiguous rows of ``width`` on a base aligned for the pair
+    loads; a copy under ``cfftpack.pack`` where it is not."""
+    if not t.is_contiguous() or t.data_ptr() % (2 * t.element_size()):
+        with profiling.span("cfftpack.pack"):
+            t = t.clone(memory_format=torch.contiguous_format)
+    return t.reshape(-1, width)
+
+
+def _real_check(planes, n: int) -> None:
+    a = planes[0]
+    if not all(t.is_cuda and t.device == a.device for t in planes):
+        raise ValueError(f"K1's real modes need their planes on one CUDA "
+                         f"device, got {[t.device for t in planes]}")
+    if a.dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != a.dtype for t in planes):
+        raise TypeError(f"K1's real modes take float32 or float64 planes "
+                        f"of one dtype, got {[t.dtype for t in planes]}")
+    if not real_eligible(n, a.dtype):
+        raise ValueError(f"K1's real modes do not take n={n} in {a.dtype}")
+
+
+def _real_launch(a, b, n: int, tables: str, scale: float):
+    """One launch of the real mode of ``tables`` on CUDA rows: r2c of the
+    real rows ``a`` -> the packed pair, c2r of the packed planes ``a``,
+    ``b`` -> the real rows."""
+    mode = _REAL_MODE[tables]
+    _real_check((a,) if b is None else (a, b), n)
+    h = n // 2
+    width = n if mode == "r2c" else h + 1
+    a2 = _real_rows(a, width)
+    b2 = None if b is None else _real_rows(b, width)
+    rows = a2.shape[0]
+    if rows >= 2 ** 31:
+        raise ValueError(f"K1 takes fewer than 2^31 rows, got {rows}")
+    if mode == "r2c":
+        out = (torch.empty((rows, h + 1), dtype=a.dtype, device=a.device),
+               torch.empty((rows, h + 1), dtype=a.dtype, device=a.device))
+    else:
+        out = (torch.empty((rows, n), dtype=a.dtype, device=a.device), None)
+    if rows:
+        lp = real_plan(n, a.dtype, tables, a.device)
+        err = _build.call(
+            "K1", lp.fn, a.device, int(mode == "c2r"), a2.data_ptr(),
+            None if b2 is None else b2.data_ptr(), out[0].data_ptr(),
+            None if out[1] is None else out[1].data_ptr(), *lp.tables[:2],
+            rows, h, *lp.tables[2:], lp.tile_rows, lp.threads, scale)
+        if err != 0:
+            raise RuntimeError(f"K1 {mode} launch failed at n={n}, "
+                               f"rows={rows}, {a.dtype}: CUDA error {err}")
+    return out if mode == "r2c" else out[0]
+
+
+def srfft_real(x, n: int, scale: float = 1.0, tables: str = "rfft"):
+    """``core.srfft`` of the (..., n) real rows ``x`` through K1's r2c
+    mode with the table set ``tables`` (``rfft``, or ``irfft_adj`` as the
+    adjoint of c2r), times ``scale``: the packed (re, im) pair of n/2 + 1
+    bins.  The caller guarantees ``real_eligible(n, dtype)``.
+    Differentiable: the adjoint is :func:`sirfft_real` with the transposed
+    set at the same scale."""
+    if _adjoint.needs_grad(x):
+        adj = _REAL_ADJOINT[tables]
+        return _adjoint.linear(
+            lambda v: srfft_real(v, n, scale, tables),
+            lambda gr, gi: sirfft_real(gr, gi, n, scale, adj), x)
+    profiling.real_maps["r2c"] += 1
+    lead = x.shape[:-1]
+    run = _real_plain_rows if x.device.type == "cpu" else _real_launch
+    yr, yi = run(x, None, n, tables, scale)
+    h1 = n // 2 + 1
+    return yr.reshape(lead + (h1,)), yi.reshape(lead + (h1,))
+
+
+def sirfft_real(yr, yi, n: int, scale: float = 1.0, tables: str = "irfft"):
+    """``core.sirfft`` of the packed (..., n/2 + 1) pair through K1's c2r
+    mode with the table set ``tables`` (``irfft``, or ``rfft_adj`` as the
+    adjoint of r2c): the (..., n) real rows times n * ``scale``.  The
+    imaginary parts of bins 0 and n/2 are read as the JAX package's c2r
+    reads them.  Differentiable: the adjoint is :func:`srfft_real` with
+    the transposed set at the same scale."""
+    if _adjoint.needs_grad(yr, yi):
+        adj = _REAL_ADJOINT[tables]
+        return _adjoint.linear(
+            lambda a, b: sirfft_real(a, b, n, scale, tables),
+            lambda g: srfft_real(g, n, scale, adj), yr, yi)
+    profiling.real_maps["c2r"] += 1
+    lead = yr.shape[:-1]
+    run = _real_plain_rows if yr.device.type == "cpu" else _real_launch
+    return run(yr, yi, n, tables, scale).reshape(lead + (n,))

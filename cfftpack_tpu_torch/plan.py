@@ -234,8 +234,11 @@ class DeviceTables:
     stage s at ``offs[s]:offs[s+1]``; ``dr``/``di`` the dense DFT
     matrices of the radices 7..31, stage s at ``dense_offs[s]`` (0
     for closed-form radices).  ``dense`` maps p to (Dr, Di) views.
-    ``bluestein`` is (m, chirp_r, chirp_i, bq_r, bq_i); the real
-    tables are tuples of h-bin tensors.
+    ``bluestein`` is (m, chirp_r, chirp_i, bq_r, bq_i); ``real`` (even
+    n) maps the real transforms' table sets (``ops.core.real_tables``,
+    built in float64 from ``rfft_merge`` and ``irfft_merge``, the
+    transposed sets where K1's real modes run) to (bins, 8) tensors;
+    ``rfilter`` is a tuple of h-bin tensors.
     """
     n: int
     factors: tuple[int, ...]
@@ -247,8 +250,7 @@ class DeviceTables:
     di: torch.Tensor
     dense: dict
     bluestein: tuple | None
-    rfft_merge: tuple | None
-    irfft_merge: tuple | None
+    real: dict | None
     rfilter: tuple | None
 
 
@@ -337,12 +339,14 @@ def _build(n: int, tabs: dict, dtype, device) -> DeviceTables:
         blu = (int(m),) + tuple(to_device(a, dtype, device) for a in (
             chirp.real, chirp.imag, bq.real, bq.imag))
 
-    def reals(key):
-        t = tabs[key]
-        if t is None:
-            return None
-        return tuple(to_device(a, dtype, device) for a in t)
-
+    real = None
+    if tabs["rfft_merge"] is not None:
+        # the transposed sets only where K1's real modes run
+        from .ops.core import real_tables
+        from .ops.fused_fft import real_eligible
+        real = {k: to_device(t, dtype, device) for k, t in real_tables(
+            tabs["rfft_merge"], tabs["irfft_merge"],
+            real_eligible(n, dtype)).items()}
     rfl = tabs["rfilter"]
     if rfl is not None:
         rfl = tuple(to_device(part, dtype, device)
@@ -351,8 +355,7 @@ def _build(n: int, tabs: dict, dtype, device) -> DeviceTables:
         n=n, factors=facs, offs=offs, twr=to_device(twr, dtype, device),
         twi=to_device(twi, dtype, device), dense_offs=tuple(dense_offs),
         dr=dr, di=di, dense=dense, bluestein=blu,
-        rfft_merge=reals("rfft_merge"), irfft_merge=reals("irfft_merge"),
-        rfilter=rfl)
+        real=real, rfilter=rfl)
 
 
 def device_tables(n: int, dtype: torch.dtype, device, source: dict | None

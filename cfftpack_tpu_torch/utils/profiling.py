@@ -25,7 +25,10 @@ costs one flag test.  The names are fixed (metrics read them):
 
 The launch registry: :data:`launches` counts each C entry's successful
 calls by K-name (``ops._build.call``), :data:`plans` the builds under
-``cfftpack.plan``; :func:`counts` reads both, :func:`reset` zeroes them.
+``cfftpack.plan``, :data:`real_maps` the real route's maps by direction
+(``r2c``, ``c2r``: ``ops.fused_fft.srfft_real``, ``sirfft_real``, on any
+device, a backward's adjoint map included); :func:`counts` reads them
+all, :func:`reset` zeroes them.
 """
 from __future__ import annotations
 
@@ -37,12 +40,13 @@ import time
 import torch
 
 __all__ = ["trace", "Timer", "span", "planning", "counts", "reset",
-           "launches", "KERNELS"]
+           "launches", "real_maps", "KERNELS"]
 
 # The C entries' names in the registry: the eleven kernels, and the
 # tensor-core product's own entry (``cgemm_f32``, called by the smoke).
 KERNELS = tuple(f"K{i}" for i in range(1, 12)) + ("cgemm",)
 launches: dict = dict.fromkeys(KERNELS, 0)
+real_maps: dict = {"r2c": 0, "c2r": 0}
 plans = 0
 _OFF = contextlib.nullcontext()
 
@@ -67,9 +71,10 @@ def planning():
 
 
 def counts() -> dict:
-    """Launches by K-name, and ``plans``: the builds under
-    ``cfftpack.plan``."""
-    return {**launches, "plans": plans}
+    """Launches by K-name, ``plans`` (the builds under ``cfftpack.plan``)
+    and the real route's maps as ``real.r2c`` and ``real.c2r``."""
+    return {**launches, "plans": plans,
+            **{"real." + k: v for k, v in real_maps.items()}}
 
 
 def reset() -> None:
@@ -77,6 +82,8 @@ def reset() -> None:
     global plans
     for k in launches:
         launches[k] = 0
+    for k in real_maps:
+        real_maps[k] = 0
     plans = 0
 
 

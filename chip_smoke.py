@@ -239,6 +239,7 @@ def plain_engine():
     """Run the transform path with the kernels' plain versions in place
     of the kernels, on the same card, for comparison and timing only."""
     kernel, stream_launch = fused_fft.sfft_fused, stream_fft._launch
+    real_launch = fused_fft._real_launch
     rstream_launch, col_launch = rstream.launch, colfft._launch
     four_launch, mm2_launch = fourstep_fft._launch, stream_fft._mm2_launch
 
@@ -249,6 +250,7 @@ def plain_engine():
         return (yr * scale).reshape(shape), (yi * scale).reshape(shape)
 
     fused_fft.sfft_fused = plain
+    fused_fft._real_launch = fused_fft._real_plain_rows
     stream_fft._launch = stream_fft.stream_plain
     rstream.launch = rstream_plain
     colfft._launch = colfft_plain_launch
@@ -258,6 +260,7 @@ def plain_engine():
         yield
     finally:
         fused_fft.sfft_fused = kernel
+        fused_fft._real_launch = real_launch
         stream_fft._launch = stream_launch
         rstream.launch = rstream_launch
         colfft._launch = col_launch
@@ -876,7 +879,8 @@ FFT2_SHAPE, RFFT2_SHAPE = (64, 4096, 4096), (16, 4096, 4096)
 # the plain versions that the kernels' wrappers call on CPU tensors, as
 # (module, name): no_plain_on_card makes each raise on a CUDA tensor
 PLAIN_VERSIONS = (
-    (fused_fft, "sfft_plain"), (core, "_stockham"),
+    (fused_fft, "sfft_plain"), (fused_fft, "real_plain"),
+    (core, "_stockham"),
     (stream_fft, "stream_plain"), (stream_fft, "sfft_mm2_plain"),
     (rstream, "_rfft_plain"), (rstream, "_irfft_plain"),
     (rstream, "_dct2_plain"), (rstream, "_dct3_plain"),
@@ -1834,6 +1838,40 @@ def main() -> None:
         was = BEFORE_WORST[f"K1 {str(dt).split('.')[-1]}"]
         print(f"  {dt}: worst vs plain {worst_p:.3e}, vs torch.fft "
               f"{worst_o:.3e} (before: {fmt_pair(was)})")
+
+    # ---- phase 2b: K1's real modes (core.srfft/sirfft at even n with
+    # n/2 a register length) against their plain versions and torch.fft,
+    # both table sets of each mode (not counted in the main path)
+    print("phase 2b: K1's real modes vs plain version and torch.fft")
+    for dt in (torch.float32, torch.float64):
+        for h in fused_fft.REG_LENGTHS[dt]:
+            n = 2 * h
+            for b in (3, max(4, (1 << 21) // n)):
+                x = real((b, n), dt, seed=n + b)
+                yr, yi = fused_fft.srfft_real(x, n, 0.5)
+                back = fused_fft.sirfft_real(yr, yi, n, 2.0 / n)
+                gr, gi = real((2, b, h + 1), dt, seed=n + b + 1)
+                g = fused_fft.srfft_real(x, n, 0.5, "irfft_adj")
+                u = fused_fft.sirfft_real(gr, gi, n, 0.5, "rfft_adj")
+                plain = [fused_fft._real_plain_rows(x, None, n, "rfft", 0.5),
+                         fused_fft._real_plain_rows(x, None, n, "irfft_adj",
+                                                    0.5),
+                         fused_fft._real_plain_rows(gr, gi, n, "rfft_adj",
+                                                    0.5)]
+                torch.cuda.synchronize()
+                want = torch.fft.rfft(x.double()) * 0.5
+                ep = max(rel_err(torch.complex(yr, yi),
+                                 torch.complex(*plain[0])),
+                         rel_err(torch.complex(*g), torch.complex(*plain[1])),
+                         rel_err(u, plain[2]))
+                eo = max(rel_err(torch.complex(yr, yi), want),
+                         rel_err(back, x))
+                zero = bool((yi[:, 0] == 0).all() and (yi[:, h] == 0).all())
+                bar = 1e-5 if dt == torch.float32 else 1e-12
+                check(ep < bar and eo < bar and zero,
+                      f"K1 real modes {dt} n={n} b={b}: vs plain {ep:.2e}, "
+                      f"vs torch.fft {eo:.2e} < {bar:g}, imag DC and "
+                      f"Nyquist zero")
 
     # ---- phase 3: K2, K3, K4 against their plain versions and torch.fft
     print("phase 3: K2/K3/K4 vs plain version and torch.fft")

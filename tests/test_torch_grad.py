@@ -490,6 +490,14 @@ WRAPPERS = [
     ("K11 permuted inverse",
      lambda a, b: stream_fft.sfft_mm2_permuted(a, b, 640, True),
      [(3, 640)] * 2, False, False),
+] + [
+    # K1's real modes (the real route of core.srfft and core.sirfft)
+    entry for n in (960, 1024, 2048) for entry in (
+        (f"K1 r2c {n}", lambda x, n=n: fused_fft.srfft_real(x, n, 0.3),
+         [(3, n)], True, False),
+        (f"K1 c2r {n}",
+         lambda a, b, n=n: fused_fft.sirfft_real(a, b, n, 0.3),
+         [(3, n // 2 + 1)] * 2, True, False))
 ]
 WNAMES = [w[0] for w in WRAPPERS]
 
@@ -541,7 +549,10 @@ def test_wrapper_gradcheck(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["K1", "K3", "K7 irfft", "K7 dct2",
-                                  "K8 dst4", "K9 dct3"])
+                                  "K8 dst4", "K9 dct3", "K1 r2c 960",
+                                  "K1 c2r 960", "K1 r2c 1024",
+                                  "K1 c2r 1024", "K1 r2c 2048",
+                                  "K1 c2r 2048"])
 def test_wrapper_gradient_matches_plain_autograd(name, monkeypatch):
     """The Function's backward equals autograd through the plain version
     (the gradient the CPU path gave before), in float32."""
@@ -562,6 +573,38 @@ def test_wrapper_gradient_matches_plain_autograd(name, monkeypatch):
     want = grads(fn, shapes)
     for a, b in zip(got, want):
         assert _err(a, b) < 1e-5
+
+
+@pytest.mark.parametrize("n", [960, 1024, 2048])
+def test_real_maps_match_jax_vjp(n):
+    """K1's real modes under autograd against ``jax.vjp`` of the JAX
+    package's unscaled ``srfft`` and ``sirfft`` in float64 (times the
+    scale), at 1e-12 of max |g|: the r2c map's adjoint (c2r with the
+    transposed set) and the c2r map's, which gives the imaginary DC and
+    Nyquist bins the gradients of the JAX package's c2r."""
+    from cfftpack_tpu.ops import core as jcore
+    h = n // 2
+    r = np.random.default_rng(n)
+    x = r.standard_normal((3, n))
+    yr, yi = r.standard_normal((2, 3, h + 1))
+    gr, gi = r.standard_normal((2, 3, h + 1))
+    g = r.standard_normal((3, n))
+
+    def vjps(x, yr, yi, gr, gi, g):
+        _, f = jax.vjp(lambda v: jcore.srfft(v, n), x)
+        _, b = jax.vjp(lambda a, c: jcore.sirfft(a, c, n), yr, yi)
+        return f((gr, gi)) + b(g)
+
+    want = jax.jit(vjps)(x, yr, yi, gr, gi, g)
+    s = 0.3
+    xt = torch.tensor(x, requires_grad=True)
+    got = torch.autograd.grad(fused_fft.srfft_real(xt, n, s),
+                              xt, (torch.tensor(gr), torch.tensor(gi)))
+    at, bt = (torch.tensor(a, requires_grad=True) for a in (yr, yi))
+    got += torch.autograd.grad(fused_fft.sirfft_real(at, bt, n, s),
+                               (at, bt), torch.tensor(g))
+    for a, b in zip(got, want):
+        assert _err(a.numpy(), s * np.asarray(b)) < 1e-12
 
 
 @pytest.mark.parametrize("dtype, n, bar", [(torch.float64, 60, 1e-12),

@@ -4,15 +4,20 @@
   ``torch.autograd.grad`` through the step record the program's spans
   (``cfftpack.step``, the API spans, the leaf steps, ``cfftpack.adjoint``),
   each inside the span that encloses it on its thread.  On the CPU the
-  plain versions run, so no ``cfftpack.K*`` or ``cfftpack.pack`` span.
+  plain versions run, so no ``cfftpack.K*`` or ``cfftpack.pack`` span;
+  the glue's leaf spans where a real transform's half length runs K1's
+  stage loop.
 * With no profiler no ``record_function`` is made.
 * The registry counts K1's launches as the wrapper's own counter did: one
   a successful C call, none for a CPU tensor, an empty batch or an error,
   with the C entry a recorder (no card here).
 * A cache miss builds under ``cfftpack.plan`` once; a second call of the
   same shape records no such span.
-* On the card (``-m cuda``): the K1 and pack spans, and the adjoint's span
-  on autograd's device thread inside ``torch.autograd.grad``.
+* The real route's maps are counted by direction (``real_maps``), and a
+  real mode's launch counts and spans as K1.
+* On the card (``-m cuda``): the K1 spans with no glue span around the
+  step's real modes, and the adjoint's span on autograd's device thread
+  inside ``torch.autograd.grad``, each with its K1 span inside.
 """
 import types
 
@@ -62,14 +67,30 @@ def test_step_spans_nest_as_stated():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(v, phr, phi)
     got = _pairs(_spans(prof))
+    # at 960 both transforms are K1's real modes, whose plain versions
+    # (like K1's) open no leaf span
     assert got == {("cfftpack.step", None),
                    ("cfftpack.rfft_split", "cfftpack.step"),
-                   ("cfftpack.merge", "cfftpack.rfft_split"),
-                   ("cfftpack.scale", "cfftpack.rfft_split"),
                    ("cfftpack.filter", "cfftpack.step"),
-                   ("cfftpack.irfft_split", "cfftpack.step"),
-                   ("cfftpack.merge", "cfftpack.irfft_split"),
-                   ("cfftpack.unpack", "cfftpack.irfft_split")}, got
+                   ("cfftpack.irfft_split", "cfftpack.step")}, got
+
+
+def test_glue_route_spans_nest_as_stated():
+    """An even n whose half K1 runs on the stage loop (192) keeps the real
+    transforms' glue: the merge and scale of the forward, the unmerge and
+    interleave of the inverse, each in its leaf span."""
+    x = torch.randn(4, 192)
+    yr, yi = pt.rfft_split(x)
+    pt.irfft_split(yr, yi, 192)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pt.irfft_split(*pt.rfft_split(x), 192)
+    assert _pairs(_spans(prof)) == {
+        ("cfftpack.rfft_split", None),
+        ("cfftpack.merge", "cfftpack.rfft_split"),
+        ("cfftpack.scale", "cfftpack.rfft_split"),
+        ("cfftpack.irfft_split", None),
+        ("cfftpack.merge", "cfftpack.irfft_split"),
+        ("cfftpack.unpack", "cfftpack.irfft_split")}
 
 
 def test_fft_ifft_spans_nest_as_stated():
@@ -95,12 +116,12 @@ def test_grad_through_the_step_records_the_adjoints():
             torch.autograd.grad(out, (v, phr, phi), cot)
     spans = _spans(prof)
     names = [s[0] for s in spans]
-    # one adjoint a K1 call of the forward, inside the grad call
+    # one adjoint a real map of the forward, inside the grad call
     assert names.count("cfftpack.adjoint") == 2
     assert {p for n, p, *_ in spans if n == "cfftpack.adjoint"} == {
         "test.grad"}
-    assert ("cfftpack.merge", "cfftpack.rfft_split") in _pairs(spans)
-    assert not any(n.startswith(("cfftpack.K", "cfftpack.pack"))
+    assert not any(n.startswith(("cfftpack.K", "cfftpack.pack",
+                                 "cfftpack.merge", "cfftpack.unpack"))
                    for n in names)
 
 
@@ -131,14 +152,17 @@ def k1_entry(monkeypatch):
 
     record.err = 0
     lib = types.SimpleNamespace(cfft_stockham_f32=record,
-                                cfft_stockham_f64=record)
+                                cfft_stockham_f64=record,
+                                k1_real_f32=record, k1_real_f64=record)
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(_build, "_enter",
                         lambda fn, dev, args: fn(*args, None))
     monkeypatch.setattr(fused_fft, "_check", lambda *a: None)
+    monkeypatch.setattr(fused_fft, "_real_check", lambda *a: None)
     monkeypatch.setattr(fused_fft, "_PLANS", {})
     monkeypatch.setattr(profiling, "launches",
                         dict.fromkeys(profiling.KERNELS, 0))
+    monkeypatch.setattr(profiling, "real_maps", {"r2c": 0, "c2r": 0})
     return record, calls
 
 
@@ -157,6 +181,68 @@ def test_registry_counts_k1_as_its_counter_did(k1_entry):
     assert profiling.launches["K1"] == 1 and len(calls) == 2
     assert {k: v for k, v in profiling.counts().items()
             if k != "plans" and v} == {"K1": 1}
+
+
+def test_real_modes_count_and_span_as_k1(k1_entry):
+    """A real mode's launch is one K1 C call in ``cfftpack.K1``: the r2c
+    mode's rows and the c2r mode's planes go in as they lie when
+    contiguous, and a strided row is copied under ``cfftpack.pack``
+    first."""
+    record, calls = k1_entry
+    x = torch.randn(3, 960)
+    yr, yi = fused_fft._real_launch(x, None, 960, "rfft", 0.5)
+    assert yr.shape == yi.shape == (3, 481)
+    assert calls[-1][1] == x.data_ptr() and calls[-1][0] == 0
+    out = fused_fft._real_launch(yr, yi, 960, "irfft", 1.0)
+    assert out.shape == (3, 960) and calls[-1][0] == 1
+    assert calls[-1][1:3] == (yr.data_ptr(), yi.data_ptr())
+    assert profiling.launches["K1"] == 2
+    xs = torch.randn(960, 6)[:, ::2].t()              # strided rows
+    fused_fft._real_launch(yr, yi, 960, "rfft_adj", 1.0)   # plan built
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("test.launch"):
+            fused_fft._real_launch(xs, None, 960, "rfft", 1.0)
+            fused_fft._real_launch(yr, yi, 960, "rfft_adj", 1.0)
+    spans = _spans(prof)
+    assert [s[0] for s in spans if s[1] == "test.launch"] == [
+        "cfftpack.pack", "cfftpack.K1", "cfftpack.K1"]
+    assert calls[-2][1] != xs.data_ptr()
+    assert profiling.launches["K1"] == 5
+    assert profiling.real_maps == {"r2c": 0, "c2r": 0}
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_real_map_counter(device):
+    """``profiling.real_maps`` counts the real route's maps by direction on
+    the CPU as on the card: 1 + 1 a step call, 2 + 2 a grad call through
+    the step (each forward and the other's adjoint), one K1 launch a map
+    on the card; none for fft/ifft, an odd n or a half length K1 runs on
+    the stage loop."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    step, (v, phr, phi) = entry(device, batch=4)
+    profiling.reset()
+    step(v, phr, phi)
+    assert profiling.real_maps == {"r2c": 1, "c2r": 1}
+    counts = profiling.counts()
+    assert (counts["real.r2c"], counts["real.c2r"]) == (1, 1)
+    assert counts["K1"] == (2 if device == "cuda" else 0)
+    v, phr, phi = (t.clone().requires_grad_(True) for t in (v, phr, phi))
+    profiling.reset()
+    out = step(v, phr, phi)
+    torch.autograd.grad(out, (v, phr, phi), torch.ones_like(out))
+    assert profiling.real_maps == {"r2c": 2, "c2r": 2}
+    assert profiling.launches["K1"] == (4 if device == "cuda" else 0)
+    profiling.reset()
+    pt.ifft(pt.fft(torch.randn(2, 960, dtype=torch.complex64,
+                               device=device)))
+    for n in (961, 192):
+        x = torch.randn(2, n, device=device)
+        pt.irfft_split(*pt.rfft_split(x), n)
+    assert profiling.real_maps == {"r2c": 0, "c2r": 0}
+    profiling.reset()
+    assert set(profiling.counts().values()) == {0}
 
 
 def test_k1_launch_has_pack_and_kernel_spans(k1_entry):
@@ -219,16 +305,20 @@ def test_spans_on_card():
     spans = _spans(prof)
     pairs = _pairs(spans)
     assert {("cfftpack.K1", "cfftpack.rfft_split"),
-            ("cfftpack.pack", "cfftpack.rfft_split"),
             ("cfftpack.K1", "cfftpack.irfft_split"),
             ("cfftpack.K1", "cfftpack.adjoint")} <= pairs, pairs
-    assert not any(n == "cfftpack.plan" for n, *_ in spans)
+    # the real modes read the rows as they lie and do the glue in K1
+    assert not any(n in ("cfftpack.plan", "cfftpack.pack", "cfftpack.merge",
+                         "cfftpack.scale", "cfftpack.unpack")
+                   for n, *_ in spans), pairs
     (grad,) = [s for s in spans if s[0] == "test.grad"]
     adj = [s for s in spans if s[0] == "cfftpack.adjoint"]
     assert len(adj) == 2
     for name, parent, tid, a, b in adj:
         assert tid != grad[2], "the backward ran on the caller's thread"
         assert grad[3] <= a and b <= grad[4]
+        assert any(n == "cfftpack.K1" and t == tid and a <= a2 and b2 <= b
+                   for n, _, t, a2, b2 in spans), "no K1 in the adjoint"
     launches = [e.time_range.start for e in prof.events()
                 if "LaunchKernel" in e.name]
     for name, parent, tid, a, b in spans:
