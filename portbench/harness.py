@@ -7,12 +7,15 @@ of input blocks the calls go round, how many calls may be in flight
 kind of call, and how many calls the traced stretch holds.  Each call's
 time runs from its submission on the host until the host observes its
 completion event; a rate is every row of the window's calls over the
-window's time, from the first submission to the last completion.
+window's time, from the first submission to the last completion.  Over
+several ranks (a ``team``) each rank runs this with the others, agreeing
+as ``run.py``'s docstring says.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import math
 import os
 import random
 import statistics
@@ -23,8 +26,8 @@ from dataclasses import dataclass
 import torch
 
 from . import program as prog, spec, trace as tracing
+from .ranks import Team
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "cfftpack_tpu")
 SAMPLED_FROM = 32              # the sampled call is one of the window's first
 TRACE_TRIES = 4                # traced stretches tried before giving up
 _PEAKS = spec.load_json(spec.REPO / "portbench" / "peaks.json")
@@ -80,6 +83,8 @@ class Run:
     ideal_bytes: int
     peak_bytes_per_s: float | None
     port_kernels: frozenset
+    link_bytes: int | None = None          # sent over the links a call
+    link_bytes_per_s: float | None = None  # the card's peak, a direction
 
     @property
     def rows(self) -> int:
@@ -92,8 +97,9 @@ class Loop:
     and of one sampled call for the check."""
 
     def __init__(self, call, inputs, ring: int, depth: int, device,
-                 sample: int):
+                 sample: int, strict: bool = False):
         self.call, self.inputs = call, inputs
+        self.strict = strict             # a failed call raises
         self.ring, self.depth = ring, depth
         self.sample = sample
         self.index = 0                   # calls made so far
@@ -136,6 +142,8 @@ class Loop:
                 with span:
                     outs = self.call(self.inputs, slot)
             except RuntimeError:
+                if self.strict:
+                    raise
                 failed += 1
                 break
             enq.append(clock() - ts)
@@ -158,9 +166,10 @@ class Loop:
         return Window(start, clock(), n, lat, enq, done, failed)
 
 
-def _traced(loop: Loop, calls: int, device) -> tracing.Trace:
+def _traced(loop: Loop, calls: int, device, team: Team) -> tracing.Trace:
     """One profiled stretch of ``calls`` calls after two unrecorded ones,
-    parsed; taken again where the trace lost kernels."""
+    parsed; taken again where the trace lost kernels (on any rank of the
+    ``team``: every rank takes it again)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
@@ -176,10 +185,26 @@ def _traced(loop: Loop, calls: int, device) -> tracing.Trace:
             tr = tracing.parse(path)
         finally:
             os.unlink(path)
-        if tracing.complete(tr):
+        if all(team.gather(tracing.complete(tr))):
             return tr
         time.sleep(0.5)
     raise RuntimeError(f"no complete trace in {TRACE_TRIES} tries")
+
+
+def _agreed_window(loop: Loop, seconds: float, warm: Window,
+                   team) -> Window:
+    """The window of a run over several ranks: every rank makes as many
+    calls as fit into ``seconds`` at rank 0's warm seconds a call, and no
+    other collective meanwhile.  A call's time is the largest of its
+    times on the ranks, the window's the largest of the ranks' windows."""
+    calls = team.bcast(max(1, math.ceil(seconds * warm.calls / warm.seconds)))
+    team.barrier()
+    team.note("window")
+    win = loop.run(count=calls)
+    every = team.gather((win.seconds, win.latency_s))
+    lat = [max(c) for c in zip(*(w for _, w in every))]
+    return Window(win.start, win.start + max(t for t, _ in every),
+                  win.calls, lat, win.enqueue_s, win.done_s)
 
 
 def _sync(device) -> None:
@@ -208,10 +233,16 @@ def _breakdown(tr: tracing.Trace) -> dict:
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
-             device, t0: float, program=None) -> dict:
+             device, t0: float, program=None,
+             team: Team | None = None) -> dict | None:
     """One run of ``cell``: the result line as a dict, the checks last.
     ``program`` replaces the call the configuration makes (the control,
-    or a fault in a test); ``t0`` is when the process started."""
+    or a fault in a test); ``t0`` is when the process started (the
+    launcher, over several ranks).  Over several ranks (a ``team`` of
+    more than one) this is one rank's part of the run: rank 0 returns
+    the result, the others None."""
+    team = team or Team()
+    over = team.size > 1
     parts = {"imports": clock() - t0}
     builder = spec.load_module(cell.builder, "config")
     sizes, traffic = cell.sizes, cell.traffic
@@ -222,7 +253,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         torch.cuda.init()
         parts["card"] = clock() - t
         t = clock()
-        build_s = prog.load_library()
+        build_s = team.first(prog.load_library)
         parts["library"] = clock() - t
         torch.cuda.reset_peak_memory_stats(device)
     t = clock()
@@ -233,32 +264,48 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     parts["inputs"] = clock() - t
     call = program or builder.program(sizes, traffic)
     ring, depth = traffic["ring"], traffic["inflight"]
+    # over several ranks a failed call ends its rank: the others would
+    # wait for it in the next collective
     loop = Loop(call, inputs, ring, depth, device,
-                random.Random(seed).randrange(SAMPLED_FROM))
+                random.Random(seed).randrange(SAMPLED_FROM),
+                strict=over)
     first = loop.run(count=1)                      # plans and tables
     # Every shape, warm, with one call's outputs held past the ring as
     # the window holds its sampled call's: else the allocator asks the
     # driver for that memory inside the window, a stall of up to 130 ms.
     sample = loop.sample
     loop.first, loop.sample = loop.index, 0
-    loop.run(count=2 * ring)
+    warm = loop.run(count=2 * ring)
     loop.sampled, loop.sample = None, sample
     parts["first_call"] = first.seconds
     setup_s = clock() - t0
     parts["warm"] = setup_s - sum(parts.values())
     loop.first = loop.index
     allocs = _device_allocs(device)
-    win = loop.run(seconds=seconds)
+    win = (_agreed_window(loop, seconds, warm, team) if over
+           else loop.run(seconds=seconds))
     allocs = _device_allocs(device) - allocs
-    tr = _traced(loop, traffic["profile_calls"], device) if trace else None
+    if trace:
+        team.note("trace")
+    tr = (_traced(loop, traffic["profile_calls"], device, team) if trace
+          else None)
     peak = _memory_peak(device)
+    busy = (tr.busy_us() * 1e-6, tr.window_us() * 1e-6) if tr else None
+    every = team.gather((setup_s, peak, busy, win.calls))
+    setup_s = max(e[0] for e in every)
+    peak = max(e[1] for e in every)
+    if busy is not None:             # averaged over the ranks
+        busy = tuple(sum(e[2][i] for e in every) / team.size
+                     for i in (0, 1))
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    run = Run(cell, setup_s, win, tr,
-              spec.load_module(cell.counts, "counts").ideal_bytes(sizes,
-                                                                  traffic),
-              _PEAKS.get(kind, {}).get("hbm_bytes_per_s"),
-              prog.kernel_names())
+    counts = spec.load_module(cell.counts, "counts")
+    link = getattr(counts, "link_bytes", None)
+    peaks = _PEAKS.get(kind, {})
+    run = Run(cell, setup_s, win, tr, counts.ideal_bytes(sizes, traffic),
+              peaks.get("hbm_bytes_per_s"), prog.kernel_names(),
+              link(sizes, traffic) if link else None,
+              peaks.get("nvlink_bytes_per_s_per_direction"))
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = spec.load_module(cell.reader(m["name"]), "metric").read(run)
@@ -267,22 +314,29 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
 
     kept = loop.kept()
     del loop, call
+    team.note("check")
     t = clock()
     ref = spec.load_module(cell.reference, "reference")
     errs = ref.compare(sizes, traffic, inputs, kept) if kept else {}
     _sync(device)
     check_s = clock() - t
+    ranks = team.gather((errs, bool(kept)))  # each the largest over ranks
+    errs = {k: max(e.get(k, math.inf) for e, _ in ranks)
+            for k in cell.limits}
+    kept_all = all(k for _, k in ranks)
+    if team.rank:
+        return None
     checks = {k: {"value": errs.get(k, float("inf")), "limit": v["limit"]}
               for k, v in cell.limits.items()}
-    correct = (win.failed == 0 and bool(kept) and
+    correct = (win.failed == 0 and kept_all and
                all(c["value"] <= c["limit"] for c in checks.values()))
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-           "kind": kind, "count": 1, "memory_peak_bytes": peak}
+           "kind": kind, "count": team.size,
+           "memory_peak_bytes": peak}
     result = {"correct": correct, "attempted": win.calls,
               "failed": win.failed, "metrics": metrics, "device": dev}
     if tr is not None:
-        dev["busy_s"] = tr.busy_us() * 1e-6
-        dev["window_s"] = tr.window_us() * 1e-6
+        dev["busy_s"], dev["window_s"] = busy
         result["breakdown"] = _breakdown(tr)
     result["info"] = {"seed": seed, "setup_s": setup_s, "setup_parts": parts,
                       "build_s": build_s, "check_s": check_s,
@@ -293,10 +347,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                       "enqueue_us_median":
                           statistics.median(win.enqueue_s) * 1e6
                           if win.enqueue_s else None}
+    if over:
+        result["info"].update(ranks=team.size,
+                              calls_by_rank=[e[3] for e in every])
     result["checks"] = checks
     return result
-
-
-def forbidden_modules(modules) -> list[str]:
-    """Loaded modules whose top-level name is JAX's or the JAX package's."""
-    return sorted({m for m in modules if m.split(".")[0] in FORBIDDEN})

@@ -1,7 +1,5 @@
-"""host_us_per_call.conv: median host time to submit a call of the step,
-and in conv960.greeks of its backward too (entry.py, ops/rfft.py,
-autograd's launches through ops/_adjoint.py), from the window, outside
-the profiler."""
+"""host_us_per_call.conv: median host time to submit a call of the step
+(entry.py, ops/rfft.py), from the window, outside the profiler."""
 from portbench import readers
 
 

@@ -1,0 +1,7 @@
+"""k1_device_us.greeks: device time a call of K1 (k1_stockham_kernel,
+k1_reg_kernel in csrc/stockham_fft.cu)."""
+from portbench import readers
+
+
+def read(run):
+    return readers.kernel_us(run, ("k1_stockham_kernel", "k1_reg_kernel"))

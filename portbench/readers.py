@@ -14,6 +14,12 @@ def rows_per_s(run):
     return run.rows * w.calls / w.seconds if w.calls else None
 
 
+def images_per_s(run):
+    """Every image of the window's calls over the window's time."""
+    w = run.window
+    return run.cell.sizes["images"] * w.calls / w.seconds if w.calls else None
+
+
 def call_p95_ms(run):
     """The 95th percentile (nearest rank) of every call's time."""
     lat = sorted(run.window.latency_s)
@@ -47,13 +53,39 @@ def kernel_us(run, names):
     return t if t > 0 else None
 
 
+_NCCL = re.compile(r"(?:void\s+)?nccl")
+
+
+def is_nccl(k) -> bool:
+    """Whether the kernel is NCCL's (its function name starts ``nccl``)."""
+    return _NCCL.match(k.name) is not None
+
+
 def glue_us(run):
-    """Device time a call of every kernel that is not one of the port's
-    hand-written ``csrc`` kernels."""
+    """Device time a call of every kernel that is neither one of the
+    port's hand-written ``csrc`` kernels nor NCCL's."""
     if run.trace is None:
         return None
     port = _named(run.port_kernels)
-    return run.trace.per_call_us(lambda k: not port(k))
+    return run.trace.per_call_us(lambda k: not port(k) and not is_nccl(k))
+
+
+def nccl_us(run):
+    """Device time a call of NCCL's kernels: the exchanges between ranks."""
+    if run.trace is None:
+        return None
+    t = run.trace.per_call_us(is_nccl)
+    return t if t > 0 else None
+
+
+def exchange_pct(run):
+    """The call's bytes sent over the links at the card's peak a direction
+    over NCCL's kernel time a call, in percent; None without the peak or
+    without NCCL's kernels."""
+    us = nccl_us(run)
+    if us is None or not run.link_bytes or not run.link_bytes_per_s:
+        return None
+    return 100.0 * run.link_bytes / run.link_bytes_per_s / (us * 1e-6)
 
 
 def span_us(run, span):

@@ -8,6 +8,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "cfftpack_tpu")
 
 
 def load_json(path: Path):
@@ -74,6 +75,11 @@ def resolve(name: str, root: Path = REPO) -> Cell:
         reference=cfg_file.with_name(cfg_file.stem + "_ref.py"),
         counts=pkg / "counts" / f"{w['config']}.py",
         end_to_end=e2e, per_layer=per, root=root)
+
+
+def forbidden_modules(modules) -> list[str]:
+    """Loaded modules whose top-level name is JAX's or the JAX package's."""
+    return sorted({m for m in modules if m.split(".")[0] in FORBIDDEN})
 
 
 def every_cell(root: Path = REPO) -> list[str]:

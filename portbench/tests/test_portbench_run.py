@@ -24,28 +24,33 @@ def _has_result(stdout):
         return False
 
 
-def test_refuses_without_a_card():
+@pytest.mark.parametrize("cell", ["conv960.book", "fft2_4096.weak4"])
+def test_refuses_without_a_card(cell):
+    """Exit 2 and no result, in one process or over ranks."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    p = _run(["--workload", "conv960.book", "--seed", str(2 ** 31 + 9),
+    p = _run(["--workload", cell, "--seed", str(2 ** 31 + 9),
               "--seconds", "1", "--trace", "0"], spec.REPO, env)
-    assert p.returncode != 0 and not _has_result(p.stdout)
+    assert p.returncode == 2 and not _has_result(p.stdout)
     assert "not measuring" in p.stderr
 
 
 def test_harness_and_references_leave_jax_out():
     """A whole small run on the CPU in a fresh process, then no module
-    whose top-level name is jax, jaxlib, flax or cfftpack_tpu."""
+    whose top-level name is jax, jaxlib, flax or cfftpack_tpu (the cells
+    over several ranks: test_portbench_ranks.py)."""
     code = (
         "import sys, torch\n"
-        "from portbench import calibrate, harness, readers, run, spec\n"
+        "from portbench import calibrate, harness, ranks, readers, run, spec\n"
         "for name in spec.every_cell():\n"
         "    c = spec.resolve(name)\n"
+        "    if c.chips > 1:\n"
+        "        continue\n"
         "    c.traffic = dict(c.traffic, rows=16)\n"
         "    spec.load_module(c.reference, 'reference')\n"
         "    r = harness.run_cell(c, 1, 0.1, False, torch.device('cpu'),\n"
         "                         harness.clock())\n"
         "    assert r['correct'], r\n"
-        "print(harness.forbidden_modules(sys.modules))\n")
+        "print(spec.forbidden_modules(sys.modules))\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=spec.REPO,
                        capture_output=True, text=True, timeout=600)
     assert p.returncode == 0, p.stderr

@@ -6,11 +6,9 @@ import pytest
 
 from portbench import harness, readers, spans, spec, trace
 
-NEW = ("pack_device_us.conv", "pack_device_us.c2c", "merge_device_us.conv",
-       "scale_device_us.conv", "filter_device_us.conv",
-       "unpack_device_us.conv", "unpack_device_us.c2c",
-       "adjoint_device_us.greeks", "launch_host_us.conv",
-       "launch_host_us.c2c")
+NEW = ("pack_device_us.c2c", "filter_device_us.conv",
+       "unpack_device_us.c2c", "adjoint_device_us.greeks",
+       "launch_host_us.conv", "launch_host_us.c2c")
 
 
 def _span(name, ts, dur):

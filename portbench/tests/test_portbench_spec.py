@@ -48,8 +48,15 @@ def test_workload_entry(entry):
     assert set(entry) == {"name", "config", "traffic", "chips", "why"}
     for key in ("name", "config", "traffic"):
         assert NAME.fullmatch(entry[key])
-    assert entry["chips"] == 1
+    assert entry["chips"] in (1, 4)
     assert _line(entry["why"])
+
+
+def test_four_chip_cells_are_few():
+    """At most one cell in four takes 4 chips (rounded down), and one
+    always may."""
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
 
 
 def test_names_are_unique():
@@ -102,8 +109,10 @@ def test_cell_resolves_to_its_files(name):
     assert "setup_s" in names and len(names) >= 2 and cell.per_layer
     assert cell.limits and all(
         v["lower"] < v["limit"] < v["upper"] for v in cell.limits.values())
-    for key in ("rows", "ring", "inflight", "profile_calls"):
+    for key in ("ring", "inflight", "profile_calls"):
         assert key in cell.traffic
+    # a call's batch: the traffic's rows, or the configuration's images
+    assert "rows" in cell.traffic or "images" in cell.sizes
 
 
 def test_new_traffic_is_found_without_editing(tmp_path):
