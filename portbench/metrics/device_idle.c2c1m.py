@@ -1,0 +1,7 @@
+"""device_idle.c2c1m: 1 - the union of device-op intervals over the traced
+window, in percent."""
+from portbench import readers
+
+
+def read(run):
+    return readers.idle_pct(run)
