@@ -42,6 +42,12 @@
 // The grid is ceil(B / T); the last block masks the ragged batch.  The
 // host picks the kernel by length alone.
 //
+// The interleaved complex mode (C entries k1_cplx_f32/f64, K1CplxIO) is
+// K1RowIO's transform on one buffer of (re, im) pairs, as a complex64 or
+// complex128 tensor holds them: the first pass loads a pair with one
+// 8-byte (16 in float64) read and the last stores the scaled pair, so
+// fft/ifft of such rows need no copy into planes and no join after.
+//
 // The real modes (C entries k1_real_f32/f64) are two more IO policies of
 // k1_reg_kernel at the half length h = n/2 of a real transform, one launch
 // where the real route ran K1 between strided copies, a packed merge or
@@ -299,6 +305,49 @@ struct K1RowIO {
     if (active) {
       yr[g0 + e] = scale * vr;
       yi[g0 + e] = scale * vi;
+    }
+  }
+};
+
+// K1's IO in a register pass (the interleaved complex mode): row `row` of
+// the interleaved buffer a0 (N (re, im) pairs, torch.view_as_real of a
+// complex tensor), one 8-byte load a pair (16 in float64), -> the
+// interleaved row of b0, the scaled pair in one store, held in shared
+// memory between passes as K1RowIO holds it.
+template <typename T, int N>
+struct K1CplxIO {
+  using T2 = typename RfVec<T>::type;
+  static constexpr bool first_in_smem = false;
+  static constexpr bool last_in_smem = false;
+  const T2* __restrict__ x;
+  T2* __restrict__ y;
+  T* sr;
+  T* si;
+  bool active;
+  T scale;
+  static __device__ __forceinline__ K1CplxIO at(const K1Block<T>& k) {
+    constexpr int RS = k1_reg_row<N>();
+    const long long row = k.row0 + k.rl;
+    return {reinterpret_cast<const T2*>(k.a0) + row * N,
+            reinterpret_cast<T2*>(k.b0) + row * N, k.s + k.rl * RS,
+            k.s + (k.tb + k.rl) * RS, row < k.B, k.scale};
+  }
+  __device__ __forceinline__ int sidx(int e) const { return e + (e >> 4); }
+  __device__ __forceinline__ void gload(int e, T& vr, T& vi) const {
+    if (active) {
+      const T2 v = x[e];
+      vr = v.x;
+      vi = v.y;
+    } else {
+      vr = vi = T(0);
+    }
+  }
+  __device__ __forceinline__ void gstore(int e, T vr, T vi) const {
+    if (active) {
+      T2 v;
+      v.x = scale * vr;
+      v.y = scale * vi;
+      y[e] = v;
     }
   }
 };
@@ -664,6 +713,22 @@ static int k1_real_launch(int mode, const void* a0, const void* a1,
                                          pass_len, st);
 }
 
+// The interleaved complex mode: x, y rows of n (re, im) pairs, n a
+// register length.
+template <typename T>
+static int k1_cplx_launch(const void* x, void* y, const void* ptw, int B,
+                          int n, int nstages, const int* factors, int npass,
+                          const int* pass_len, int inverse, int tb,
+                          int threads, double scale, void* stream) {
+  if (nstages < 1 || nstages > K1_MAX_STAGES || npass < 1 || threads < 1 ||
+      threads > K1_MAX_THREADS || tb < 1 || B < 1 || !x || !y || !ptw)
+    return (int)cudaErrorInvalidValue;
+  const K1Args a{x, nullptr, y, nullptr, nullptr, ptw, B, tb, threads,
+                 inverse, scale};
+  return k1_reg_dispatch<T, K1CplxIO>(a, n, nstages, factors, npass,
+                                      pass_len, (cudaStream_t)stream);
+}
+
 // One launch of K1 on `stream`: the register kernel when npass > 0 (the
 // passes group the stages `factors` by `pass_len`, and must be the
 // schedule compiled for n), else the stage loop.  ptw is the register
@@ -689,6 +754,26 @@ extern "C" int cfft_stockham_f64(
   return k1_launch<double>(xr, xi, yr, yi, twr, twi, dr, di, ptw, B, n,
                            nstages, factors, tw_offs, dense_offs, npass,
                            pass_len, inverse, tb, threads, scale, stream);
+}
+
+// One launch of K1's interleaved complex mode on `stream`
+// (k1_cplx_launch): the register kernel of n, its schedule as for
+// cfft_stockham_f32, reading and writing rows of (re, im) pairs.
+extern "C" int k1_cplx_f32(const void* x, void* y, const void* ptw, int B,
+                           int n, int nstages, const int* factors, int npass,
+                           const int* pass_len, int inverse, int tb,
+                           int threads, double scale, void* stream) {
+  return k1_cplx_launch<float>(x, y, ptw, B, n, nstages, factors, npass,
+                               pass_len, inverse, tb, threads, scale, stream);
+}
+
+extern "C" int k1_cplx_f64(const void* x, void* y, const void* ptw, int B,
+                           int n, int nstages, const int* factors, int npass,
+                           const int* pass_len, int inverse, int tb,
+                           int threads, double scale, void* stream) {
+  return k1_cplx_launch<double>(x, y, ptw, B, n, nstages, factors, npass,
+                                pass_len, inverse, tb, threads, scale,
+                                stream);
 }
 
 // One launch of a real mode of K1 on `stream` (k1_real_launch): the

@@ -45,6 +45,10 @@ _K1_ARGTYPES = ([_P] * 9 + [_I, _I, _I] + [_P] * 3 + [_I, _P, _I, _I, _I,
 # tb, threads, scale, stream
 _K1_REAL_ARGTYPES = ([_I] + [_P] * 6 + [_I] * 3 + [_P, _I, _P, _I, _I,
                                                  ctypes.c_double, _P])
+# x, y, ptw, B, n, nstages, factors, npass, pass_len, inverse, tb, threads,
+# scale, stream
+_K1_CPLX_ARGTYPES = ([_P] * 3 + [_I] * 3 + [_P, _I, _P, _I, _I, _I,
+                                            ctypes.c_double, _P])
 # xr, xi, yr, yi, sr, si, t1r, t1i, ctwr, ctwi, cstages, cfac, coff,
 # rtwr, rtwi, rstages, rfac, roff, cptw, rptw, fr, fi, nfilt, b, m, mode,
 # csize, lshift, in_rs, ys, scale, stream
@@ -143,6 +147,8 @@ def load() -> ctypes.CDLL:
                         ("cfft_stockham_f64", _K1_ARGTYPES),
                         ("k1_real_f32", _K1_REAL_ARGTYPES),
                         ("k1_real_f64", _K1_REAL_ARGTYPES),
+                        ("k1_cplx_f32", _K1_CPLX_ARGTYPES),
+                        ("k1_cplx_f64", _K1_CPLX_ARGTYPES),
                         ("stream_fft_f32", _STREAM_ARGTYPES),
                         ("stream_split_f32", _SPLIT_ARGTYPES),
                         ("stream_nat_f32", _NAT_ARGTYPES),

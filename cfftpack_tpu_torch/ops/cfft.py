@@ -7,7 +7,10 @@ their 2-D and N-D forms as per-axis passes.  The engine (``core.sfft``)
 works on the last axis; a pass over axis -2 of float32 planes whose
 length the column kernel takes (``colfft.colfft_eligible``) runs K6 in
 the natural layout, every other pass moves its axis last.  The complex
-forms go through the same split passes, so they reach the same kernels.
+forms go through the same split passes, so they reach the same kernels,
+but for one route: ``fft``/``ifft`` on the last axis at K1's register
+lengths run K1's interleaved complex mode on the complex tensor itself
+(``fused_fft.cfft_interleaved``), with no planes and no join.
 ``impl="pallas"`` on the split forms names the kernel instead of leaving
 the choice to the engine: the four-step kernel K10 at its lengths, else
 K1, else an error.  An input that is not a tensor is placed on the
@@ -19,6 +22,7 @@ import torch
 
 from ..config import (DEFAULT_NORM, as_tensor, check_norm, complex_dtype_of,
                       fwd_scale, inv_scale)
+from ..utils import profiling
 from ..utils.profiling import span
 from . import colfft, core, fourstep_fft, fused_fft
 
@@ -43,10 +47,21 @@ def _check_length(n: int) -> None:
 
 
 def _fft_impl(x, axis: int, norm: str, inverse: bool):
+    """The complex transform over ``axis``: on the last axis at a length
+    K1's interleaved mode takes (``fused_fft.cplx_eligible``), that mode
+    on the complex tensor itself; otherwise the split pass over its
+    planes, joined by ``torch.complex``.  ``profiling.complex_maps``
+    counts the routes."""
     x = as_tensor(x)
     _check_axis(x, axis)
     x = x.to(complex_dtype_of(x.dtype))
-    _check_length(x.shape[axis])
+    n = x.shape[axis]
+    _check_length(n)
+    if axis % x.ndim == x.ndim - 1 and fused_fft.cplx_eligible(n, x.dtype):
+        profiling.complex_maps["interleaved"] += 1
+        s = inv_scale(norm, n) if inverse else fwd_scale(norm, n)
+        return fused_fft.cfft_interleaved(x, n, inverse, s)
+    profiling.complex_maps["planes"] += 1
     yr, yi = _split_pass(x.real, x.imag, axis, norm, inverse)
     with span("cfftpack.unpack"):
         return torch.complex(yr, yi)

@@ -34,6 +34,18 @@ and the adjoint of either map is the other mode with the transposed set
 at the same scale, so each enters ``_adjoint.linear`` as one map.  On a
 CPU tensor :func:`real_plain` runs the same glue in PyTorch.
 ``utils.profiling.real_maps`` counts the maps by direction.
+
+The complex API's route (``cfft._fft_impl``: a complex64 or complex128
+tensor, the transform on its last axis, n in :data:`REG_LENGTHS` of its
+real dtype, :func:`cplx_eligible`) runs K1's interleaved complex mode,
+:func:`cfft_interleaved`: one launch of ``k1_cplx_f32``/``f64`` (counted
+as K1) reads the rows as the tensor holds them, (re, im) pairs, and
+writes the scaled pairs of a new complex tensor, so neither the planes'
+copies nor ``torch.complex`` run.  Rows with the conjugate or negative
+bit, or not contiguous at stride n on a base aligned for the pair loads,
+are copied once under ``cfftpack.pack`` first.  Its adjoint is the same
+mode in the other direction at the same scale.  On a CPU tensor the same
+route runs K1's plain version on the ``view_as_real`` planes.
 """
 from __future__ import annotations
 
@@ -47,7 +59,8 @@ from ..utils import profiling
 from . import _adjoint, _build, core
 
 __all__ = ["fused_eligible", "sfft_fused", "sfft_plain", "REG_LENGTHS",
-           "real_eligible", "srfft_real", "sirfft_real", "real_plain"]
+           "real_eligible", "srfft_real", "sirfft_real", "real_plain",
+           "cplx_eligible", "cfft_interleaved"]
 
 # Shared memory one block may use on sm_90 (227 KB).
 _SMEM_BUDGET = 232448
@@ -136,17 +149,21 @@ class LaunchPlan:
 _PLANS: dict = {}
 
 
+def _cached(key, build, *args) -> LaunchPlan:
+    """The launch plan cached under ``key``, made by ``build(*args)`` on
+    first use and again after ``plan`` replaces a table."""
+    lp = _PLANS.get(key)
+    if lp is None or lp.version != plan.VERSION:
+        with profiling.planning():
+            lp = _PLANS[key] = build(*args)
+    return lp
+
+
 def launch_plan(n: int, dtype: torch.dtype, inverse: bool,
                 device) -> LaunchPlan:
-    """The cached launch plan of (n, dtype, inverse, device), built on
-    first use and again after ``plan`` replaces a table."""
-    key = (n, dtype, inverse, device)
-    lp = _PLANS.get(key)
-    if lp is not None and lp.version == plan.VERSION:
-        return lp
-    with profiling.planning():
-        lp = _PLANS[key] = _build_plan(n, dtype, device)
-    return lp
+    """The cached launch plan of (n, dtype, inverse, device)."""
+    return _cached((n, dtype, inverse, device), _build_plan, n, dtype,
+                   device)
 
 
 def _build_plan(n: int, dtype: torch.dtype, device) -> LaunchPlan:
@@ -281,15 +298,9 @@ def _real_plain_rows(a, b, n: int, tables: str, scale: float):
 def real_plan(n: int, dtype: torch.dtype, tables: str,
               device) -> LaunchPlan:
     """The cached launch plan of a real mode: K1's register schedule at
-    n/2 and the table set ``tables`` of n, rebuilt after ``plan``
-    replaces a table."""
-    key = (n, dtype, tables, device)
-    lp = _PLANS.get(key)
-    if lp is not None and lp.version == plan.VERSION:
-        return lp
-    with profiling.planning():
-        lp = _PLANS[key] = _build_real_plan(n, dtype, tables, device)
-    return lp
+    n/2 and the table set ``tables`` of n."""
+    return _cached((n, dtype, tables, device), _build_real_plan, n, dtype,
+                   tables, device)
 
 
 def _build_real_plan(n: int, dtype: torch.dtype, tables: str,
@@ -398,3 +409,98 @@ def sirfft_real(yr, yi, n: int, scale: float = 1.0, tables: str = "irfft"):
     lead = yr.shape[:-1]
     run = _real_plain_rows if yr.device.type == "cpu" else _real_launch
     return run(yr, yi, n, tables, scale).reshape(lead + (n,))
+
+
+# ------------------------------------------- the interleaved complex mode
+
+def cplx_eligible(n: int, dtype: torch.dtype) -> bool:
+    """Whether complex rows of length ``n`` and ``dtype`` take K1's
+    interleaved mode: complex64 or complex128 with n a register length of
+    the real dtype."""
+    if dtype not in (torch.complex64, torch.complex128):
+        return False
+    return n in REG_LENGTHS[dtype.to_real()]
+
+
+def _cplx_rows(x, n: int):
+    """``x`` as contiguous rows of n (re, im) pairs on a base aligned for
+    the pair loads, with no conjugate or negative bit; one copy under
+    ``cfftpack.pack`` where it is not so."""
+    if (x.is_conj() or x.is_neg() or not x.is_contiguous()
+            or x.data_ptr() % x.element_size()):
+        with profiling.span("cfftpack.pack"):
+            x = x.clone(memory_format=torch.contiguous_format)
+    return x.reshape(-1, n)
+
+
+def cplx_plan(n: int, dtype: torch.dtype, device) -> LaunchPlan:
+    """The cached launch plan of the interleaved mode at (n, complex
+    ``dtype``): K1's register schedule at n."""
+    return _cached((n, dtype, device), _build_cplx_plan, n,
+                   dtype.to_real(), device)
+
+
+def _build_cplx_plan(n: int, dtype: torch.dtype, device) -> LaunchPlan:
+    t = plan.device_tables(n, dtype, device)
+    lib = _build.load()
+    fn = lib.k1_cplx_f32 if dtype == torch.float32 else lib.k1_cplx_f64
+    passes = plan.reg_passes(n)
+    ptw = plan.to_device(plan.reg_twiddles(n), dtype, device)
+    tb = _reg_tile_rows(n, dtype)
+    args = (ptw.data_ptr(), len(t.factors), _build.ints(t.factors),
+            len(passes), _build.ints([len(q) for q in passes]))
+    return LaunchPlan(fn, args, passes, tb, tb * _reg_threads_per_row(n),
+                      (t, ptw), plan.VERSION)
+
+
+def _cplx_check(x2, n: int) -> None:
+    if not x2.is_cuda:
+        raise ValueError(f"K1 needs a CUDA tensor, got {x2.device}")
+    if not cplx_eligible(n, x2.dtype):
+        raise ValueError(f"K1's interleaved mode does not take n={n} in "
+                         f"{x2.dtype}")
+    if x2.shape[0] >= 2 ** 31:
+        raise ValueError(f"K1 takes fewer than 2^31 rows, got "
+                         f"{x2.shape[0]}")
+
+
+def _cplx_launch(x2, n: int, inverse: bool, scale: float):
+    """One launch of the interleaved mode on the CUDA rows ``x2``."""
+    _cplx_check(x2, n)
+    rows = x2.shape[0]
+    y = torch.empty_like(x2)
+    if rows:
+        lp = cplx_plan(n, x2.dtype, x2.device)
+        err = _build.call("K1", lp.fn, x2.device, x2.data_ptr(),
+                          y.data_ptr(), lp.tables[0], rows, n,
+                          *lp.tables[1:], int(inverse), lp.tile_rows,
+                          lp.threads, scale)
+        if err != 0:
+            raise RuntimeError(f"K1 interleaved launch failed at n={n}, "
+                               f"rows={rows}, {x2.dtype}: CUDA error {err}")
+    return y
+
+
+def _cplx_plain(x2, n: int, inverse: bool, scale: float):
+    """The interleaved mode's plain version: K1's plain one on the
+    ``view_as_real`` planes of the rows ``x2``, joined into pairs."""
+    v = torch.view_as_real(x2)
+    yr, yi = sfft_plain(v[..., 0], v[..., 1], n, inverse)
+    if scale != 1.0:
+        yr, yi = yr * scale, yi * scale
+    return torch.complex(yr, yi)
+
+
+def cfft_interleaved(x, n: int, inverse: bool, scale: float = 1.0):
+    """The DFT over the last axis of the complex tensor ``x`` through K1's
+    interleaved mode, times ``scale`` (applied in the store): a new
+    contiguous complex tensor of ``x``'s shape.  The caller guarantees
+    ``cplx_eligible(n, x.dtype)``.  Differentiable: the adjoint is the
+    other direction at the same scale."""
+    if _adjoint.needs_grad(x):
+        return _adjoint.linear(
+            lambda v: cfft_interleaved(v, n, inverse, scale),
+            lambda g: cfft_interleaved(g, n, not inverse, scale), x)
+    x2 = _cplx_rows(x, n)
+    run = _cplx_plain if x2.device.type == "cpu" else _cplx_launch
+    return run(x2, n, inverse, scale).reshape(x.shape)

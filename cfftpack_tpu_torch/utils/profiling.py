@@ -27,8 +27,10 @@ The launch registry: :data:`launches` counts each C entry's successful
 calls by K-name (``ops._build.call``), :data:`plans` the builds under
 ``cfftpack.plan``, :data:`real_maps` the real route's maps by direction
 (``r2c``, ``c2r``: ``ops.fused_fft.srfft_real``, ``sirfft_real``, on any
-device, a backward's adjoint map included); :func:`counts` reads them
-all, :func:`reset` zeroes them.
+device, a backward's adjoint map included), :data:`complex_maps` the
+complex API's ``fft``/``ifft`` calls by route (``interleaved``: K1's
+interleaved mode; ``planes``: the split pass, ``ops.cfft._fft_impl``, on
+any device); :func:`counts` reads them all, :func:`reset` zeroes them.
 """
 from __future__ import annotations
 
@@ -40,13 +42,14 @@ import time
 import torch
 
 __all__ = ["trace", "Timer", "span", "planning", "counts", "reset",
-           "launches", "real_maps", "KERNELS"]
+           "launches", "real_maps", "complex_maps", "KERNELS"]
 
 # The C entries' names in the registry: the eleven kernels, and the
 # tensor-core product's own entry (``cgemm_f32``, called by the smoke).
 KERNELS = tuple(f"K{i}" for i in range(1, 12)) + ("cgemm",)
 launches: dict = dict.fromkeys(KERNELS, 0)
 real_maps: dict = {"r2c": 0, "c2r": 0}
+complex_maps: dict = {"interleaved": 0, "planes": 0}
 plans = 0
 _OFF = contextlib.nullcontext()
 
@@ -71,10 +74,12 @@ def planning():
 
 
 def counts() -> dict:
-    """Launches by K-name, ``plans`` (the builds under ``cfftpack.plan``)
-    and the real route's maps as ``real.r2c`` and ``real.c2r``."""
+    """Launches by K-name, ``plans`` (the builds under ``cfftpack.plan``),
+    the real route's maps as ``real.r2c`` and ``real.c2r`` and the complex
+    API's routes as ``complex.interleaved`` and ``complex.planes``."""
     return {**launches, "plans": plans,
-            **{"real." + k: v for k, v in real_maps.items()}}
+            **{"real." + k: v for k, v in real_maps.items()},
+            **{"complex." + k: v for k, v in complex_maps.items()}}
 
 
 def reset() -> None:
@@ -84,6 +89,8 @@ def reset() -> None:
         launches[k] = 0
     for k in real_maps:
         real_maps[k] = 0
+    for k in complex_maps:
+        complex_maps[k] = 0
     plans = 0
 
 

@@ -52,7 +52,12 @@ counted; in phase 38 the port's demos and validation (the five tables of
 on a one-rank NCCL group and the float32 golden table of
 ``scripts/torch_validate.py``) with every plain version refused, their
 launches and wall times, the deterministic tables against their CPU
-runs; and checks each result.  Each path runs with the launch
+runs; in phase 39 K1's interleaved complex mode under ``fft``/``ifft``
+at every register length in both dtypes and on every input layout
+(conjugate and negative bits, strided and transposed rows, offsets, no
+rows) against ``torch.fft``, one K1 launch a transform, and a profiled
+contiguous round trip at (4096, 1024) complex128 launching K1 alone;
+and checks each result.  Each path runs with the launch
 counts set to 0 just before it and read just after.  Prints CUDA-event
 times of the kernels, their plain versions and the PyTorch calls that
 compute the same functions, the measurements behind K1's rows a block,
@@ -82,6 +87,7 @@ import scipy.fft
 import torch
 
 import cfftpack_tpu_torch as ct
+from cfftpack_tpu_torch.config import fwd_scale, inv_scale
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
@@ -239,7 +245,7 @@ def plain_engine():
     """Run the transform path with the kernels' plain versions in place
     of the kernels, on the same card, for comparison and timing only."""
     kernel, stream_launch = fused_fft.sfft_fused, stream_fft._launch
-    real_launch = fused_fft._real_launch
+    real_launch, cplx_launch = fused_fft._real_launch, fused_fft._cplx_launch
     rstream_launch, col_launch = rstream.launch, colfft._launch
     four_launch, mm2_launch = fourstep_fft._launch, stream_fft._mm2_launch
 
@@ -251,6 +257,7 @@ def plain_engine():
 
     fused_fft.sfft_fused = plain
     fused_fft._real_launch = fused_fft._real_plain_rows
+    fused_fft._cplx_launch = fused_fft._cplx_plain
     stream_fft._launch = stream_fft.stream_plain
     rstream.launch = rstream_plain
     colfft._launch = colfft_plain_launch
@@ -261,6 +268,7 @@ def plain_engine():
     finally:
         fused_fft.sfft_fused = kernel
         fused_fft._real_launch = real_launch
+        fused_fft._cplx_launch = cplx_launch
         stream_fft._launch = stream_launch
         rstream.launch = rstream_launch
         colfft._launch = col_launch
@@ -343,6 +351,19 @@ def drive(fn, total: dict):
     for k in KERNELS:
         total[k] += got[k]
     return out, got
+
+
+def plain_run(fn, what: str):
+    """fn's result under :func:`plain_engine`, which must launch no
+    kernel: the comparison holds the kernels against their plain
+    versions, not against themselves."""
+    profiling.reset()
+    with plain_engine():
+        out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in profiling.launches.items() if v}
+    check(not got, f"{what}: the plain engine launched no kernel ({got})")
+    return out
 
 
 def stream_reference(x, n: int, mode: str, f=None):
@@ -610,7 +631,8 @@ def dst7_definition(x):
 def phase_f64_surface(total: dict, card: str) -> None:
     """Phase 31: the *_hp names in float64 at full width, each against
     torch.fft in complex128 or scipy and against its plain-engine run at
-    1e-12 of max |X|, K1 launched."""
+    1e-12 of max |X|, K1 launched by the one and no kernel by the
+    other."""
     bar = 1e-12
     x = real(HP_SHAPE, torch.float64, seed=131)
     xc = torch.complex(*pair(HP_SHAPE, torch.float64, seed=132))
@@ -633,8 +655,7 @@ def phase_f64_surface(total: dict, card: str) -> None:
         y, got = drive(fn, total)
         wall = time.perf_counter() - t0
         check(got["K1"] > 0, f"K1 launched by {name} ({got})")
-        with plain_engine():
-            plain = fn()
+        plain = plain_run(fn, f"{name} plain")
         e_o, e_p = rel_err(y, want), rel_err(y, plain)
         check(y.dtype in (torch.float64, torch.complex128) and bool(
             torch.isfinite(torch.view_as_real(y) if y.is_complex()
@@ -653,8 +674,7 @@ def phase_f64_surface(total: dict, card: str) -> None:
         print(f"phase 31: {name} {HP_LONG} complex128 fftpack")
         y, got = drive(lambda: fn(xl), total)
         check(got["K1"] > 0, f"K1 launched by {name} ({got})")
-        with plain_engine():
-            plain = fn(xl)
+        plain = plain_run(lambda: fn(xl), f"{name} {HP_LONG} plain")
         e_o, e_p = rel_err(y, want), rel_err(y, plain)
         check(e_o < bar and e_p < bar, f"{name} vs torch.fft {e_o:.2e}, vs "
               f"plain {e_p:.2e} < {bar:g}")
@@ -663,8 +683,7 @@ def phase_f64_surface(total: dict, card: str) -> None:
     x2 = torch.complex(*pair(HP_2D, torch.float64, seed=134))
     y, got = drive(lambda: ct.fft2_hp(x2), total)
     check(got["K1"] > 0, f"K1 launched by fft2_hp ({got})")
-    with plain_engine():
-        plain = ct.fft2_hp(x2)
+    plain = plain_run(lambda: ct.fft2_hp(x2), "fft2_hp plain")
     e_o = rel_err(y, torch.fft.fft2(x2, norm="forward"))
     e_p = rel_err(y, plain)
     check(e_o < bar and e_p < bar, f"fft2_hp vs torch.fft {e_o:.2e}, vs plain "
@@ -684,8 +703,8 @@ def phase_f64_surface(total: dict, card: str) -> None:
                           q[2].double() + q[3].double())
         want = (torch.fft.ifft(xq, norm="forward") if inverse
                 else torch.fft.fft(xq))
-        with plain_engine():
-            p = ct.sfft_hp(*quad, nq, inverse)
+        p = plain_run(lambda: ct.sfft_hp(*quad, nq, inverse),
+                      f"sfft_hp inverse={inverse} plain")
         plain = torch.complex(p[0].double() + p[1].double(),
                               p[2].double() + p[3].double())
         e_o, e_p = rel_err(y, want), rel_err(y, plain)
@@ -712,7 +731,8 @@ def golden_tol(n) -> float:
 def phase_compat(total: dict, card: str) -> None:
     """Phase 32: every compat family, forward and inverse, on the golden
     inputs moved to the card at test_golden.py's bars; then two plans
-    over a (4096, 1024) float64 batch against the plain engine."""
+    over a (4096, 1024) float64 batch against the plain engine, which
+    launches no kernel."""
     from cfftpack_tpu_torch import compat as cc
     gold = np.load(Path(__file__).resolve().parent / GOLDEN)
 
@@ -792,8 +812,7 @@ def phase_compat(total: dict, card: str) -> None:
                 fn = getattr(plan, way)
                 y, got = drive(lambda: fn(x), total)
                 check(got["K1"] > 0, f"K1 launched by {name}.{way} ({got})")
-                with plain_engine():
-                    want = fn(x)
+                want = plain_run(lambda: fn(x), f"{name}.{way} plain")
                 e_p = rel_err(y, want)
                 check(e_p < 1e-12, f"{name}.{way} vs plain {e_p:.2e} < 1e-12")
 
@@ -880,7 +899,7 @@ FFT2_SHAPE, RFFT2_SHAPE = (64, 4096, 4096), (16, 4096, 4096)
 # (module, name): no_plain_on_card makes each raise on a CUDA tensor
 PLAIN_VERSIONS = (
     (fused_fft, "sfft_plain"), (fused_fft, "real_plain"),
-    (core, "_stockham"),
+    (fused_fft, "_cplx_plain"), (core, "_stockham"),
     (stream_fft, "stream_plain"), (stream_fft, "sfft_mm2_plain"),
     (rstream, "_rfft_plain"), (rstream, "_irfft_plain"),
     (rstream, "_dct2_plain"), (rstream, "_dct3_plain"),
@@ -1721,6 +1740,104 @@ def phase_demos(total: dict, card: str) -> None:
               f"{err:.2e} < 1e-9 relative")
     print(f"  phase 38: {time.perf_counter() - t0:.1f} s wall, the CPU runs "
           f"included  [{card}]")
+
+
+def cplx_views(cdt, n: int, b: int, seed: int) -> dict:
+    """Phase 39's inputs of (b, n) complex rows on the card by layout: a
+    contiguous block, the conjugate and negative bits, rows of a
+    transposed block, strided rows, a storage offset, no rows, one row."""
+    base = torch.view_as_complex(real((b + 1, 2 * n, 2), cdt.to_real(),
+                                      seed))
+    x = base[1:, :n].contiguous()
+    return {"contiguous": x, "conj": x.conj(), "neg_bit": torch._neg_view(x),
+            "transposed": x.T.contiguous().T, "strided": base[1:, ::2],
+            "offset": base.reshape(-1)[n:n + b * n].view(b, n),
+            "no_rows": x[:0], "one_row": x[:1]}
+
+
+def phase_cplx_k1(total: dict, card: str) -> None:
+    """Phase 39: K1's interleaved complex mode under ``fft``/``ifft`` at
+    every register length in both dtypes, on every input layout of
+    :func:`cplx_views` at 3 and 4096 rows (and the 16384 rows of
+    ``c2c1024.stream`` at 1024 in complex128), against ``torch.fft`` in
+    complex128 and against the mode's plain version ``_cplx_plain`` on
+    the same card inputs (1e-5 of max |X| in complex64, 1e-12 in
+    complex128), one K1 launch a transform and no other entry, every
+    plain version refused inside the path; then, profiled, a contiguous
+    ``fft`` and ``ifft`` at (4096, 1024) complex128 launch K1 alone: no
+    kernel inside ``cfftpack.pack`` or ``cfftpack.unpack``."""
+    from torch.profiler import ProfilerActivity, profile
+    print("phase 39: K1's interleaved complex mode (fft/ifft at the "
+          "register lengths vs torch.fft and its plain version, every "
+          "plain version refused inside the path)")
+    bars = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+    cplx_plain = fused_fft._cplx_plain
+    for cdt in (torch.complex64, torch.complex128):
+        worst_o = worst_p = 0.0
+        bad, maps, calls = [], 0, 0
+        for n in fused_fft.REG_LENGTHS[cdt.to_real()]:
+            rows = (3, 4096) + ((16384,) if (cdt, n) == (torch.complex128,
+                                                         1024) else ())
+            for b in rows:
+                for kind, v in cplx_views(cdt, n, b, seed=n + b).items():
+                    v128 = v.resolve_conj().resolve_neg().to(
+                        torch.complex128)
+                    for inv, norm in ((False, "fftpack"), (True, "fftpack"),
+                                      (False, "ortho")):
+                        fn = ct.ifft if inv else ct.fft
+                        with no_plain_on_card():
+                            y, got = drive(lambda: fn(v, norm=norm), total)
+                        calls += 1
+                        maps += profiling.complex_maps["interleaved"]
+                        what = f"n={n} {kind} b={b} inverse={inv} {norm}"
+                        if launched(got) != ({"K1": 1} if v.numel() else {}):
+                            bad.append(f"{what}: launches {got}")
+                        if not v.numel():
+                            continue
+                        s = (inv_scale(norm, n) if inv
+                             else fwd_scale(norm, n))
+                        ref = (torch.fft.ifft(v128) * n if inv
+                               else torch.fft.fft(v128)) * s
+                        plain = cplx_plain(
+                            v.resolve_conj().resolve_neg().reshape(-1, n),
+                            n, inv, s).reshape(v.shape)
+                        e_o, e_p = rel_err(y, ref), rel_err(y, plain)
+                        worst_o, worst_p = max(worst_o, e_o), max(worst_p, e_p)
+                        if not (e_o < bars[cdt] and e_p < bars[cdt]
+                                and y.dtype == cdt):
+                            bad.append(f"{what}: vs torch.fft {e_o:.3e}, vs "
+                                       f"plain {e_p:.3e}, {y.dtype}")
+                    del v128
+        check(not bad, f"{cdt}: every length, layout and row count, one K1 "
+              f"launch a transform, within {worst_o:.3e} of torch.fft and "
+              f"{worst_p:.3e} of the plain version < {bars[cdt]:.0e} "
+              f"{bad[:3]}")
+        check(maps == calls, f"{cdt}: {maps} of {calls} calls took the "
+              "interleaved route")
+    x = real((4096, 1024, 2), torch.float64, seed=391)
+    x = torch.view_as_complex(x)
+    for _ in range(2):
+        ct.ifft(ct.fft(x))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ct.ifft(ct.fft(x))
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("cfftpack.")]
+    spans = {e.name for e in prof.events() if e.name.startswith("cfftpack.")}
+    print(f"  (4096, 1024) complex128 fft+ifft: device ops {kernels}, spans "
+          f"{sorted(spans)}")
+    check(len(kernels) == 2 and all("k1_reg_kernel" in k and "K1CplxIO" in k
+                                    for k in kernels),
+          "a contiguous fft and ifft launch K1's interleaved mode alone")
+    check(not spans & {"cfftpack.pack", "cfftpack.unpack"},
+          "no cfftpack.pack or cfftpack.unpack span on a contiguous input")
+    n = fused_fft.REG_LENGTHS[torch.float64][3]
+    ms = median_ms(lambda: ct.fft(x))
+    print(f"  fft (4096, {n}) complex128 through K1's interleaved mode: "
+          f"{ms:.4f} ms a call, event time  [{card}]")
 
 
 def phase_utils(card: str) -> None:
@@ -3416,6 +3533,10 @@ def main() -> None:
     # ---- phase 35: the four small utils (after phase 25: a profiler
     # session before it makes its traces lose kernel rows)
     phase_utils(card)
+
+    # ---- phase 39: K1's interleaved complex mode under fft/ifft (after
+    # phase 25 too: it profiles)
+    phase_cplx_k1(total, card)
 
     # each kernel's bound at the shape its times were taken at: every
     # input read once and every output written once (the data planes; the

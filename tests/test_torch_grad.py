@@ -23,6 +23,8 @@ formulas that the card runs.
 * For every wrapper, the dot-product identity <A x, g> = <x, A^T g>
   through the Function's backward, and ``torch.autograd.gradcheck``
   where the plain version takes float64.
+* K1's real modes and its interleaved complex mode under autograd
+  against ``jax.vjp`` of the JAX package's functions, in float64.
 * A Hessian-vector product through ``dct`` ortho (a second derivative
   through the Function), a cotangent from a sliced loss, and that no
   ``apply`` runs and no ``grad_fn`` is made when no input requires grad.
@@ -53,6 +55,7 @@ import cfftpack_tpu_torch as pt
 from cfftpack_tpu_torch.entry import step as pt_step
 from cfftpack_tpu_torch.ops import (_adjoint, colfft, fourstep_fft, fused_fft,
                                     rstream, stream_fft)
+from cfftpack_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -498,8 +501,23 @@ WRAPPERS = [
         (f"K1 c2r {n}",
          lambda a, b, n=n: fused_fft.sirfft_real(a, b, n, 0.3),
          [(3, n // 2 + 1)] * 2, True, False))
+] + [
+    # K1's interleaved complex mode (the route of fft and ifft), on the
+    # complex tensor of the two planes, its result as planes
+    (f"K1 cplx{' inverse' if inverse else ''} {n}",
+     lambda a, b, n=n, inverse=inverse: _cplx_planes(a, b, n, inverse),
+     [(3, n)] * 2, True, False)
+    for n in (960, 1024) for inverse in (False, True)
 ]
 WNAMES = [w[0] for w in WRAPPERS]
+
+
+def _cplx_planes(a, b, n: int, inverse: bool):
+    """``fused_fft.cfft_interleaved`` at scale 0.3 on the complex tensor
+    ``torch.complex(a, b)`` (complex64 from float32 planes, complex128
+    from float64), returned as its two planes."""
+    y = fused_fft.cfft_interleaved(torch.complex(a, b), n, inverse, 0.3)
+    return tuple(torch.view_as_real(y).unbind(-1))
 
 
 def _wrapper(name: str, monkeypatch):
@@ -552,7 +570,8 @@ def test_wrapper_gradcheck(name, monkeypatch):
                                   "K8 dst4", "K9 dct3", "K1 r2c 960",
                                   "K1 c2r 960", "K1 r2c 1024",
                                   "K1 c2r 1024", "K1 r2c 2048",
-                                  "K1 c2r 2048"])
+                                  "K1 c2r 2048", "K1 cplx 960",
+                                  "K1 cplx inverse 1024"])
 def test_wrapper_gradient_matches_plain_autograd(name, monkeypatch):
     """The Function's backward equals autograd through the plain version
     (the gradient the CPU path gave before), in float32."""
@@ -605,6 +624,31 @@ def test_real_maps_match_jax_vjp(n):
                                (at, bt), torch.tensor(g))
     for a, b in zip(got, want):
         assert _err(a.numpy(), s * np.asarray(b)) < 1e-12
+
+
+@pytest.mark.parametrize("n", [960, 1024])
+def test_cplx_map_matches_jax_vjp(n):
+    """K1's interleaved complex mode under autograd (``fft`` and ``ifft``
+    of complex128 rows at a register length) against ``jax.vjp`` of the
+    JAX package's ``fft`` and ``ifft`` at 1e-12 of max |g|.  ``jax.vjp``
+    pulls a cotangent back through the transpose of the linear map and
+    PyTorch through its conjugate transpose, so the gradient for the
+    cotangent g is conj(vjp(conj g))."""
+    r = np.random.default_rng(n)
+    x, g = (r.standard_normal((3, n)) + 1j * r.standard_normal((3, n))
+            for _ in range(2))
+    for name in ("fft", "ifft"):
+        _, pull = jax.vjp(getattr(ct, name), x)
+        (want,) = pull(np.conj(g))
+        want = np.conj(np.asarray(want))
+        xt = torch.tensor(x, requires_grad=True)
+        before = profiling.complex_maps["interleaved"]
+        (got,) = torch.autograd.grad(getattr(pt, name)(xt), xt,
+                                     torch.tensor(g))
+        assert profiling.complex_maps["interleaved"] == before + 1
+        got = got.numpy()
+        assert got.dtype == np.complex128
+        assert (np.abs(got - want).max() / np.abs(want).max()) < 1e-12, name
 
 
 @pytest.mark.parametrize("dtype, n, bar", [(torch.float64, 60, 1e-12),

@@ -6,7 +6,7 @@
   each inside the span that encloses it on its thread.  On the CPU the
   plain versions run, so no ``cfftpack.K*`` or ``cfftpack.pack`` span;
   the glue's leaf spans where a real transform's half length runs K1's
-  stage loop.
+  stage loop, and the complex join where a length takes the planes.
 * With no profiler no ``record_function`` is made.
 * The registry counts K1's launches as the wrapper's own counter did: one
   a successful C call, none for a CPU tensor, an empty batch or an error,
@@ -94,16 +94,20 @@ def test_glue_route_spans_nest_as_stated():
 
 
 def test_fft_ifft_spans_nest_as_stated():
-    x = torch.randn(4, 1024, dtype=torch.complex128)
-    pt.ifft(pt.fft(x))
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    """At a register length K1's interleaved mode (its plain version here)
+    opens no leaf span; at a stage-loop length the planes' route joins
+    its result under ``cfftpack.unpack``."""
+    for n, leaves in ((1024, set()), (1000, {
+            ("cfftpack.unpack", "cfftpack.fft"),
+            ("cfftpack.unpack", "cfftpack.ifft")})):
+        x = torch.randn(4, n, dtype=torch.complex128)
         pt.ifft(pt.fft(x))
-    spans = _spans(prof)
-    assert _pairs(spans) == {("cfftpack.fft", None),
-                             ("cfftpack.unpack", "cfftpack.fft"),
-                             ("cfftpack.ifft", None),
-                             ("cfftpack.unpack", "cfftpack.ifft")}
-    assert [s[0] for s in spans].count("cfftpack.unpack") == 2
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            pt.ifft(pt.fft(x))
+        spans = _spans(prof)
+        assert _pairs(spans) == {("cfftpack.fft", None),
+                                 ("cfftpack.ifft", None)} | leaves, n
+        assert [s[0] for s in spans].count("cfftpack.unpack") == len(leaves)
 
 
 def test_grad_through_the_step_records_the_adjoints():
@@ -163,6 +167,8 @@ def k1_entry(monkeypatch):
     monkeypatch.setattr(profiling, "launches",
                         dict.fromkeys(profiling.KERNELS, 0))
     monkeypatch.setattr(profiling, "real_maps", {"r2c": 0, "c2r": 0})
+    monkeypatch.setattr(profiling, "complex_maps",
+                        {"interleaved": 0, "planes": 0})
     return record, calls
 
 
