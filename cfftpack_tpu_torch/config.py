@@ -20,7 +20,8 @@ f64; the card has it, so float64 runs natively here: the policy names
 
 Devices: the port runs on the card unless the caller asks for the CPU.
 :func:`resolve_device` is the one place that rule lives; a tensor the
-caller hands in keeps its own device.
+caller hands in keeps its own device.  The API layer's shared checks
+and coercion live here too, below the engine.
 """
 from __future__ import annotations
 
@@ -115,6 +116,38 @@ def resolve_device(device=None) -> torch.device:
             "cfftpack_tpu_torch runs on the card by default; pass "
             "device=\"cpu\" or CPU tensors to run on the CPU")
     return torch.device("cuda")
+
+
+def _apply_axis(x, axis: int, fn):
+    """fn over the last axis, applied along ``axis`` (movedim is a view)."""
+    return fn(x.movedim(axis, -1)).movedim(-1, axis)
+
+
+def _check_axis(x, axis: int) -> None:
+    if not -x.ndim <= axis < x.ndim:
+        raise ValueError(f"axis {axis} out of range for rank-{x.ndim} input")
+
+
+def _check_length(n: int) -> None:
+    """Every entry point calls this before any table is built."""
+    if n < 1:
+        raise ValueError(f"transform length must be >= 1, got {n}")
+
+
+def _as_real_plane(x, name: str):
+    """Coerce a real-plane operand to a >= 32-bit float dtype: integers
+    promote with float32, narrower floats widen to float32 (their
+    twiddles would lose ~1e-2), and complex input is rejected (it would
+    flow into the real engine silently)."""
+    if x.is_complex():
+        raise TypeError(
+            f"{name}: real input required, got {x.dtype}; take .real "
+            "explicitly or use the complex fft API")
+    if not x.dtype.is_floating_point:
+        return x.to(torch.promote_types(x.dtype, torch.float32))
+    if torch.finfo(x.dtype).bits < 32:
+        return x.to(torch.float32)
+    return x
 
 
 def as_tensor(x, like=None) -> torch.Tensor:

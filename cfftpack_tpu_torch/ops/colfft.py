@@ -38,8 +38,7 @@ import numpy as np
 import torch
 
 from .. import plan
-from ..utils import profiling
-from . import _adjoint, _build, core, stream_fft
+from . import _adjoint, _build, fused_fft, stream_fft
 
 __all__ = ["colfft_eligible", "colfft_plain", "scolfft", "coldct2_plain",
            "coldct3_plain", "coldct_plain", "scoldct"]
@@ -135,8 +134,8 @@ def _phase(n0: int, mode: str, device):
 
 def colfft_plain(xr, xi, inverse: bool = False, scale: float = 1.0):
     """K6's plain version on any device: the mixed-radix Stockham of
-    ``core._stockham`` run over axis -2 of (..., n0, n1) planes from the
-    same plan tables, times ``scale``."""
+    ``fused_fft._stockham`` run over axis -2 of (..., n0, n1) planes from
+    the same plan tables, times ``scale``."""
     shape = xr.shape
     n0, n1 = shape[-2], shape[-1]
     t = plan.device_tables(n0, xr.dtype, xr.device)
@@ -146,9 +145,9 @@ def colfft_plain(xr, xi, inverse: bool = False, scale: float = 1.0):
     L, m = 1, n0
     for s, p in enumerate(t.factors):
         mn = m // p
-        Ur, Ui = core._butterfly(Sr.reshape(B, L, p, mn * n1),
-                                 Si.reshape(B, L, p, mn * n1), p, inverse,
-                                 t.dense.get(p))
+        Ur, Ui = fused_fft._butterfly(Sr.reshape(B, L, p, mn * n1),
+                                      Si.reshape(B, L, p, mn * n1), p,
+                                      inverse, t.dense.get(p))
         if mn > 1:
             twr = t.twr[t.offs[s]: t.offs[s + 1]].view(p, mn, 1)
             twi = t.twi[t.offs[s]: t.offs[s + 1]].view(p, mn, 1)
@@ -245,19 +244,11 @@ class _LaunchPlan:
     version: int
 
 
-_PLANS: dict = {}
-
-
 def _launch_plan(mode: str, n0: int, n1: int, device) -> _LaunchPlan:
     """The cached plan of (mode, n0, n1, device), rebuilt when
     ``plan.VERSION`` moves (a device table replaced or cleared)."""
-    key = (mode, n0, n1, device)
-    lp = _PLANS.get(key)
-    if lp is not None and lp.version == plan.VERSION:
-        return lp
-    with profiling.planning():
-        lp = _PLANS[key] = _build_plan(mode, n0, n1, device)
-    return lp
+    return plan.launch_plan((_build_plan, mode, n0, n1, device), mode, n0,
+                            n1, device)
 
 
 def _build_plan(mode: str, n0: int, n1: int, device) -> _LaunchPlan:

@@ -1,29 +1,36 @@
 """Split-complex (re, im) transform engine (PyTorch port).
 
 Counterpart of ``cfftpack_tpu/ops/core.py``.  The engine works on
-pairs of real tensors: mixed-radix Stockham autosort (radix 2/3/4/5
-closed forms, dense odd radices up to 31), Bluestein for larger prime
-factors, the in-core four-step past K1's shared-memory cap, and the
-real transforms built on the complex one.  Host tables are float64
-(``plan``), cast to the working dtype once per device plan.
+pairs of real tensors: mixed-radix Stockham autosort (K1 and its plain
+version, ``fused_fft``), Bluestein for larger prime factors, the
+in-core four-step past K1's shared-memory cap, and the real transforms
+built on the complex one.  Host and device tables come from ``plan``.
 
-Dispatch depends only on (n, dtype): Bluestein, else K1
+Every route to a kernel is chosen here, and only here.  ``sfft``
+dispatches on (n, dtype) only: Bluestein, else K1
 (``fused_fft.sfft_fused``), else for float32 the stream kernel K3 or,
 past its cap, the s-way split K5 (``stream_fft.sfft_stream_split``),
-else the four-step whose row transforms recurse here.  ``sfft`` takes
-an optional scale, which K1 and K5 apply in their store.  Real
+else the four-step whose row transforms recurse here; it takes an
+optional scale, which K1 and K5 apply in their store.  The API's passes
+over an axis: :func:`complex_pass` (a complex tensor: K1's interleaved
+mode on its last axis at K1's register lengths, else the planes, joined
+under ``cfftpack.unpack``) and :func:`scaled_pass` (real planes: K6 in
+the natural layout on an eligible axis -2, else ``sfft`` or, for
+``impl="pallas"``, K10 or K1 by name, :func:`_kernel_engine`).  Real
 transforms of float32 stream lengths with an even batch past K1's half
 length take the real-stream kernel (K7, ``rstream``); even n whose half
 K1 runs in registers take K1's real modes (``fused_fft.srfft_real``,
 ``sirfft_real``: the deinterleave, the packed merge or unmerge, the
 scale and the interleave in one launch, each direction one linear map
-under autograd).  The device decides one thing only, inside the
-kernels' wrappers: a CPU tensor runs the plain version (``_stockham``
-below for K1), a CUDA tensor launches the kernel.  Elsewhere the real
-transforms' steps around the engine run in the spans ``cfftpack.merge``
-(the packed spectrum's merge and unmerge, ``_real_merge`` and
-``_real_unmerge`` over a table set of ``real_tables``),
-``cfftpack.scale`` and ``cfftpack.unpack`` (``utils.profiling``).
+under autograd); :func:`srfilter`, the real filter, takes the streaming
+filter (K2 and K4, or K5) on the same structural condition
+(``_use_rstream``).  The device decides one thing only, inside the
+kernels' wrappers: a CPU tensor runs the plain version, a CUDA tensor
+launches the kernel.  Elsewhere the real transforms' steps around the
+engine run in the spans ``cfftpack.merge`` (the packed spectrum's merge
+and unmerge, ``fused_fft._real_merge`` and ``_real_unmerge`` over a
+table set of ``plan.real_tables``), ``cfftpack.scale`` and
+``cfftpack.unpack`` (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -34,108 +41,11 @@ import torch
 import torch.nn.functional as F
 
 from .. import plan
+from ..utils import profiling
 from ..utils.profiling import span
-from . import fused_fft, rstream, stream_fft
+from . import colfft, fourstep_fft, fused_fft, rstream, stream_fft
 
 __all__ = ["sfft", "srfft", "sirfft", "s_shifted_dft_real"]
-
-_SQ3_2 = float(np.sqrt(3.0) / 2.0)
-_C5_1, _S5_1 = float(np.cos(2 * np.pi / 5)), float(np.sin(2 * np.pi / 5))
-_C5_2, _S5_2 = float(np.cos(4 * np.pi / 5)), float(np.sin(4 * np.pi / 5))
-
-
-def _butterfly(Tr, Ti, p: int, inverse: bool, dense=None):
-    """Length-p DFT over axis -2 of an (re, im) pair.
-
-    ``dense`` is the (Dr, Di) forward DFT matrix for radices above 5.
-    """
-    sgn = 1.0 if inverse else -1.0
-    R = [Tr[..., j, :] for j in range(p)]
-    I = [Ti[..., j, :] for j in range(p)]
-    if p == 1:
-        return Tr, Ti
-    if p == 2:
-        return (torch.stack([R[0] + R[1], R[0] - R[1]], dim=-2),
-                torch.stack([I[0] + I[1], I[0] - I[1]], dim=-2))
-    if p == 3:
-        tr, ti = R[1] + R[2], I[1] + I[2]
-        dr, di = R[1] - R[2], I[1] - I[2]
-        m1r = R[0] - 0.5 * tr
-        m1i = I[0] - 0.5 * ti
-        # m2 = sgn*1j*sq32*d  ->  re: -sgn*sq32*di, im: sgn*sq32*dr
-        m2r = -(sgn * _SQ3_2) * di
-        m2i = (sgn * _SQ3_2) * dr
-        return (torch.stack([R[0] + tr, m1r + m2r, m1r - m2r], dim=-2),
-                torch.stack([I[0] + ti, m1i + m2i, m1i - m2i], dim=-2))
-    if p == 4:
-        ar, ai = R[0] + R[2], I[0] + I[2]
-        br, bi = R[0] - R[2], I[0] - I[2]
-        cr, ci = R[1] + R[3], I[1] + I[3]
-        # d = sgn*1j*(T1-T3)
-        dr = -sgn * (I[1] - I[3])
-        di = sgn * (R[1] - R[3])
-        return (torch.stack([ar + cr, br + dr, ar - cr, br - dr], dim=-2),
-                torch.stack([ai + ci, bi + di, ai - ci, bi - di], dim=-2))
-    if p == 5:
-        t1r, t1i = R[1] + R[4], I[1] + I[4]
-        t2r, t2i = R[2] + R[3], I[2] + I[3]
-        t3r, t3i = R[1] - R[4], I[1] - I[4]
-        t4r, t4i = R[2] - R[3], I[2] - I[3]
-        u0r, u0i = R[0] + t1r + t2r, I[0] + t1i + t2i
-        a1r = R[0] + _C5_1 * t1r + _C5_2 * t2r
-        a1i = I[0] + _C5_1 * t1i + _C5_2 * t2i
-        a2r = R[0] + _C5_2 * t1r + _C5_1 * t2r
-        a2i = I[0] + _C5_2 * t1i + _C5_1 * t2i
-        # b1 = sgn*1j*(s1*t3 + s2*t4); b2 = sgn*1j*(s2*t3 - s1*t4)
-        b1r = -sgn * (_S5_1 * t3i + _S5_2 * t4i)
-        b1i = sgn * (_S5_1 * t3r + _S5_2 * t4r)
-        b2r = -sgn * (_S5_2 * t3i - _S5_1 * t4i)
-        b2i = sgn * (_S5_2 * t3r - _S5_1 * t4r)
-        return (torch.stack([u0r, a1r + b1r, a2r + b2r, a2r - b2r,
-                             a1r - b1r], dim=-2),
-                torch.stack([u0i, a1i + b1i, a2i + b2i, a2i - b2i,
-                             a1i - b1i], dim=-2))
-    # odd radix 7..31: dense p x p DFT matrix (conjugate for the inverse)
-    Dr, Di = dense
-    if inverse:
-        Di = -Di
-    return (torch.matmul(Dr, Tr) - torch.matmul(Di, Ti),
-            torch.matmul(Dr, Ti) + torch.matmul(Di, Tr))
-
-
-def _stockham(xr, xi, n: int, inverse: bool):
-    """Mixed-radix Stockham DFT over the last axis: K1's plain version."""
-    if n == 1:
-        return xr, xi
-    t = plan.device_tables(n, xr.dtype, xr.device)
-    shape = xr.shape
-    Sr = xr.reshape(-1, 1, n)
-    Si = xi.reshape(-1, 1, n)
-    B = Sr.shape[0]
-    L, m = 1, n
-    for s, p in enumerate(t.factors):
-        mn = m // p
-        Ur, Ui = _butterfly(Sr.reshape(B, L, p, mn), Si.reshape(B, L, p, mn),
-                            p, inverse, t.dense.get(p))
-        if mn > 1:
-            twr = t.twr[t.offs[s]: t.offs[s + 1]].view(p, mn)
-            twi = t.twi[t.offs[s]: t.offs[s + 1]].view(p, mn)
-            if inverse:
-                twi = -twi
-            Vr = Ur * twr - Ui * twi
-            Vi = Ur * twi + Ui * twr
-            Ur, Ui = Vr, Vi
-        Sr = Ur.transpose(1, 2).reshape(B, L * p, mn)
-        Si = Ui.transpose(1, 2).reshape(B, L * p, mn)
-        L *= p
-        m = mn
-    return Sr.reshape(shape), Si.reshape(shape)
-
-
-def _cmul_tab(xr, xi, tr, ti):
-    """(xr + i xi) * (tr + i ti) with host-table (tr, ti)."""
-    return xr * tr - xi * ti, xr * ti + xi * tr
-
 
 # --------------------------------------------- large-n four-step (local)
 #
@@ -143,18 +53,9 @@ def _cmul_tab(xr, xi, tr, ti):
 # (float64, or m not 5-smooth) run as the in-core four-step:
 # x[j1*n2 + j2] as (n1, n2); DFT over j1 (axis -2, a dense matmul for
 # n1 <= 64), twiddle e^{sgn 2i pi k1 j2/n}, DFT over j2 (rows, through
-# _fft_any and so K1), then one (k1, k2) -> k2-major transpose.
+# sfft and so K1), then one (k1, k2) -> k2-major transpose.
 
 _DENSE_N1_MAX = 64            # outer DFT as one dense matmul up to this
-
-
-@functools.lru_cache(maxsize=64)
-def _dense_dft(n1: int, inverse: bool, dtype, device):
-    D = plan.dft_matrix(n1)
-    if inverse:
-        D = np.conj(D)
-    return (plan.to_device(D.real, dtype, device),
-            plan.to_device(D.imag, dtype, device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -171,7 +72,7 @@ def _fourstep_twiddle(n1: int, n2: int, inverse: bool, dtype, device):
 def _dft_axis2_dense(xr, xi, n1: int, inverse: bool):
     """DFT over axis -2 of (..., n1, nl) as one dense matmul (full
     precision: on the card the caller keeps TF32 off)."""
-    Dr, Di = _dense_dft(n1, inverse, xr.dtype, xr.device)
+    Dr, Di = plan._dense_dft(n1, inverse, xr.dtype, xr.device)
     Yr = torch.matmul(Dr, xr) - torch.matmul(Di, xi)
     Yi = torch.matmul(Dr, xi) + torch.matmul(Di, xr)
     return Yr, Yi
@@ -204,13 +105,13 @@ def _fourstep_local(xr, xi, n: int, inverse: bool):
     if n1 <= _DENSE_N1_MAX:
         Ar, Ai = _dft_axis2_dense(x2r, x2i, n1, inverse)
     else:
-        tr, ti = _fft_any(x2r.transpose(-1, -2), x2i.transpose(-1, -2), n1,
-                          inverse)
+        tr, ti = sfft(x2r.transpose(-1, -2), x2i.transpose(-1, -2), n1,
+                      inverse)
         Ar = tr.transpose(-1, -2)
         Ai = ti.transpose(-1, -2)
     twr, twi = _fourstep_twiddle(n1, n2, inverse, xr.dtype, xr.device)
-    Tr, Ti = _cmul_tab(Ar, Ai, twr, twi)
-    Yr, Yi = _fft_any(Tr.reshape(-1, n2), Ti.reshape(-1, n2), n2, inverse)
+    Tr, Ti = fused_fft._cmul_tab(Ar, Ai, twr, twi)
+    Yr, Yi = sfft(Tr.reshape(-1, n2), Ti.reshape(-1, n2), n2, inverse)
     Yr = Yr.reshape(lead + (n1, n2)).transpose(-1, -2).reshape(lead + (n,))
     Yi = Yi.reshape(lead + (n1, n2)).transpose(-1, -2).reshape(lead + (n,))
     return Yr, Yi
@@ -221,22 +122,23 @@ def _bluestein(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     if inverse:
         ci = -ci
         bi = -bi
-    ar, ai = _cmul_tab(xr, xi, cr, ci)
+    ar, ai = fused_fft._cmul_tab(xr, xi, cr, ci)
     ar = F.pad(ar, (0, m - n))
     ai = F.pad(ai, (0, m - n))
-    Ar, Ai = _fft_any(ar, ai, m, inverse=False)
-    Cr, Ci = _cmul_tab(Ar, Ai, br, bi)
-    Er, Ei = _fft_any(Cr, Ci, m, inverse=True)
+    Ar, Ai = sfft(ar, ai, m, inverse=False)
+    Cr, Ci = fused_fft._cmul_tab(Ar, Ai, br, bi)
+    Er, Ei = sfft(Cr, Ci, m, inverse=True)
     s = scale / m
     Er = Er[..., :n] * s
     Ei = Ei[..., :n] * s
-    return _cmul_tab(Er, Ei, cr, ci)
+    return fused_fft._cmul_tab(Er, Ei, cr, ci)
 
 
-def _fft_any(xr, xi, n: int, inverse: bool, scale: float = 1.0):
-    """Engine dispatch on (n, dtype) only.  K1 and the K5 split apply
-    ``scale`` in their store, Bluestein in its own 1/m multiply, every
-    other engine with one multiply at the end."""
+def sfft(xr, xi, n: int, inverse: bool, scale: float = 1.0):
+    """Mixed-radix DFT over the last axis of an (re, im) pair, unscaled
+    unless ``scale`` is given.  Dispatch on (n, dtype) only: K1 and the
+    K5 split apply ``scale`` in their store, Bluestein in its own 1/m
+    multiply, every other engine with one multiply at the end."""
     if plan.needs_bluestein(n):
         return _bluestein(xr, xi, n, inverse, scale)
     if fused_fft.fused_eligible(n, xr.dtype):
@@ -254,126 +156,68 @@ def _fft_any(xr, xi, n: int, inverse: bool, scale: float = 1.0):
     return yr, yi
 
 
-def sfft(xr, xi, n: int, inverse: bool, scale: float = 1.0):
-    """Mixed-radix DFT over the last axis of an (re, im) pair, unscaled
-    unless ``scale`` is given."""
-    return _fft_any(xr, xi, n, inverse, scale)
+# ------------------------------------------------- the API's passes
+
+def complex_pass(x, axis: int, inverse: bool, scale: float):
+    """The DFT over ``axis`` of the complex tensor ``x``, times ``scale``:
+    on the last axis at a length K1's interleaved mode takes
+    (``fused_fft.cplx_eligible``), that mode on the complex tensor itself;
+    otherwise :func:`scaled_pass` over its planes, joined by
+    ``torch.complex``.  ``profiling.complex_maps`` counts the routes."""
+    n = x.shape[axis]
+    if axis % x.ndim == x.ndim - 1 and fused_fft.cplx_eligible(n, x.dtype):
+        profiling.complex_maps["interleaved"] += 1
+        return fused_fft.cfft_interleaved(x, n, inverse, scale)
+    profiling.complex_maps["planes"] += 1
+    yr, yi = scaled_pass(x.real, x.imag, axis, inverse, scale)
+    with span("cfftpack.unpack"):
+        return torch.complex(yr, yi)
+
+
+def _kernel_engine(xr, xi, n: int, inverse: bool, scale: float = 1.0):
+    """The transform of ``impl="pallas"``: K10 where it takes (n, dtype),
+    else K1 called directly, else ``ValueError``, as the reference raises
+    when neither of its kernels takes the length.  No Bluestein, no
+    stream kernel, no in-core four-step.  K1 applies ``scale`` in its
+    store, K10 takes one multiply after it."""
+    if fourstep_fft.fourstep_eligible(n, xr.dtype):
+        yr, yi = fourstep_fft.sfft_fourstep(xr, xi, n, inverse)
+        if scale != 1.0:
+            with span("cfftpack.scale"):
+                yr, yi = yr * scale, yi * scale
+        return yr, yi
+    if fused_fft.fused_eligible(n, xr.dtype):
+        return fused_fft.sfft_fused(xr, xi, n, inverse, scale)
+    raise ValueError(
+        f"impl='pallas' unsupported for n={n}, dtype={xr.dtype}: the "
+        "four-step kernel takes float32 n in {1024, 4096, 16384, 65536, "
+        "262144}, the fused kernel float32 or float64 n > 1 with no prime "
+        "factor above 32 whose buffers fit one block's shared memory")
+
+
+def scaled_pass(xr, xi, axis: int, inverse: bool, scale: float,
+                impl: str = "xla"):
+    """One pass over ``axis`` of same-dtype real planes, times ``scale``
+    (a norm's, or the parallel layer's share of a whole transform's).
+    ``impl="xla"``: K6 in the natural layout for an eligible axis -2,
+    else :func:`sfft` on the axis moved last.  ``impl="pallas"``: the
+    axis moved last and :func:`_kernel_engine`.  The engine applies the
+    scale in a kernel's store where it can (K6, K1, K5) and with one
+    multiply otherwise."""
+    n = xr.shape[axis]
+    if (impl == "xla" and xr.ndim >= 2 and axis % xr.ndim == xr.ndim - 2
+            and colfft.colfft_eligible(n, xr.shape[-1], xr.dtype)):
+        return colfft.scolfft(xr, xi, inverse, scale=scale)
+    engine = _kernel_engine if impl == "pallas" else sfft
+    yr, yi = engine(xr.movedim(axis, -1), xi.movedim(axis, -1), n, inverse,
+                    scale)
+    return yr.movedim(-1, axis), yi.movedim(-1, axis)
 
 
 # ------------------------------------------------------- real transforms
 #
-# Even-n r2c/c2r use the half-length complex trick with the split/merge
-# stage fused into a single 4-term table FMA over (Z, Z-mirror).
-# Derivation: Y_k = Ze_k + w_k Zo_k with Ze = (Z + conj(Zm))/2,
-# Zo = -i(Z - conj(Zm))/2, Zm_k = Z_{(h-k)%h}; expanding in (Zr, Zi,
-# Zmr, Zmi) gives per-bin linear combinations with f64 host tables.
-
-def _rfft_merge_tables(n: int):
-    """Coefficients of (Zr, Zi, Zmr, Zmi) for yr, yi at bins 0..h-1."""
-    h = n // 2
-    k = np.arange(h)
-    w = np.exp(-2j * np.pi * k / n)
-    wr, wi = w.real, w.imag
-    return ((1 + wi) / 2, wr / 2, (1 - wi) / 2, wr / 2,
-            -wr / 2, (1 + wi) / 2, wr / 2, (wi - 1) / 2)
-
-
-def _irfft_merge_tables(n: int):
-    """Coefficients of (ya, yb, ymr, ymi) for Zr, Zi at bins 0..h-1."""
-    h = n // 2
-    k = np.arange(h)
-    w = np.exp(-2j * np.pi * k / n)
-    wr, wi = w.real, w.imag
-    # Zr = (ya+ymr) - wr*(yb+ymi) + wi*(ya-ymr)
-    # Zi = (yb-ymi) + wr*(ya-ymr) + wi*(yb+ymi)
-    return (1 + wi, -wr, 1 - wi, -wr,
-            wr, 1 + wi, -wr, wi - 1)
-
-
-def _r2c_adjoint_table(t):
-    """The (h, 8) c2r table of the adjoint of the r2c table ``t`` (h + 1
-    bins): Zr[j] takes (a1_j, b1_j, a3_{h-j}, b3_{h-j}) of (g_r[j], g_i[j],
-    g_r[h-j], g_i[h-j]), Zi[j] the same of a2, b2, a4, b4; bin 0 sums the
-    terms of bins 0 and h, which both read Z[0]."""
-    h = t.shape[0] - 1
-    a1, a2, a3, a4, b1, b2, b3, b4 = t.T
-    j = np.arange(1, h)
-    out = np.empty((h, 8))
-    out[1:] = np.stack([a1[j], b1[j], a3[h - j], b3[h - j],
-                        a2[j], b2[j], a4[h - j], b4[h - j]], axis=-1)
-    out[0] = (a1[0] + a3[0], b1[0] + b3[0], a1[h] + a3[h], b1[h] + b3[h],
-              a2[0] + a4[0], b2[0] + b4[0], a2[h] + a4[h], b2[h] + b4[h])
-    return out
-
-
-def _c2r_adjoint_table(t):
-    """The (h + 1, 8) r2c table of the adjoint of the c2r table ``t`` (h
-    bins): g_r[k] takes (c1_k, d1_k) of Z[k] and (c3_{h-k}, d3_{h-k}) of
-    Z[h-k], g_i[k] the same of c2, d2, c4, d4; bin h takes bin 0's mirror
-    terms, read from Z[0] as its direct term."""
-    h = t.shape[0]
-    c1, c2, c3, c4, d1, d2, d3, d4 = t.T
-    k = np.arange(1, h)
-    out = np.zeros((h + 1, 8))
-    out[1:h] = np.stack([c1[k], d1[k], c3[h - k], d3[h - k],
-                         c2[k], d2[k], c4[h - k], d4[h - k]], axis=-1)
-    out[0, [0, 1, 4, 5]] = c1[0], d1[0], c2[0], d2[0]
-    out[h, [0, 1, 4, 5]] = c3[0], d3[0], c4[0], d4[0]
-    return out
-
-
-def real_tables(rfft_merge, irfft_merge, adjoint: bool = True) -> dict:
-    """The real transforms' table sets, float64 (bins, 8) arrays, one row
-    of 8 coefficients a bin (``_real_merge``, ``fused_fft.srfft_real``):
-    ``rfft``, the r2c form of ``rfft_merge`` over bins 0 .. h, DC = Zr +
-    Zi and Nyquist = Zr - Zi of Z[0] with zero imaginary rows; ``irfft``,
-    the c2r form, ``irfft_merge`` by bin; with ``adjoint``, ``rfft_adj``
-    and ``irfft_adj``, their transposes, the other form each."""
-    h = len(rfft_merge[0])
-    fwd = np.zeros((h + 1, 8))
-    fwd[1:h] = np.stack(rfft_merge, axis=-1)[1:]
-    fwd[0, :2] = 1.0, 1.0
-    fwd[h, :2] = 1.0, -1.0
-    inv = np.stack([np.asarray(t, dtype=np.float64) for t in irfft_merge],
-                   axis=-1)
-    sets = {"rfft": fwd, "irfft": inv}
-    if adjoint:
-        sets.update(rfft_adj=_r2c_adjoint_table(fwd),
-                    irfft_adj=_c2r_adjoint_table(inv))
-    return sets
-
-
-def _real_merge(Zr, Zi, tab):
-    """(yr, yi) at bins 0 .. h of the r2c table ``tab`` (h + 1, 8) over
-    Z[k % h] and its mirror Z[(h - k) % h]: the packed merge."""
-    a1, a2, a3, a4, b1, b2, b3, b4 = tab.unbind(-1)
-    Zkr = torch.cat([Zr, Zr[..., :1]], dim=-1)
-    Zki = torch.cat([Zi, Zi[..., :1]], dim=-1)
-    Zmr = torch.cat([Zr[..., :1], Zr[..., 1:].flip(-1), Zr[..., :1]], dim=-1)
-    Zmi = torch.cat([Zi[..., :1], Zi[..., 1:].flip(-1), Zi[..., :1]], dim=-1)
-    return (Zkr * a1 + Zki * a2 + Zmr * a3 + Zmi * a4,
-            Zkr * b1 + Zki * b2 + Zmr * b3 + Zmi * b4)
-
-
-def _real_unmerge(yr, yi, tab):
-    """(Zr, Zi) at bins 0 .. h-1 of the c2r table ``tab`` (h, 8) over y[k]
-    and y[h - k]: the packed unmerge."""
-    h = tab.shape[0]
-    c1, c2, c3, c4, d1, d2, d3, d4 = tab.unbind(-1)
-    ya = yr[..., :h]
-    yb = yi[..., :h]
-    ymr = yr[..., 1:].flip(-1)
-    ymi = yi[..., 1:].flip(-1)
-    return (ya * c1 + yb * c2 + ymr * c3 + ymi * c4,
-            ya * d1 + yb * d2 + ymr * d3 + ymi * d4)
-
-
-def _interleave(*parts):
-    """Riffle s equal-length streams: out[..., s*t+j] = parts[j][..., t]."""
-    lead = parts[0].shape[:-1]
-    n = len(parts) * parts[0].shape[-1]
-    return torch.stack(parts, dim=-1).reshape(lead + (n,))
-
+# Even n: the half-length complex trick, the split/merge stage fused into
+# one table FMA over (Z, Z-mirror) (``plan.real_tables``).
 
 def _srfft_batchpair(x, n: int):
     """r2c via batch pairing: one length-n complex FFT at batch/2.
@@ -434,14 +278,20 @@ def _use_pair(n: int, B: int) -> bool:
     return B % 2 == 0 and B >= 2 and n > 1 and n % 2 == 1
 
 
-def _use_rstream(n: int, B: int, dtype) -> bool:
-    """The real-stream route (K7) for r2c, c2r and DCT-II/III: float32,
-    an even flat batch and a stream length (``rstream_eligible``) whose
-    half length K1 does not take (n >= 30720), where the half-length
-    route would run K3 at n/2 between deinterleave and merge passes.
-    Structural conditions only, as ``rfft._use_stream_filter``."""
-    return (rstream.rstream_eligible(n, dtype, B)
-            and not fused_fft.fused_eligible(n // 2, dtype))
+def _use_rstream(n: int, B: int, dtype, split: bool = False) -> bool:
+    """The stream kernels' real routes, on structural conditions only:
+    float32, an even flat batch whose rows pair into complex ones, and a
+    length whose half K1 does not take (n >= 30720), where the half-length
+    route would run K3 at n/2 between deinterleave and merge passes.  The
+    real-stream route (K7) for r2c, c2r and DCT-II/III takes the stream
+    lengths (``rstream_eligible``); the streaming filter (``split``: K2 and
+    K4, or the K5 split) also those past the cap."""
+    if split:
+        pairs = (B % 2 == 0 and B >= 2
+                 and stream_fft.stream_filter_eligible(n, dtype))
+    else:
+        pairs = rstream.rstream_eligible(n, dtype, B)
+    return pairs and not fused_fft.fused_eligible(n // 2, dtype)
 
 
 def srfft(x, n: int, scale: float = 1.0):
@@ -476,7 +326,7 @@ def _srfft(x, n: int):
         Zr, Zi = sfft(x[..., 0::2], x[..., 1::2], n // 2, inverse=False)
         tab = plan.device_tables(n, x.dtype, x.device).real["rfft"]
         with span("cfftpack.merge"):
-            return _real_merge(Zr, Zi, tab)
+            return fused_fft._real_merge(Zr, Zi, tab)
     with span("cfftpack.pack"):
         zi = torch.zeros_like(x)
     Yr, Yi = sfft(x, zi, n, inverse=False)
@@ -511,10 +361,10 @@ def _sirfft(yr, yi, n: int):
     if n % 2 == 0:
         tab = plan.device_tables(n, yr.dtype, yr.device).real["irfft"]
         with span("cfftpack.merge"):
-            Zr, Zi = _real_unmerge(yr, yi, tab)
+            Zr, Zi = fused_fft._real_unmerge(yr, yi, tab)
         zr, zi = sfft(Zr, Zi, n // 2, inverse=True)
         with span("cfftpack.unpack"):
-            return _interleave(zr, zi)
+            return fused_fft._interleave(zr, zi)
     with span("cfftpack.merge"):
         tr = yr[..., 1:].flip(-1)
         ti = -yi[..., 1:].flip(-1)
@@ -522,6 +372,78 @@ def _sirfft(yr, yi, n: int):
         Zi = torch.cat([yi, ti], dim=-1)
     zr, _ = sfft(Zr, Zi, n, inverse=True)
     return zr
+
+
+# ------------------------------------------------------- real filter
+
+def _rfilter_fused(x, fr, fi, n: int):
+    """Fused filter body (even n): deinterleave -> one n/2 complex FFT
+    -> one half-spectrum FMA -> inverse FFT -> interleave."""
+    h = n // 2
+    Zr, Zi = sfft(x[..., 0::2], x[..., 1::2], h, inverse=False)
+    c1r, c1i, c2r, c2i, c3r, c3i, c4r, c4i = plan.device_tables(
+        n, x.dtype, x.device).rfilter
+    Fr, Fi = fr[..., :h], fi[..., :h]
+    # conj(Fm): Fm_k = F_{h-k}, k = 0..h-1
+    Fmr = fr[..., 1:].flip(-1)
+    Fmi = -fi[..., 1:].flip(-1)
+    Pr = c1r * Fr - c1i * Fi + c3r * Fmr - c3i * Fmi
+    Pi = c1r * Fi + c1i * Fr + c3r * Fmi + c3i * Fmr
+    Qr = c2r * Fr - c2i * Fi + c4r * Fmr - c4i * Fmi
+    Qi = c2r * Fi + c2i * Fr + c4r * Fmi + c4i * Fmr
+
+    def zmul(pr, pi, qr, qi, Ar, Ai, Br, Bi):
+        # (pr+ipi)(Ar+iAi) + (qr+iqi)(Br-iBi)
+        re = pr * Ar - pi * Ai + qr * Br + qi * Bi
+        im = pr * Ai + pi * Ar + qi * Br - qr * Bi
+        return re, im
+
+    # Z' = P*Z + Q*conj(Zm); bin 0 is its own mirror
+    Z0r, Z0i = zmul(Pr[..., :1], Pi[..., :1], Qr[..., :1], Qi[..., :1],
+                    Zr[..., :1], Zi[..., :1], Zr[..., :1], Zi[..., :1])
+    Zcr, Zci = zmul(Pr[..., 1:], Pi[..., 1:], Qr[..., 1:], Qi[..., 1:],
+                    Zr[..., 1:], Zi[..., 1:], Zr[..., 1:].flip(-1),
+                    Zi[..., 1:].flip(-1))
+    wr, wi = sfft(torch.cat([Z0r, Zcr], dim=-1),
+                  torch.cat([Z0i, Zci], dim=-1), h, inverse=True)
+    with span("cfftpack.unpack"):
+        return fused_fft._interleave(wr, wi)
+
+
+def _rfilter_stream(x, fr, fi, n: int, scale: float):
+    """Large-n filter times ``scale``: rows paired, K2 forward to the
+    permuted spectrum, the multiply fused into K4's inverse and the scale
+    into its store; no deinterleave, merge or interleave pass."""
+    h = n // 2
+    ffr = torch.cat([fr, fr[1:h].flip(-1)])
+    ffi = torch.cat([fi, -fi[1:h].flip(-1)])
+    return stream_fft.sfilter_stream(x, ffr, ffi, n, scale)
+
+
+def srfilter(x, fr, fi, n: int, scale: float = 1.0):
+    """``sirfft(srfft(x) * (fr + i fi), n)`` times ``scale`` over the last
+    axis of the real rows ``x``, ``(fr, fi)`` the packed n//2+1-bin filter
+    with real DC and (even n) Nyquist bins.  Odd n: the composition; even
+    n: the streaming filter (K2 and K4, or the K5 split, with the scale in
+    the last store) where ``_use_rstream(..., split=True)`` holds and one
+    filter serves every row, else the fused body (:func:`_rfilter_fused`),
+    one half-length FFT each way and no packed spectrum."""
+    if n % 2:
+        # odd n: plain composition (no half-length packing to fuse)
+        yr, yi = srfft(x, n)
+        out = sirfft(yr * fr - yi * fi, yr * fi + yi * fr, n)
+    elif (fr.ndim == 1 and fi.ndim == 1
+          and _use_rstream(n, x.shape[:-1].numel(), x.dtype, split=True)):
+        # the scale rides in the store of K4 (or K5 past the cap)
+        return _rfilter_stream(x, fr, fi, n, scale)
+    else:
+        out = _rfilter_fused(x, fr, fi, n)
+    # the unscaled pipeline is sirfft(srfft(x)*F); the public
+    # composition applies fwd_scale then inv_scale on top
+    if scale != 1.0:
+        with span("cfftpack.scale"):
+            out = out * scale
+    return out
 
 
 # ----------------------------------------------- shifted DFT (split)

@@ -34,10 +34,10 @@ import functools
 import numpy as np
 import torch
 
-from ..config import DEFAULT_NORM, as_tensor, check_norm
+from ..config import (DEFAULT_NORM, _apply_axis, _check_axis, _check_length,
+                      as_tensor, check_norm)
 from .. import plan
 from . import _adjoint, colfft, core, fused_fft, oddtypes, rstream, stream_fft
-from .cfft import _apply_axis, _check_axis, _check_length
 
 __all__ = ["dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn"]
 
@@ -205,7 +205,7 @@ def _dct3_unit(x, n: int):
         zr = 0.5 * zr
         zi = 0.5 * zi
         # y[4u..4u+3] = [zr_u, zi_{h-1-u}, zi_u, zr_{h-1-u}]
-        y4 = core._interleave(zr[..., :m], zi[..., h - m:].flip(-1),
+        y4 = fused_fft._interleave(zr[..., :m], zi[..., h - m:].flip(-1),
                               zi[..., :m], zr[..., h - m:].flip(-1))
         return y4[..., :n] if 4 * m != n else y4
     xnk = torch.cat([torch.zeros_like(x[..., :1]), x[..., 1:].flip(-1)],
@@ -269,7 +269,7 @@ def _dct4_pack(x, n: int):
     """Even n: the pairs c[p] = x[2p] + i*x[n-1-2p] times the
     pre-rotation e^{-i pi p/n}."""
     prer, prei = _tab("dct4", n, x)[:2]
-    return core._cmul_tab(x[..., 0::2], x.flip(-1)[..., 0::2], prer, prei)
+    return fused_fft._cmul_tab(x[..., 0::2], x.flip(-1)[..., 0::2], prer, prei)
 
 
 def _dct4_stream_ok(n: int, dtype) -> bool:
@@ -298,10 +298,10 @@ def _dct4_stream_tail(wr, wi, n: int, post):
     lead = wr.shape[:-1]
     Zr, Zi = stream_fft.stream_plain(wr.reshape(-1, m, 128),
                                      wi.reshape(-1, m, 128), h, "fwd")
-    zr, zi = core._cmul_tab(Zr, Zi, *post)
+    zr, zi = fused_fft._cmul_tab(Zr, Zi, *post)
     A = zr.transpose(-1, -2).reshape(lead + (h,))
     Bm = zi.flip((-2, -1)).transpose(-1, -2).reshape(lead + (h,))
-    return core._interleave(A, -Bm)
+    return fused_fft._interleave(A, -Bm)
 
 
 def _dct4_stream_plain(x, n: int, scale: float = 1.0, dst: bool = False):
@@ -346,8 +346,8 @@ def _dct4_core(x, n: int, scale: float = 1.0, dst: bool = False):
         return s * _dct4_core(x.flip(-1), n, scale)
     if n % 2 == 0 and n >= 4:
         Wr, Wi = core.sfft(*_dct4_pack(x, n), n // 2, inverse=False)
-        zr, zi = core._cmul_tab(Wr, Wi, *_tab("dct4", n, x)[2:])
-        y = core._interleave(zr, -zi.flip(-1))
+        zr, zi = fused_fft._cmul_tab(Wr, Wi, *_tab("dct4", n, x)[2:])
+        y = fused_fft._interleave(zr, -zi.flip(-1))
     else:
         # U[k] = sum_{j<2n} xpad[j] e^{-2i pi (j+.5)(k+.5)/(2n)}
         y, _ = core.s_shifted_dft_real(x, n, 2 * n, 0.5, 0.5, n)
@@ -581,7 +581,7 @@ def idst(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
 # Separable 1-D passes per axis.  A DCT-II/III pass along axis -2 of an
 # even number of float32 images takes the column kernel K9 in the
 # natural layout (``_run``); every other pass moves its axis last
-# (``cfft._apply_axis``).
+# (``config._apply_axis``).
 
 def _norm_axes(x, axes):
     if axes is None:

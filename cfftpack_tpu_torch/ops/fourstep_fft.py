@@ -19,8 +19,8 @@ transforms of the batch (:func:`_column_groups`).
 
 On a CPU tensor :func:`sfft_fourstep` runs the plain PyTorch version
 (:func:`sfft_fourstep_plain`: ``torch.matmul`` on the same DFT matrix
-and ``core._stockham`` on the same stage tables); on a CUDA tensor it
-launches the kernel or raises, each launch counted in
+and ``fused_fft._stockham`` on the same stage tables); on a CUDA tensor
+it launches the kernel or raises, each launch counted in
 ``utils.profiling.launches["K10"]``.
 The kernel is opt-in (``fft_split(..., impl="pallas")``): the engine's
 dispatch does not pick it.
@@ -34,7 +34,7 @@ import torch
 
 from .. import plan
 from ..utils import profiling
-from . import _adjoint, _build, core, stream_fft
+from . import _adjoint, _build, fused_fft, stream_fft
 
 __all__ = ["fourstep_eligible", "sfft_fourstep", "sfft_fourstep_plain"]
 
@@ -128,8 +128,8 @@ def sfft_fourstep_plain(xr, xi, n: int, inverse: bool):
     x3i = xi.reshape(b, _N1, n2)
     Ar = torch.matmul(Dr, x3r) - torch.matmul(Di, x3i)
     Ai = torch.matmul(Dr, x3i) + torch.matmul(Di, x3r)
-    Tr, Ti = core._cmul_tab(Ar, Ai, t1r, t1i)
-    Yr, Yi = core._stockham(Tr, Ti, n2, inverse)         # [k1, k2]
+    Tr, Ti = fused_fft._cmul_tab(Ar, Ai, t1r, t1i)
+    Yr, Yi = fused_fft._stockham(Tr, Ti, n2, inverse)    # [k1, k2]
     return (Yr.transpose(1, 2).reshape(b, n),
             Yi.transpose(1, 2).reshape(b, n))
 

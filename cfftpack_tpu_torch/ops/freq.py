@@ -10,8 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import DEFAULT_NORM, as_tensor, resolve_device
-from .cfft import _check_length, fft, ifft
+from ..config import DEFAULT_NORM, _check_length, as_tensor, resolve_device
+from .cfft import fft, ifft
 from .rfft import irfft, rfft
 
 __all__ = ["fftfreq", "rfftfreq", "circular_convolve"]

@@ -8,22 +8,24 @@ applies an optional scale in its store.  Eligible: n > 1 with no prime
 factor above 32, float32 or float64, and two ping-pong buffers of both
 planes of one row within the shared memory one block may use.
 
-The lengths of :data:`REG_LENGTHS` run the register-pass kernel: the
+The lengths of ``plan.REG_LENGTHS`` run the register-pass kernel: the
 stages of ``plan.factor(n)`` grouped into passes (``plan.reg_passes``)
 that a thread runs in registers, one shared-memory exchange a pass.
 Every other length runs the stage loop.  The choice is by length alone.
 
 On a CPU tensor :func:`sfft_fused` runs the plain PyTorch version
-(``core._stockham``, the same stage schedule and tables); on a CUDA
+(:func:`_stockham`, the same stage schedule and tables); on a CUDA
 tensor it launches the kernel or raises.  Its gradient is the adjoint
 transform, the other direction at the same scale, through the same
 wrapper (``_adjoint``).  A launch plan per (n, dtype,
-inverse, device) holds what the C entry takes besides the data, so a
-launch is the checks, two ``torch.empty`` and one C call, counted in
-``utils.profiling.launches["K1"]``.
+inverse, device), cached by ``plan.launch_plan``, holds what the C
+entry takes besides the data, so a launch is the checks, two
+``torch.empty`` and one C call, counted in
+``utils.profiling.launches["K1"]``.  The other kernels' plain versions
+build on :func:`_stockham`, :func:`_butterfly` and :func:`_cmul_tab`.
 
 The real route of ``core.srfft`` and ``core.sirfft`` (even n with n/2 in
-:data:`REG_LENGTHS`, :func:`real_eligible`) runs K1's two real modes at
+``plan.REG_LENGTHS``, :func:`real_eligible`) runs K1's two real modes at
 the half length: :func:`srfft_real` (r2c: the pair load, the forward
 passes, the packed merge as a table FMA in the store, the scale) and
 :func:`sirfft_real` (c2r: the unmerge as it loads, the inverse passes,
@@ -32,11 +34,12 @@ the scale and the interleave in the store), one launch each
 ``plan.device_tables(n).real`` (8 coefficients a bin, float64-built),
 and the adjoint of either map is the other mode with the transposed set
 at the same scale, so each enters ``_adjoint.linear`` as one map.  On a
-CPU tensor :func:`real_plain` runs the same glue in PyTorch.
+CPU tensor :func:`real_plain` runs the same glue in PyTorch
+(:func:`_real_merge`, :func:`_real_unmerge`, :func:`_interleave`).
 ``utils.profiling.real_maps`` counts the maps by direction.
 
-The complex API's route (``cfft._fft_impl``: a complex64 or complex128
-tensor, the transform on its last axis, n in :data:`REG_LENGTHS` of its
+The complex API's route (``core.complex_pass``: a complex64 or complex128
+tensor, the transform on its last axis, n in ``plan.REG_LENGTHS`` of its
 real dtype, :func:`cplx_eligible`) runs K1's interleaved complex mode,
 :func:`cfft_interleaved`: one launch of ``k1_cplx_f32``/``f64`` (counted
 as K1) reads the rows as the tensor holds them, (re, im) pairs, and
@@ -56,11 +59,11 @@ import torch
 
 from .. import plan
 from ..utils import profiling
-from . import _adjoint, _build, core
+from . import _adjoint, _build
 
-__all__ = ["fused_eligible", "sfft_fused", "sfft_plain", "REG_LENGTHS",
-           "real_eligible", "srfft_real", "sirfft_real", "real_plain",
-           "cplx_eligible", "cfft_interleaved"]
+__all__ = ["fused_eligible", "sfft_fused", "sfft_plain", "real_eligible",
+           "srfft_real", "sirfft_real", "real_plain", "cplx_eligible",
+           "cfft_interleaved"]
 
 # Shared memory one block may use on sm_90 (227 KB).
 _SMEM_BUDGET = 232448
@@ -69,10 +72,8 @@ _SMEM_BUDGET = 232448
 _SMEM_TARGET = 96 * 1024
 _THREADS = 512
 
-# The register kernel: the lengths it is compiled for and the elements a
-# thread holds in a pass.
-REG_LENGTHS = {torch.float32: (480, 512, 960, 1024, 2048, 4096, 8192),
-               torch.float64: (480, 512, 960, 1024, 2048, 4096)}
+# The register kernel (at ``plan.REG_LENGTHS``): the elements a thread
+# holds in a pass.
 _REG_ELEMS = 16
 _REG_MAX_THREADS = {torch.float32: 512, torch.float64: 256}
 
@@ -115,20 +116,109 @@ _REAL_TILE_ROWS = {
     torch.float64: {480: 4, 512: 4, 960: 4, 1024: 4, 2048: 2, 4096: 1}}
 
 
-def _flat_twiddles(tabs):
-    """(offsets, re, im): stage tables concatenated as K1 reads them,
-    stage s at ``[offsets[s], offsets[s+1])`` (f64 host)."""
-    offs = [0]
-    for t in tabs:
-        offs.append(offs[-1] + t.size)
-    flat = (np.concatenate([t.ravel() for t in tabs]) if len(tabs)
-            else np.zeros(0, dtype=np.complex128))
-    return tuple(offs), flat.real.copy(), flat.imag.copy()
+# ------------------------------------------------------ plain version
+
+_SQ3_2 = float(np.sqrt(3.0) / 2.0)
+_C5_1, _S5_1 = float(np.cos(2 * np.pi / 5)), float(np.sin(2 * np.pi / 5))
+_C5_2, _S5_2 = float(np.cos(4 * np.pi / 5)), float(np.sin(4 * np.pi / 5))
+
+
+def _butterfly(Tr, Ti, p: int, inverse: bool, dense=None):
+    """Length-p DFT over axis -2 of an (re, im) pair.
+
+    ``dense`` is the (Dr, Di) forward DFT matrix for radices above 5.
+    """
+    sgn = 1.0 if inverse else -1.0
+    R = [Tr[..., j, :] for j in range(p)]
+    I = [Ti[..., j, :] for j in range(p)]
+    if p == 1:
+        return Tr, Ti
+    if p == 2:
+        return (torch.stack([R[0] + R[1], R[0] - R[1]], dim=-2),
+                torch.stack([I[0] + I[1], I[0] - I[1]], dim=-2))
+    if p == 3:
+        tr, ti = R[1] + R[2], I[1] + I[2]
+        dr, di = R[1] - R[2], I[1] - I[2]
+        m1r = R[0] - 0.5 * tr
+        m1i = I[0] - 0.5 * ti
+        # m2 = sgn*1j*sq32*d  ->  re: -sgn*sq32*di, im: sgn*sq32*dr
+        m2r = -(sgn * _SQ3_2) * di
+        m2i = (sgn * _SQ3_2) * dr
+        return (torch.stack([R[0] + tr, m1r + m2r, m1r - m2r], dim=-2),
+                torch.stack([I[0] + ti, m1i + m2i, m1i - m2i], dim=-2))
+    if p == 4:
+        ar, ai = R[0] + R[2], I[0] + I[2]
+        br, bi = R[0] - R[2], I[0] - I[2]
+        cr, ci = R[1] + R[3], I[1] + I[3]
+        # d = sgn*1j*(T1-T3)
+        dr = -sgn * (I[1] - I[3])
+        di = sgn * (R[1] - R[3])
+        return (torch.stack([ar + cr, br + dr, ar - cr, br - dr], dim=-2),
+                torch.stack([ai + ci, bi + di, ai - ci, bi - di], dim=-2))
+    if p == 5:
+        t1r, t1i = R[1] + R[4], I[1] + I[4]
+        t2r, t2i = R[2] + R[3], I[2] + I[3]
+        t3r, t3i = R[1] - R[4], I[1] - I[4]
+        t4r, t4i = R[2] - R[3], I[2] - I[3]
+        u0r, u0i = R[0] + t1r + t2r, I[0] + t1i + t2i
+        a1r = R[0] + _C5_1 * t1r + _C5_2 * t2r
+        a1i = I[0] + _C5_1 * t1i + _C5_2 * t2i
+        a2r = R[0] + _C5_2 * t1r + _C5_1 * t2r
+        a2i = I[0] + _C5_2 * t1i + _C5_1 * t2i
+        # b1 = sgn*1j*(s1*t3 + s2*t4); b2 = sgn*1j*(s2*t3 - s1*t4)
+        b1r = -sgn * (_S5_1 * t3i + _S5_2 * t4i)
+        b1i = sgn * (_S5_1 * t3r + _S5_2 * t4r)
+        b2r = -sgn * (_S5_2 * t3i - _S5_1 * t4i)
+        b2i = sgn * (_S5_2 * t3r - _S5_1 * t4r)
+        return (torch.stack([u0r, a1r + b1r, a2r + b2r, a2r - b2r,
+                             a1r - b1r], dim=-2),
+                torch.stack([u0i, a1i + b1i, a2i + b2i, a2i - b2i,
+                             a1i - b1i], dim=-2))
+    # odd radix 7..31: dense p x p DFT matrix (conjugate for the inverse)
+    Dr, Di = dense
+    if inverse:
+        Di = -Di
+    return (torch.matmul(Dr, Tr) - torch.matmul(Di, Ti),
+            torch.matmul(Dr, Ti) + torch.matmul(Di, Tr))
+
+
+def _stockham(xr, xi, n: int, inverse: bool):
+    """Mixed-radix Stockham DFT over the last axis: K1's plain version."""
+    if n == 1:
+        return xr, xi
+    t = plan.device_tables(n, xr.dtype, xr.device)
+    shape = xr.shape
+    Sr = xr.reshape(-1, 1, n)
+    Si = xi.reshape(-1, 1, n)
+    B = Sr.shape[0]
+    L, m = 1, n
+    for s, p in enumerate(t.factors):
+        mn = m // p
+        Ur, Ui = _butterfly(Sr.reshape(B, L, p, mn), Si.reshape(B, L, p, mn),
+                            p, inverse, t.dense.get(p))
+        if mn > 1:
+            twr = t.twr[t.offs[s]: t.offs[s + 1]].view(p, mn)
+            twi = t.twi[t.offs[s]: t.offs[s + 1]].view(p, mn)
+            if inverse:
+                twi = -twi
+            Vr = Ur * twr - Ui * twi
+            Vi = Ur * twi + Ui * twr
+            Ur, Ui = Vr, Vi
+        Sr = Ur.transpose(1, 2).reshape(B, L * p, mn)
+        Si = Ui.transpose(1, 2).reshape(B, L * p, mn)
+        L *= p
+        m = mn
+    return Sr.reshape(shape), Si.reshape(shape)
+
+
+def _cmul_tab(xr, xi, tr, ti):
+    """(xr + i xi) * (tr + i ti) with host-table (tr, ti)."""
+    return xr * tr - xi * ti, xr * ti + xi * tr
 
 
 def sfft_plain(xr, xi, n: int, inverse: bool):
     """K1's plain PyTorch version on any device (rows of the last axis)."""
-    return core._stockham(xr, xi, n, inverse)
+    return _stockham(xr, xi, n, inverse)
 
 
 @dataclass(frozen=True)
@@ -146,24 +236,11 @@ class LaunchPlan:
     version: int
 
 
-_PLANS: dict = {}
-
-
-def _cached(key, build, *args) -> LaunchPlan:
-    """The launch plan cached under ``key``, made by ``build(*args)`` on
-    first use and again after ``plan`` replaces a table."""
-    lp = _PLANS.get(key)
-    if lp is None or lp.version != plan.VERSION:
-        with profiling.planning():
-            lp = _PLANS[key] = build(*args)
-    return lp
-
-
 def launch_plan(n: int, dtype: torch.dtype, inverse: bool,
                 device) -> LaunchPlan:
     """The cached launch plan of (n, dtype, inverse, device)."""
-    return _cached((n, dtype, inverse, device), _build_plan, n, dtype,
-                   device)
+    return plan.launch_plan((_build_plan, n, dtype, inverse, device), n,
+                            dtype, device)
 
 
 def _build_plan(n: int, dtype: torch.dtype, device) -> LaunchPlan:
@@ -172,7 +249,7 @@ def _build_plan(n: int, dtype: torch.dtype, device) -> LaunchPlan:
     fn = lib.cfft_stockham_f32 if dtype == torch.float32 else \
         lib.cfft_stockham_f64
     keep = (t,)
-    if n in REG_LENGTHS[dtype]:
+    if n in plan.REG_LENGTHS[dtype]:
         passes = plan.reg_passes(n)
         ptw = plan.to_device(plan.reg_twiddles(n), dtype, device)
         keep += (ptw,)
@@ -265,7 +342,39 @@ _REAL_ADJOINT = {"rfft": "rfft_adj", "rfft_adj": "rfft",
 def real_eligible(n: int, dtype: torch.dtype) -> bool:
     """Whether the real transforms of length ``n`` take K1's real modes:
     n even with n/2 a register length of ``dtype``."""
-    return n % 2 == 0 and n // 2 in REG_LENGTHS.get(dtype, ())
+    return n % 2 == 0 and n // 2 in plan.REG_LENGTHS.get(dtype, ())
+
+
+def _real_merge(Zr, Zi, tab):
+    """(yr, yi) at bins 0 .. h of the r2c table ``tab`` (h + 1, 8) over
+    Z[k % h] and its mirror Z[(h - k) % h]: the packed merge."""
+    a1, a2, a3, a4, b1, b2, b3, b4 = tab.unbind(-1)
+    Zkr = torch.cat([Zr, Zr[..., :1]], dim=-1)
+    Zki = torch.cat([Zi, Zi[..., :1]], dim=-1)
+    Zmr = torch.cat([Zr[..., :1], Zr[..., 1:].flip(-1), Zr[..., :1]], dim=-1)
+    Zmi = torch.cat([Zi[..., :1], Zi[..., 1:].flip(-1), Zi[..., :1]], dim=-1)
+    return (Zkr * a1 + Zki * a2 + Zmr * a3 + Zmi * a4,
+            Zkr * b1 + Zki * b2 + Zmr * b3 + Zmi * b4)
+
+
+def _real_unmerge(yr, yi, tab):
+    """(Zr, Zi) at bins 0 .. h-1 of the c2r table ``tab`` (h, 8) over y[k]
+    and y[h - k]: the packed unmerge."""
+    h = tab.shape[0]
+    c1, c2, c3, c4, d1, d2, d3, d4 = tab.unbind(-1)
+    ya = yr[..., :h]
+    yb = yi[..., :h]
+    ymr = yr[..., 1:].flip(-1)
+    ymi = yi[..., 1:].flip(-1)
+    return (ya * c1 + yb * c2 + ymr * c3 + ymi * c4,
+            ya * d1 + yb * d2 + ymr * d3 + ymi * d4)
+
+
+def _interleave(*parts):
+    """Riffle s equal-length streams: out[..., s*t+j] = parts[j][..., t]."""
+    lead = parts[0].shape[:-1]
+    n = len(parts) * parts[0].shape[-1]
+    return torch.stack(parts, dim=-1).reshape(lead + (n,))
 
 
 def real_plain(a, b, n: int, mode: str, tab, scale: float = 1.0):
@@ -276,11 +385,11 @@ def real_plain(a, b, n: int, mode: str, tab, scale: float = 1.0):
     h = n // 2
     if mode == "r2c":
         Zr, Zi = sfft_plain(a[..., 0::2], a[..., 1::2], h, False)
-        yr, yi = core._real_merge(Zr, Zi, tab)
+        yr, yi = _real_merge(Zr, Zi, tab)
         return (yr * scale, yi * scale) if scale != 1.0 else (yr, yi)
-    Zr, Zi = core._real_unmerge(a, b, tab)
+    Zr, Zi = _real_unmerge(a, b, tab)
     zr, zi = sfft_plain(Zr, Zi, h, True)
-    x = core._interleave(zr, zi)
+    x = _interleave(zr, zi)
     return x * scale if scale != 1.0 else x
 
 
@@ -299,8 +408,8 @@ def real_plan(n: int, dtype: torch.dtype, tables: str,
               device) -> LaunchPlan:
     """The cached launch plan of a real mode: K1's register schedule at
     n/2 and the table set ``tables`` of n."""
-    return _cached((n, dtype, tables, device), _build_real_plan, n, dtype,
-                   tables, device)
+    return plan.launch_plan((_build_real_plan, n, dtype, tables, device), n,
+                            dtype, tables, device)
 
 
 def _build_real_plan(n: int, dtype: torch.dtype, tables: str,
@@ -419,7 +528,7 @@ def cplx_eligible(n: int, dtype: torch.dtype) -> bool:
     the real dtype."""
     if dtype not in (torch.complex64, torch.complex128):
         return False
-    return n in REG_LENGTHS[dtype.to_real()]
+    return n in plan.REG_LENGTHS[dtype.to_real()]
 
 
 def _cplx_rows(x, n: int):
@@ -436,8 +545,8 @@ def _cplx_rows(x, n: int):
 def cplx_plan(n: int, dtype: torch.dtype, device) -> LaunchPlan:
     """The cached launch plan of the interleaved mode at (n, complex
     ``dtype``): K1's register schedule at n."""
-    return _cached((n, dtype, device), _build_cplx_plan, n,
-                   dtype.to_real(), device)
+    return plan.launch_plan((_build_cplx_plan, n, dtype, device), n,
+                            dtype.to_real(), device)
 
 
 def _build_cplx_plan(n: int, dtype: torch.dtype, device) -> LaunchPlan:

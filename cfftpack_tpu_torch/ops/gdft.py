@@ -28,10 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import plan
-from ..config import (DEFAULT_NORM, as_tensor, check_norm, complex_dtype_of,
-                      fwd_scale, inv_scale)
-from . import core
-from .cfft import _as_real_plane, _check_axis
+from ..config import (DEFAULT_NORM, _as_real_plane, _check_axis, as_tensor,
+                      check_norm, complex_dtype_of, fwd_scale, inv_scale)
+from . import core, fused_fft
 
 __all__ = ["gdft", "igdft", "gdft_split", "igdft_split",
            "shifted_dft_padded"]
@@ -63,13 +62,13 @@ def _gdft_planes(xr, xi, a: float, b: float, axis: int, norm: str,
     if inverse:
         # conj of the forward composition:
         # x_j = sum_k y_k e^{+2i pi (j+a)(k+b)/n}
-        ar, ai = core._cmul_tab(xr, xi, postr, -posti)
+        ar, ai = fused_fft._cmul_tab(xr, xi, postr, -posti)
         yr, yi = core.sfft(ar, ai, n, True)
-        zr, zi = core._cmul_tab(yr, yi, prer, -prei)
+        zr, zi = fused_fft._cmul_tab(yr, yi, prer, -prei)
     else:
-        ar, ai = core._cmul_tab(xr, xi, prer, prei)
+        ar, ai = fused_fft._cmul_tab(xr, xi, prer, prei)
         yr, yi = core.sfft(ar, ai, n, False)
-        zr, zi = core._cmul_tab(yr, yi, postr, posti)
+        zr, zi = fused_fft._cmul_tab(yr, yi, postr, posti)
     s = inv_scale(norm, n) if inverse else fwd_scale(norm, n)
     if s != 1.0:
         zr = zr * s
@@ -110,10 +109,10 @@ def shifted_dft_padded(x, n: int, m: int, a: float, b: float, nout: int):
     x = x.to(complex_dtype_of(x.dtype))
     prer, prei, postr, posti = core._shifted_phases(
         n, m, float(a), float(b), nout, x.real.dtype, x.device)
-    ar, ai = core._cmul_tab(x.real, x.imag, prer, prei)
+    ar, ai = fused_fft._cmul_tab(x.real, x.imag, prer, prei)
     Ar, Ai = core.sfft(F.pad(ar, (0, m - n)), F.pad(ai, (0, m - n)), m,
                        inverse=False)
-    return torch.complex(*core._cmul_tab(Ar[..., :nout], Ai[..., :nout],
+    return torch.complex(*fused_fft._cmul_tab(Ar[..., :nout], Ai[..., :nout],
                                          postr, posti))
 
 

@@ -19,9 +19,9 @@ from __future__ import annotations
 
 import torch
 
-from ..config import DEFAULT_NORM, as_tensor, check_norm
+from ..config import DEFAULT_NORM, _check_length, as_tensor, check_norm
 from . import core
-from .cfft import _check_length, fft, fft2, ifft, ifft2
+from .cfft import fft, fft2, ifft, ifft2
 from .dct import dct, dctn, dst, dstn, idct, idctn, idst, idstn
 from .gdft import gdft, igdft
 from .rfft import irfft, irfft2, rfft, rfft2

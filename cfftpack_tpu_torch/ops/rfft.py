@@ -9,20 +9,21 @@ to them (the K7 route applies it in the kernel's store).
 The 2-D forms run r2c along the last of their axes and a complex pass
 along the first, which for the trailing pair of float32 planes is K6 on
 the n1//2 + 1 packed columns as they stand (the kernel masks its last
-lane group, so the ragged width needs no pad).
+lane group, so the ragged width needs no pad).  This module checks and
+coerces the input and turns the norm into a scale; the routes of
+``core.srfft``, ``core.sirfft`` and ``core.srfilter`` choose the
+kernels.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..config import (DEFAULT_NORM, as_tensor, check_norm, complex_dtype_of,
+from ..config import (DEFAULT_NORM, _apply_axis, _as_real_plane, _check_axis,
+                      _check_length, as_tensor, check_norm, complex_dtype_of,
                       fwd_scale, inv_scale, real_dtype_of)
-from .. import plan
 from ..utils.profiling import span
-from . import core, fused_fft, stream_fft
-from .cfft import (_apply_axis, _as_real_plane, _check_axis, _check_length,
-                   _fft_impl, _fft_split_impl)
+from . import core
+from .cfft import fft, fft_split, ifft, ifft_split
 
 __all__ = ["rfft", "irfft", "rfft2", "irfft2", "rfft_split", "irfft_split",
            "rfft2_split", "irfft2_split", "rfilter_split"]
@@ -77,7 +78,7 @@ def rfft2(x, axes=(-2, -1), norm: str = DEFAULT_NORM):
     of the reference's ``rfft2f_``)."""
     norm = check_norm(norm)
     a0, a1 = (int(a) for a in axes)
-    return _fft_impl(rfft(x, a1, norm), a0, norm, inverse=False)
+    return fft(rfft(x, a1, norm), a0, norm)
 
 
 def irfft2(y, s, axes=(-2, -1), norm: str = DEFAULT_NORM):
@@ -89,7 +90,7 @@ def irfft2(y, s, axes=(-2, -1), norm: str = DEFAULT_NORM):
     if y.shape[a0] != n0:
         raise ValueError(
             f"irfft2: axis {a0} has {y.shape[a0]} bins, expected n0={n0}")
-    return irfft(_fft_impl(y, a0, norm, inverse=True), n1, a1, norm)
+    return irfft(ifft(y, a0, norm), n1, a1, norm)
 
 
 # ------------------------------------------------- split (re, im) API
@@ -132,7 +133,7 @@ def rfft2_split(x, axes=(-2, -1), norm: str = DEFAULT_NORM):
     norm = check_norm(norm)
     a0, a1 = (int(a) for a in axes)
     yr, yi = rfft_split(x, a1, norm)
-    return _fft_split_impl(yr, yi, a0, norm, inverse=False)
+    return fft_split(yr, yi, a0, norm)
 
 
 def irfft2_split(yr, yi, s, axes=(-2, -1), norm: str = DEFAULT_NORM):
@@ -150,88 +151,8 @@ def irfft2_split(yr, yi, s, axes=(-2, -1), norm: str = DEFAULT_NORM):
         raise ValueError(
             f"irfft2_split: axis {a1} has {yr.shape[a1]} bins, expected "
             f"n1//2+1 = {n1 // 2 + 1} for n1={n1}")
-    zr, zi = _fft_split_impl(yr, yi, a0, norm, inverse=True)
+    zr, zi = ifft_split(yr, yi, a0, norm)
     return irfft_split(zr, zi, n1, a1, norm)
-
-
-def _rfilter_tables(n: int):
-    """Host tables c1..c4 (complex, h bins) for the fused real filter.
-
-    Derivation: compose srfft's packed merge Y = Ze + w*Zo, the
-    spectral multiply V = F*Y, and sirfft's un-merge Z' = (1+i*conj(w))V
-    + (1-i*conj(w))*conj(V_mirror) into Z' = P*Z + Q*conj(Z_mirror)
-    with P = c1*F + c3*conj(Fm), Q = c2*F + c4*conj(Fm): the filter
-    then needs no packed (n/2+1)-bin spectrum at all.
-    """
-    h = n // 2
-    k = np.arange(h)
-    w = np.exp(-2j * np.pi * k / n)
-    A = 1 + 1j * np.conj(w)
-    B = 1 - 1j * np.conj(w)
-    return (A * (1 - 1j * w) / 2, A * (1 + 1j * w) / 2,
-            B * (1 + 1j * w) / 2, B * (1 - 1j * w) / 2)
-
-
-def _rfilter_fused(x, fr, fi, n: int):
-    """Fused filter body (even n): deinterleave -> one n/2 complex FFT
-    -> one half-spectrum FMA -> inverse FFT -> interleave."""
-    h = n // 2
-    Zr, Zi = core.sfft(x[..., 0::2], x[..., 1::2], h, inverse=False)
-    c1r, c1i, c2r, c2i, c3r, c3i, c4r, c4i = plan.device_tables(
-        n, x.dtype, x.device).rfilter
-    Fr, Fi = fr[..., :h], fi[..., :h]
-    # conj(Fm): Fm_k = F_{h-k}, k = 0..h-1
-    Fmr = fr[..., 1:].flip(-1)
-    Fmi = -fi[..., 1:].flip(-1)
-    Pr = c1r * Fr - c1i * Fi + c3r * Fmr - c3i * Fmi
-    Pi = c1r * Fi + c1i * Fr + c3r * Fmi + c3i * Fmr
-    Qr = c2r * Fr - c2i * Fi + c4r * Fmr - c4i * Fmi
-    Qi = c2r * Fi + c2i * Fr + c4r * Fmi + c4i * Fmr
-
-    def zmul(pr, pi, qr, qi, Ar, Ai, Br, Bi):
-        # (pr+ipi)(Ar+iAi) + (qr+iqi)(Br-iBi)
-        re = pr * Ar - pi * Ai + qr * Br + qi * Bi
-        im = pr * Ai + pi * Ar + qi * Br - qr * Bi
-        return re, im
-
-    # Z' = P*Z + Q*conj(Zm); bin 0 is its own mirror
-    Z0r, Z0i = zmul(Pr[..., :1], Pi[..., :1], Qr[..., :1], Qi[..., :1],
-                    Zr[..., :1], Zi[..., :1], Zr[..., :1], Zi[..., :1])
-    Zcr, Zci = zmul(Pr[..., 1:], Pi[..., 1:], Qr[..., 1:], Qi[..., 1:],
-                    Zr[..., 1:], Zi[..., 1:], Zr[..., 1:].flip(-1),
-                    Zi[..., 1:].flip(-1))
-    wr, wi = core.sfft(torch.cat([Z0r, Zcr], dim=-1),
-                       torch.cat([Z0i, Zci], dim=-1), h, inverse=True)
-    with span("cfftpack.unpack"):
-        return core._interleave(wr, wi)
-
-
-def _use_stream_filter(x, fr, fi, n: int) -> bool:
-    """The streaming filter's structural conditions: float32, a length
-    the stream kernels take (split or not), one filter for every row,
-    an even flat batch to pair, and a half length K1 does not take.
-
-    The conjugate-symmetric extension assumes real DC and Nyquist bins
-    (fi[0] == fi[n//2] == 0, the rfft of a real filter), the documented
-    contract of ``rfilter_split``."""
-    if not stream_fft.stream_filter_eligible(n, x.dtype):
-        return False
-    if fr.ndim != 1 or fi.ndim != 1:
-        return False
-    B = x.shape[:-1].numel()
-    if B % 2 or B < 2:
-        return False
-    return not fused_fft.fused_eligible(n // 2, x.dtype)
-
-
-def _rfilter_stream(x, fr, fi, n: int, scale: float):
-    """Large-n filter times ``scale``: rows paired, K2 forward to the
-    permuted spectrum, the multiply fused into K4's inverse and the scale
-    into its store; no deinterleave, merge or interleave pass."""
-    h = n // 2
-    ffr = torch.cat([fr, fr[1:h].flip(-1)])
-    ffi = torch.cat([fi, -fi[1:h].flip(-1)])
-    return stream_fft.sfilter_stream(x, ffr, ffi, n, scale)
 
 
 def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
@@ -259,20 +180,5 @@ def rfilter_split(x, fr, fi, axis: int = -1, norm: str = DEFAULT_NORM):
         raise ValueError(
             f"rfilter_split: filter must have n//2+1 = {n // 2 + 1} "
             f"packed bins, got {fr.shape[-1]}")
-    x = x.movedim(axis, -1)
     s = fwd_scale(norm, n) * inv_scale(norm, n)
-    if n % 2:
-        # odd n: plain composition (no half-length packing to fuse)
-        yr, yi = core.srfft(x, n)
-        out = core.sirfft(yr * fr - yi * fi, yr * fi + yi * fr, n)
-    elif _use_stream_filter(x, fr, fi, n):
-        # the scale rides in the store of K4 (or K5 past the cap)
-        return _rfilter_stream(x, fr, fi, n, s).movedim(-1, axis)
-    else:
-        out = _rfilter_fused(x, fr, fi, n)
-    # the unscaled pipeline is sirfft(srfft(x)*F); the public
-    # composition applies fwd_scale then inv_scale on top
-    if s != 1.0:
-        with span("cfftpack.scale"):
-            out = out * s
-    return out.movedim(-1, axis)
+    return core.srfilter(x.movedim(axis, -1), fr, fi, n, s).movedim(-1, axis)

@@ -260,19 +260,10 @@ class _LaunchPlan:
     version: int
 
 
-_PLANS: dict = {}
-
-
 def _launch_plan(mode: str, n: int, device) -> _LaunchPlan:
     """The cached plan of (mode, n, device), rebuilt when ``plan.VERSION``
     moves (a device table replaced or cleared)."""
-    key = (mode, n, device)
-    lp = _PLANS.get(key)
-    if lp is not None and lp.version == plan.VERSION:
-        return lp
-    with profiling.planning():
-        lp = _PLANS[key] = _build_plan(mode, n, device)
-    return lp
+    return plan.launch_plan((_build_plan, mode, n, device), mode, n, device)
 
 
 def _build_plan(mode: str, n: int, device) -> _LaunchPlan:

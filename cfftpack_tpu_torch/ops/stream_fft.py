@@ -40,7 +40,7 @@ with both DFTs as dense matrix products, ``csrc/mm2_fft.cu``.  No
 dispatch picks it: it is reached through its own functions only.
 
 On a CPU tensor every wrapper runs the plain PyTorch version
-(:func:`stream_plain`, built from ``core._stockham`` and a float32
+(:func:`stream_plain`, built from ``fused_fft._stockham`` and a float32
 matmul; :func:`sfft_mm2_plain`, two float32 matmuls); on a CUDA tensor
 it launches the kernel or raises, each C call counted by K-name in
 ``utils.profiling.launches``.  Each wrapper is differentiable
@@ -59,7 +59,7 @@ import torch
 
 from .. import plan
 from ..utils import profiling
-from . import _adjoint, _build, core
+from . import _adjoint, _build, fused_fft
 
 __all__ = ["stream_eligible", "stream_filter_eligible", "stream_plain",
            "sfft_stream", "sfft_stream_permuted", "sfilter_stream",
@@ -232,15 +232,15 @@ def _col_lanes(m: int) -> int:
 def _dft128(yr, yi, inverse: bool):
     """128-point DFT over the last axis as a float32 matmul (the
     reference's outer DFT; D is symmetric)."""
-    Dr, Di = core._dense_dft(_N1, inverse, yr.dtype, yr.device)
+    Dr, Di = plan._dense_dft(_N1, inverse, yr.dtype, yr.device)
     return (torch.matmul(yr, Dr) - torch.matmul(yi, Di),
             torch.matmul(yr, Di) + torch.matmul(yi, Dr))
 
 
 def _dft_rows(xr, xi, m: int, inverse: bool):
     """m-point DFT over axis 1 of (b, m, 128) planes."""
-    yr, yi = core._stockham(xr.transpose(1, 2).contiguous(),
-                            xi.transpose(1, 2).contiguous(), m, inverse)
+    yr, yi = fused_fft._stockham(xr.transpose(1, 2).contiguous(),
+                                 xi.transpose(1, 2).contiguous(), m, inverse)
     return yr.transpose(1, 2), yi.transpose(1, 2)
 
 
@@ -261,7 +261,7 @@ def _split_plain(xr, xi, n: int, mode: str, fr, fi, scale: float, out):
     yr = Cr.reshape(b, s, m, _N1).permute(0, 3, 2, 1).reshape(b, n)
     yi = Ci.reshape(b, s, m, _N1).permute(0, 3, 2, 1).reshape(b, n)
     if fr is not None:
-        yr, yi = core._cmul_tab(yr, yi, fr, fi)
+        yr, yi = fused_fft._cmul_tab(yr, yi, fr, fi)
     if scale != 1.0:
         yr, yi = yr * scale, yi * scale
     if mode != "split":
@@ -304,7 +304,7 @@ def stream_plain(xr, xi, n: int, mode: str, fr=None, fi=None, *,
     if mode in ("fwd", "fwd_nat"):
         t1r, t1i = _device_outer(n, False, xr.device)
         sr, si = _dft_rows(xr, xi, m, False)
-        zr, zi = _dft128(*core._cmul_tab(sr, si, t1r, t1i), False)
+        zr, zi = _dft128(*fused_fft._cmul_tab(sr, si, t1r, t1i), False)
         if mode == "fwd_nat":
             zr, zi = zr.transpose(1, 2), zi.transpose(1, 2)
         return zr.contiguous(), zi.contiguous()
@@ -312,10 +312,10 @@ def stream_plain(xr, xi, n: int, mode: str, fr=None, fi=None, *,
         xr, xi = xr.transpose(1, 2), xi.transpose(1, 2)
     elif mode == "filter":
         rows = torch.arange(xr.shape[0], device=xr.device) % fr.shape[0]
-        xr, xi = core._cmul_tab(xr, xi, fr[rows], fi[rows])
+        xr, xi = fused_fft._cmul_tab(xr, xi, fr[rows], fi[rows])
     t1r, t1i = _device_outer(n, True, xr.device)
     yr, yi = _dft128(xr, xi, True)
-    sr, si = _dft_rows(*core._cmul_tab(yr, yi, t1r, t1i), m, True)
+    sr, si = _dft_rows(*fused_fft._cmul_tab(yr, yi, t1r, t1i), m, True)
     return sr.contiguous(), si.contiguous()
 
 
@@ -339,17 +339,9 @@ class _LaunchPlan:
     nat: tuple = ()
 
 
-_PLANS: dict = {}
-
-
 def _launch_plan(n_in: int, inverse: bool, s: int, device) -> _LaunchPlan:
-    key = (n_in, inverse, s, device)
-    lp = _PLANS.get(key)
-    if lp is not None and lp.version == plan.VERSION:
-        return lp
-    with profiling.planning():
-        lp = _PLANS[key] = _build_plan(n_in, inverse, s, device)
-    return lp
+    return plan.launch_plan((_build_plan, n_in, inverse, s, device), n_in,
+                            inverse, s, device)
 
 
 def _build_plan(n_in: int, inverse: bool, s: int, device) -> _LaunchPlan:
@@ -737,9 +729,10 @@ def _stream_filter_inv(xr, xi, fpr, fpi, n: int, scale: float = 1.0,
 def _split_pre(zr, zi, n: int, s: int):
     """s-point DFT over axis 1 of (b, s, n/s) planes, then the split
     twiddle W_n^{k1 j2}."""
-    zr, zi = core._butterfly(zr, zi, s, inverse=False)
+    zr, zi = fused_fft._butterfly(zr, zi, s, inverse=False)
     twr, twi = _device_split(n, s, zr.device)
-    return core._cmul_tab(zr, zi, twr.reshape(s, -1), twi.reshape(s, -1))
+    return fused_fft._cmul_tab(zr, zi, twr.reshape(s, -1),
+                               twi.reshape(s, -1))
 
 
 def sfilter_stream(x, ffr, ffi, n: int, scale: float = 1.0):
@@ -813,8 +806,8 @@ def _filter_adjoint(g, x, ffr, ffi, needs, n: int, scale: float):
         P = x.shape[:-1].numel() // 2
         xp = x.reshape(P, 2, n)
         gp = g.reshape(P, 2, n)
-        Zr, Zi = core.sfft(xp[:, 0], xp[:, 1], n, False)
-        Hr, Hi = core.sfft(gp[:, 0], gp[:, 1], n, False)
+        Zr, Zi = sfft_stream_split(xp[:, 0], xp[:, 1], n, False)
+        Hr, Hi = sfft_stream_split(gp[:, 0], gp[:, 1], n, False)
         if needs[1]:
             gfr = scale * (Hr * Zr + Hi * Zi).sum(0)
         if needs[2]:
@@ -876,8 +869,8 @@ def _mm2_one_pass(m: int) -> bool:
 
 def _mm2_device_tables(n: int, inverse: bool, device):
     """(D_m re, im, D_128 re, im, t1 re, im) in the transform's sign."""
-    return (core._dense_dft(n // _N1, inverse, torch.float32, device)
-            + core._dense_dft(_N1, inverse, torch.float32, device)
+    return (plan._dense_dft(n // _N1, inverse, torch.float32, device)
+            + plan._dense_dft(_N1, inverse, torch.float32, device)
             + _device_outer(n, inverse, device))
 
 
@@ -897,7 +890,7 @@ def sfft_mm2_plain(xr, xi, n: int, inverse: bool, natural: bool = True):
     if not inverse:
         sr, si = _cmatmul(dmr, dmi, xr.reshape(b, m, _N1),
                           xi.reshape(b, m, _N1))
-        zr, zi = _cmatmul(*core._cmul_tab(sr, si, t1r, t1i), d1r, d1i)
+        zr, zi = _cmatmul(*fused_fft._cmul_tab(sr, si, t1r, t1i), d1r, d1i)
         if natural:
             zr, zi = zr.transpose(1, 2), zi.transpose(1, 2)
         return zr.reshape(b, n), zi.reshape(b, n)
@@ -907,7 +900,7 @@ def sfft_mm2_plain(xr, xi, n: int, inverse: bool, natural: bool = True):
     else:
         xr, xi = xr.reshape(b, m, _N1), xi.reshape(b, m, _N1)
     yr, yi = _cmatmul(xr, xi, d1r, d1i)
-    zr, zi = _cmatmul(dmr, dmi, *core._cmul_tab(yr, yi, t1r, t1i))
+    zr, zi = _cmatmul(dmr, dmi, *fused_fft._cmul_tab(yr, yi, t1r, t1i))
     return zr.reshape(b, n), zi.reshape(b, n)
 
 

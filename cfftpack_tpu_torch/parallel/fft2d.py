@@ -21,10 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..config import (DEFAULT_NORM, check_norm, complex_dtype_of, fwd_scale,
-                      inv_scale)
+from ..config import (DEFAULT_NORM, _as_real_plane, check_norm,
+                      complex_dtype_of, fwd_scale, inv_scale)
 from ..ops import core
-from ..ops.cfft import _as_real_plane, scaled_pass
 from ._comm import all_to_all_tiled, axis_size, on_mesh
 
 __all__ = ["fft2_sharded", "ifft2_sharded", "fft2_sharded_split",
@@ -60,7 +59,7 @@ def _fft2_pair(xr, xi, mesh, axis_name: str, inverse: bool, norm: str,
                          f"size {d}")
     scale = inv_scale if inverse else fwd_scale
     planes = core.sfft(xr, xi, n1, inverse, scale(norm, n1))
-    return _columns(planes, group, lambda ar, ai: scaled_pass(
+    return _columns(planes, group, lambda ar, ai: core.scaled_pass(
         ar, ai, -2, inverse, scale(norm, n0)))
 
 
@@ -123,8 +122,8 @@ def rfft2_sharded_split(x, mesh, axis_name: str = "data",
     pad = (0, _padded_bins(n1, d) - h1)
     yr, yi = core.srfft(x, n1, fwd_scale(norm, n1))
     yr, yi = _columns((F.pad(yr, pad), F.pad(yi, pad)), group,
-                      lambda ar, ai: scaled_pass(ar, ai, -2, False,
-                                                 fwd_scale(norm, n0)))
+                      lambda ar, ai: core.scaled_pass(
+                          ar, ai, -2, False, fwd_scale(norm, n0)))
     return yr[..., :h1], yi[..., :h1]
 
 
@@ -148,8 +147,8 @@ def irfft2_sharded_split(yr, yi, n1: int, mesh, axis_name: str = "data",
     n0, h1 = yr.shape[-2] * d, n1 // 2 + 1
     pad = (0, _padded_bins(n1, d) - h1)
     yr, yi = _columns((F.pad(yr, pad), F.pad(yi, pad)), group,
-                      lambda ar, ai: scaled_pass(ar, ai, -2, True,
-                                                 inv_scale(norm, n0)))
+                      lambda ar, ai: core.scaled_pass(
+                          ar, ai, -2, True, inv_scale(norm, n0)))
     return core.sirfft(yr[..., :h1], yi[..., :h1], n1, inv_scale(norm, n1))
 
 

@@ -36,9 +36,9 @@ import numpy as np
 import torch
 
 from .. import plan
-from ..config import DEFAULT_NORM, check_norm, fwd_scale, inv_scale
+from ..config import (DEFAULT_NORM, _as_real_plane, check_norm, fwd_scale,
+                      inv_scale)
 from ..ops import core
-from ..ops.cfft import _as_real_plane, scaled_pass
 from ._comm import all_to_all_tiled, axis_index, axis_size, on_mesh
 
 __all__ = ["fft_fourstep_split", "ifft_fourstep_split"]
@@ -150,8 +150,8 @@ def _forward(xr, xi, d: int, r: int, group, norm: str, reorder: bool,
     n1, n2 = _split(n, d)
     c = _check_chunks(n1, d, overlap_chunks)
     w = n2 // d
-    ar, ai = scaled_pass(xr.reshape(lead + (n1, w)),
-                         xi.reshape(lead + (n1, w)), -2, False, 1.0)
+    ar, ai = core.scaled_pass(xr.reshape(lead + (n1, w)),
+                              xi.reshape(lead + (n1, w)), -2, False, 1.0)
     ar, ai = _twiddled(ar, ai, _twiddle(n, n1, 0, w, r * w, -1.0, ar.dtype,
                                         ar.device))
     s = fwd_scale(norm, n)
@@ -185,7 +185,7 @@ def _inverse(yr, yi, d: int, r: int, group, norm: str, reordered: bool,
                                         1.0, ar.dtype, ar.device))
     s = inv_scale(norm, n)
     xr, xi = _exchange(ar, ai, group, d, -1, -2, c,
-                       lambda br, bi: scaled_pass(br, bi, -2, True, s))
+                       lambda br, bi: core.scaled_pass(br, bi, -2, True, s))
     return xr.reshape(lead + (n // d,)), xi.reshape(lead + (n // d,))
 
 

@@ -30,6 +30,10 @@ MAX_DIRECT_RADIX = 32
 # The largest radix of a register pass (K1 and K5, csrc/regfft.cuh): a
 # thread holds one pass's R elements of a butterfly in registers.
 REG_MAX_RADIX = 16
+# The lengths the register kernels are compiled for (K1 in
+# ``csrc/stockham_fft.cu``), by dtype: :func:`reg_passes` schedules them.
+REG_LENGTHS = {torch.float32: (480, 512, 960, 1024, 2048, 4096, 8192),
+               torch.float64: (480, 512, 960, 1024, 2048, 4096)}
 
 
 def _factor_py(n: int) -> tuple[int, ...]:
@@ -156,6 +160,16 @@ def dft_matrix(p: int) -> np.ndarray:
     return np.exp((-2j * np.pi / p) * (k * j))
 
 
+@functools.lru_cache(maxsize=64)
+def _dense_dft(n1: int, inverse: bool, dtype, device):
+    """:func:`dft_matrix` (conjugated for the inverse) as device planes."""
+    D = dft_matrix(n1)
+    if inverse:
+        D = np.conj(D)
+    return (to_device(D.real, dtype, device),
+            to_device(D.imag, dtype, device))
+
+
 def host_fft(x: np.ndarray) -> np.ndarray:
     """Host-side (numpy, float64) unscaled forward DFT on the same
     Stockham schedule as the device path; used only to build plan
@@ -199,6 +213,108 @@ def bluestein_tables(n: int, m: int | None = None
     return m, chirp, bq
 
 
+# ------------------------------------------------ real transforms' tables
+#
+# Even-n r2c/c2r use the half-length complex trick with the split/merge
+# stage fused into a single 4-term table FMA over (Z, Z-mirror).
+# Derivation: Y_k = Ze_k + w_k Zo_k with Ze = (Z + conj(Zm))/2,
+# Zo = -i(Z - conj(Zm))/2, Zm_k = Z_{(h-k)%h}; expanding in (Zr, Zi,
+# Zmr, Zmi) gives per-bin linear combinations with f64 host tables.
+
+def _rfft_merge_tables(n: int):
+    """Coefficients of (Zr, Zi, Zmr, Zmi) for yr, yi at bins 0..h-1."""
+    h = n // 2
+    k = np.arange(h)
+    w = np.exp(-2j * np.pi * k / n)
+    wr, wi = w.real, w.imag
+    return ((1 + wi) / 2, wr / 2, (1 - wi) / 2, wr / 2,
+            -wr / 2, (1 + wi) / 2, wr / 2, (wi - 1) / 2)
+
+
+def _irfft_merge_tables(n: int):
+    """Coefficients of (ya, yb, ymr, ymi) for Zr, Zi at bins 0..h-1."""
+    h = n // 2
+    k = np.arange(h)
+    w = np.exp(-2j * np.pi * k / n)
+    wr, wi = w.real, w.imag
+    # Zr = (ya+ymr) - wr*(yb+ymi) + wi*(ya-ymr)
+    # Zi = (yb-ymi) + wr*(ya-ymr) + wi*(yb+ymi)
+    return (1 + wi, -wr, 1 - wi, -wr,
+            wr, 1 + wi, -wr, wi - 1)
+
+
+def _r2c_adjoint_table(t):
+    """The (h, 8) c2r table of the adjoint of the r2c table ``t`` (h + 1
+    bins): Zr[j] takes (a1_j, b1_j, a3_{h-j}, b3_{h-j}) of (g_r[j], g_i[j],
+    g_r[h-j], g_i[h-j]), Zi[j] the same of a2, b2, a4, b4; bin 0 sums the
+    terms of bins 0 and h, which both read Z[0]."""
+    h = t.shape[0] - 1
+    a1, a2, a3, a4, b1, b2, b3, b4 = t.T
+    j = np.arange(1, h)
+    out = np.empty((h, 8))
+    out[1:] = np.stack([a1[j], b1[j], a3[h - j], b3[h - j],
+                        a2[j], b2[j], a4[h - j], b4[h - j]], axis=-1)
+    out[0] = (a1[0] + a3[0], b1[0] + b3[0], a1[h] + a3[h], b1[h] + b3[h],
+              a2[0] + a4[0], b2[0] + b4[0], a2[h] + a4[h], b2[h] + b4[h])
+    return out
+
+
+def _c2r_adjoint_table(t):
+    """The (h + 1, 8) r2c table of the adjoint of the c2r table ``t`` (h
+    bins): g_r[k] takes (c1_k, d1_k) of Z[k] and (c3_{h-k}, d3_{h-k}) of
+    Z[h-k], g_i[k] the same of c2, d2, c4, d4; bin h takes bin 0's mirror
+    terms, read from Z[0] as its direct term."""
+    h = t.shape[0]
+    c1, c2, c3, c4, d1, d2, d3, d4 = t.T
+    k = np.arange(1, h)
+    out = np.zeros((h + 1, 8))
+    out[1:h] = np.stack([c1[k], d1[k], c3[h - k], d3[h - k],
+                         c2[k], d2[k], c4[h - k], d4[h - k]], axis=-1)
+    out[0, [0, 1, 4, 5]] = c1[0], d1[0], c2[0], d2[0]
+    out[h, [0, 1, 4, 5]] = c3[0], d3[0], c4[0], d4[0]
+    return out
+
+
+def real_tables(rfft_merge, irfft_merge, adjoint: bool = True) -> dict:
+    """The real transforms' table sets, float64 (bins, 8) arrays, one row
+    of 8 coefficients a bin (``fused_fft._real_merge``,
+    ``fused_fft.srfft_real``): ``rfft``, the r2c form of ``rfft_merge``
+    over bins 0 .. h, DC = Zr + Zi and Nyquist = Zr - Zi of Z[0] with zero
+    imaginary rows; ``irfft``, the c2r form, ``irfft_merge`` by bin; with
+    ``adjoint``, ``rfft_adj`` and ``irfft_adj``, their transposes, the
+    other form each."""
+    h = len(rfft_merge[0])
+    fwd = np.zeros((h + 1, 8))
+    fwd[1:h] = np.stack(rfft_merge, axis=-1)[1:]
+    fwd[0, :2] = 1.0, 1.0
+    fwd[h, :2] = 1.0, -1.0
+    inv = np.stack([np.asarray(t, dtype=np.float64) for t in irfft_merge],
+                   axis=-1)
+    sets = {"rfft": fwd, "irfft": inv}
+    if adjoint:
+        sets.update(rfft_adj=_r2c_adjoint_table(fwd),
+                    irfft_adj=_c2r_adjoint_table(inv))
+    return sets
+
+
+def _rfilter_tables(n: int):
+    """Host tables c1..c4 (complex, h bins) for the fused real filter.
+
+    Derivation: compose srfft's packed merge Y = Ze + w*Zo, the
+    spectral multiply V = F*Y, and sirfft's un-merge Z' = (1+i*conj(w))V
+    + (1-i*conj(w))*conj(V_mirror) into Z' = P*Z + Q*conj(Z_mirror)
+    with P = c1*F + c3*conj(Fm), Q = c2*F + c4*conj(Fm): the filter
+    then needs no packed (n/2+1)-bin spectrum at all.
+    """
+    h = n // 2
+    k = np.arange(h)
+    w = np.exp(-2j * np.pi * k / n)
+    A = 1 + 1j * np.conj(w)
+    B = 1 - 1j * np.conj(w)
+    return (A * (1 - 1j * w) / 2, A * (1 + 1j * w) / 2,
+            B * (1 + 1j * w) / 2, B * (1 - 1j * w) / 2)
+
+
 # ------------------------------------------------------- device plans
 
 def host_tables(n: int) -> dict:
@@ -210,8 +326,6 @@ def host_tables(n: int) -> dict:
     ``rfilter`` (4 complex tables), None for odd n.  A ``source`` dict
     given to :func:`device_tables` has the same keys.
     """
-    from .ops.core import _irfft_merge_tables, _rfft_merge_tables
-    from .ops.rfft import _rfilter_tables
     facs = factor(n)
     even = n > 1 and n % 2 == 0
     return {
@@ -235,9 +349,10 @@ class DeviceTables:
     matrices of the radices 7..31, stage s at ``dense_offs[s]`` (0
     for closed-form radices).  ``dense`` maps p to (Dr, Di) views.
     ``bluestein`` is (m, chirp_r, chirp_i, bq_r, bq_i); ``real`` (even
-    n) maps the real transforms' table sets (``ops.core.real_tables``,
+    n) maps the real transforms' table sets (:func:`real_tables`,
     built in float64 from ``rfft_merge`` and ``irfft_merge``, the
-    transposed sets where K1's real modes run) to (bins, 8) tensors;
+    transposed sets where n/2 has a register schedule, so K1's real modes
+    run) to (bins, 8) tensors;
     ``rfilter`` is a tuple of h-bin tensors.
     """
     n: int
@@ -295,9 +410,10 @@ def reg_twiddles(n: int) -> np.ndarray:
 
 _DEVICE_TABLES: dict = {}
 # Bumped whenever a cached plan is replaced or dropped, so that launch
-# plans holding pointers into the tables (``fused_fft``, ``stream_fft``)
-# know to rebuild.
+# plans holding pointers into the tables (:func:`launch_plan`) know to
+# rebuild.
 VERSION = 0
+_LAUNCH_PLANS: dict = {}
 
 
 def clear_device_tables() -> None:
@@ -312,8 +428,18 @@ def to_device(a, dtype, device) -> torch.Tensor:
     return t.to(dtype).to(device)
 
 
+def _flat_twiddles(tabs):
+    """(offsets, re, im): stage tables concatenated as K1 reads them,
+    stage s at ``[offsets[s], offsets[s+1])`` (f64 host)."""
+    offs = [0]
+    for t in tabs:
+        offs.append(offs[-1] + t.size)
+    flat = (np.concatenate([t.ravel() for t in tabs]) if len(tabs)
+            else np.zeros(0, dtype=np.complex128))
+    return tuple(offs), flat.real.copy(), flat.imag.copy()
+
+
 def _build(n: int, tabs: dict, dtype, device) -> DeviceTables:
-    from .ops.fused_fft import _flat_twiddles
     facs = tuple(int(p) for p in tabs["factors"])
     offs, twr, twi = _flat_twiddles(tabs["twiddles"])
     dense_offs, blocks, pos = [], [], 0
@@ -342,11 +468,9 @@ def _build(n: int, tabs: dict, dtype, device) -> DeviceTables:
     real = None
     if tabs["rfft_merge"] is not None:
         # the transposed sets only where K1's real modes run
-        from .ops.core import real_tables
-        from .ops.fused_fft import real_eligible
         real = {k: to_device(t, dtype, device) for k, t in real_tables(
             tabs["rfft_merge"], tabs["irfft_merge"],
-            real_eligible(n, dtype)).items()}
+            n // 2 in REG_LENGTHS.get(dtype, ())).items()}
     rfl = tabs["rfilter"]
     if rfl is not None:
         rfl = tuple(to_device(part, dtype, device)
@@ -382,3 +506,16 @@ def device_tables(n: int, dtype: torch.dtype, device, source: dict | None
                         dtype, device)
     _DEVICE_TABLES[key] = tables
     return tables
+
+
+def launch_plan(key: tuple, *args):
+    """The kernels' one cache of launch plans: the plan under ``key``, a
+    tuple whose first entry is the function that builds it from ``args``
+    (so two kernels' keys never meet).  Built on first use and again once
+    :data:`VERSION` has moved past the plan's ``version``, each build
+    under :func:`utils.profiling.planning`."""
+    lp = _LAUNCH_PLANS.get(key)
+    if lp is None or lp.version != VERSION:
+        with profiling.planning():
+            lp = _LAUNCH_PLANS[key] = key[0](*args)
+    return lp

@@ -21,7 +21,7 @@ costs one flag test.  The names are fixed (metrics read them):
   each C call (``ops._build.call``);
 * ``cfftpack.adjoint``: a kernel's backward (``ops._adjoint``);
 * ``cfftpack.plan``: a cache miss that builds device tables or a launch
-  plan (:func:`planning`).
+  plan (:func:`planning`; ``plan.device_tables``, ``plan.launch_plan``).
 
 The launch registry: :data:`launches` counts each C entry's successful
 calls by K-name (``ops._build.call``), :data:`plans` the builds under
@@ -29,8 +29,8 @@ calls by K-name (``ops._build.call``), :data:`plans` the builds under
 (``r2c``, ``c2r``: ``ops.fused_fft.srfft_real``, ``sirfft_real``, on any
 device, a backward's adjoint map included), :data:`complex_maps` the
 complex API's ``fft``/``ifft`` calls by route (``interleaved``: K1's
-interleaved mode; ``planes``: the split pass, ``ops.cfft._fft_impl``, on
-any device); :func:`counts` reads them all, :func:`reset` zeroes them.
+interleaved mode; ``planes``: the split pass, ``ops.core.complex_pass``,
+on any device); :func:`counts` reads them all, :func:`reset` zeroes them.
 """
 from __future__ import annotations
 

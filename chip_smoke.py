@@ -87,6 +87,7 @@ import scipy.fft
 import torch
 
 import cfftpack_tpu_torch as ct
+from cfftpack_tpu_torch import plan
 from cfftpack_tpu_torch.config import fwd_scale, inv_scale
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
@@ -96,7 +97,6 @@ from cfftpack_tpu_torch.ops import fourstep_fft, fused_fft, rstream, stream_fft
 from cfftpack_tpu_torch.utils import profiling
 
 # the modules, not the functions of the same names that ops exports
-rfft_ops = importlib.import_module("cfftpack_tpu_torch.ops.rfft")
 dct_ops = importlib.import_module("cfftpack_tpu_torch.ops.dct")
 
 DEV = "cuda"
@@ -291,8 +291,8 @@ def no_stream():
 @contextlib.contextmanager
 def no_rstream():
     """Take K7 and K8 out of the dispatch (the half-length routes before
-    them: K3 at n/2 between deinterleave and merge passes), for timing
-    only."""
+    them: K3 at n/2 between deinterleave and merge passes; the streaming
+    filter too, which shares K7's gate), for timing only."""
     use, ok = core._use_rstream, dct_ops._dct4_stream_ok
     core._use_rstream = lambda *a: False
     dct_ops._dct4_stream_ok = lambda *a: False
@@ -307,12 +307,12 @@ def k1_rows(tb: int):
     """K1's register kernel at tb rows a block, for timing."""
     rule = fused_fft._reg_tile_rows
     fused_fft._reg_tile_rows = lambda n, dtype: tb
-    fused_fft._PLANS.clear()
+    plan._LAUNCH_PLANS.clear()
     try:
         yield
     finally:
         fused_fft._reg_tile_rows = rule
-        fused_fft._PLANS.clear()
+        plan._LAUNCH_PLANS.clear()
 
 
 @contextlib.contextmanager
@@ -333,12 +333,12 @@ def col_lanes(n0: int, lanes: int, csize: int):
     ``csize`` blocks a cluster."""
     rule = colfft._REG_LANES[n0], colfft._REG_CLUSTER[n0]
     colfft._REG_LANES[n0], colfft._REG_CLUSTER[n0] = lanes, csize
-    colfft._PLANS.clear()
+    plan._LAUNCH_PLANS.clear()
     try:
         yield
     finally:
         colfft._REG_LANES[n0], colfft._REG_CLUSTER[n0] = rule
-        colfft._PLANS.clear()
+        plan._LAUNCH_PLANS.clear()
 
 
 def drive(fn, total: dict):
@@ -581,9 +581,10 @@ def k5_filter_before(x, fr, fi, n: int):
     fpi = ffi.reshape(128, m, s).permute(2, 1, 0).contiguous()
     wr, wi = stream_fft._launch(Zr, Zi, n_in, "filter", fpr, fpi)
     twr, twi = stream_fft._device_split(n, s, x.device)
-    ur, ui = core._cmul_tab(wr.reshape(P, s, n_in), wi.reshape(P, s, n_in),
-                            twr.reshape(s, -1), -twi.reshape(s, -1))
-    wr, wi = core._butterfly(ur, ui, s, inverse=True)
+    ur, ui = fused_fft._cmul_tab(wr.reshape(P, s, n_in),
+                                 wi.reshape(P, s, n_in), twr.reshape(s, -1),
+                                 -twi.reshape(s, -1))
+    wr, wi = fused_fft._butterfly(ur, ui, s, inverse=True)
     return torch.stack([wr.reshape(P, n), wi.reshape(P, n)], dim=1)
 
 
@@ -899,7 +900,7 @@ FFT2_SHAPE, RFFT2_SHAPE = (64, 4096, 4096), (16, 4096, 4096)
 # (module, name): no_plain_on_card makes each raise on a CUDA tensor
 PLAIN_VERSIONS = (
     (fused_fft, "sfft_plain"), (fused_fft, "real_plain"),
-    (fused_fft, "_cplx_plain"), (core, "_stockham"),
+    (fused_fft, "_cplx_plain"), (fused_fft, "_stockham"),
     (stream_fft, "stream_plain"), (stream_fft, "sfft_mm2_plain"),
     (rstream, "_rfft_plain"), (rstream, "_irfft_plain"),
     (rstream, "_dct2_plain"), (rstream, "_dct3_plain"),
@@ -1184,7 +1185,7 @@ def pair_filter(x, ffr, ffi, scale: float):
 
 def packed_filter_ext(fr, fi):
     """rfilter_split's conjugate-symmetric extension of a packed filter
-    (``rfft._rfilter_stream``)."""
+    (``core._rfilter_stream``)."""
     h = fr.shape[-1] - 1
     return (torch.cat([fr, fr[1:h].flip(-1)]),
             torch.cat([fi, -fi[1:h].flip(-1)]))
@@ -1775,7 +1776,7 @@ def phase_cplx_k1(total: dict, card: str) -> None:
     for cdt in (torch.complex64, torch.complex128):
         worst_o = worst_p = 0.0
         bad, maps, calls = [], 0, 0
-        for n in fused_fft.REG_LENGTHS[cdt.to_real()]:
+        for n in plan.REG_LENGTHS[cdt.to_real()]:
             rows = (3, 4096) + ((16384,) if (cdt, n) == (torch.complex128,
                                                          1024) else ())
             for b in rows:
@@ -1834,7 +1835,7 @@ def phase_cplx_k1(total: dict, card: str) -> None:
           "a contiguous fft and ifft launch K1's interleaved mode alone")
     check(not spans & {"cfftpack.pack", "cfftpack.unpack"},
           "no cfftpack.pack or cfftpack.unpack span on a contiguous input")
-    n = fused_fft.REG_LENGTHS[torch.float64][3]
+    n = plan.REG_LENGTHS[torch.float64][3]
     ms = median_ms(lambda: ct.fft(x))
     print(f"  fft (4096, {n}) complex128 through K1's interleaved mode: "
           f"{ms:.4f} ms a call, event time  [{card}]")
@@ -1843,7 +1844,6 @@ def phase_cplx_k1(total: dict, card: str) -> None:
 def phase_utils(card: str) -> None:
     """Phase 35: the four small utils on the card."""
     import tempfile
-    from cfftpack_tpu_torch import plan
     from cfftpack_tpu_torch import utils as pu
 
     print("phase 35: warm_plans, precompile, trace, Timer, check_finite")
@@ -1929,7 +1929,7 @@ def main() -> None:
         for n in K1_SIZES:
             if not fused_fft.fused_eligible(n, dt):
                 continue
-            reg = n in fused_fft.REG_LENGTHS[dt]
+            reg = n in plan.REG_LENGTHS[dt]
             for b in K1_BATCHES + ((5,) if reg else ()):
                 xr, xi = pair((b, n), dt, seed=n + b)
                 if b == 5:
@@ -1961,7 +1961,7 @@ def main() -> None:
     # both table sets of each mode (not counted in the main path)
     print("phase 2b: K1's real modes vs plain version and torch.fft")
     for dt in (torch.float32, torch.float64):
-        for h in fused_fft.REG_LENGTHS[dt]:
+        for h in plan.REG_LENGTHS[dt]:
             n = 2 * h
             for b in (3, max(4, (1 << 21) // n)):
                 x = real((b, n), dt, seed=n + b)
@@ -2953,12 +2953,13 @@ def main() -> None:
         del xs, ys
     split_ms, split4_ms = k5_path_ms[8, 1 << 20], k5_path_ms[4, 1 << 21]
     rf_ms = median_ms(lambda: ct.rfilter_split(x, fr, fi))
-    use = rfft_ops._use_stream_filter
-    rfft_ops._use_stream_filter = lambda *a: False
+    use = core._use_rstream          # the streaming filter's gate off
+    core._use_rstream = lambda n, B, dtype, split=False: (
+        not split and use(n, B, dtype))
     try:
         rf_half_ms = median_ms(lambda: ct.rfilter_split(x, fr, fi))
     finally:
-        rfft_ops._use_stream_filter = use
+        core._use_rstream = use
     pay32 = torch.rand((80, 1 << 20), generator=g, device=DEV)
     fr32, fi32 = pair(((1 << 19) + 1,), torch.float32, seed=17)
     fi32[0] = 0.0
@@ -3337,7 +3338,7 @@ def main() -> None:
                   lambda: k5_filter_before(pay32, fr32, fi32, 1 << 20), card)
     for dt in (torch.float32, torch.float64):
         for n in (480, 512, 960, 1024, 2048, 4096, 8192):
-            if n not in fused_fft.REG_LENGTHS[dt]:
+            if n not in plan.REG_LENGTHS[dt]:
                 continue
             b = (1 << 22) // n
             xr, xi = pair((b, n), dt, seed=106)
@@ -3491,8 +3492,7 @@ def main() -> None:
     rule = stream_fft._cluster_size
     for C in C_SWEEP:
         stream_fft._cluster_size = lambda m, C=C: C
-        stream_fft._PLANS.clear()
-        rstream._PLANS.clear()
+        plan._LAUNCH_PLANS.clear()
         try:
             profile_route(f"K3 sfft_stream (64, 65536) at C={C} (the rule "
                           f"takes {rule(512)})",
@@ -3507,8 +3507,7 @@ def main() -> None:
                           lambda: rstream.launch("dct4", 65536, x), card)
         finally:
             stream_fft._cluster_size = rule
-            stream_fft._PLANS.clear()
-            rstream._PLANS.clear()
+            plan._LAUNCH_PLANS.clear()
     del xr, xi
     # K4's cluster size at each m it takes, 2^22 elements
     # (stream_fft._filter_cluster_size)

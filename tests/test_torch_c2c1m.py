@@ -4,7 +4,7 @@ rows of 2^20 (``portbench/configs/c2c1m*.py``).
 
 * The plain reference (one index map n = n1 * n2 of dense DFTs, in
   complex128) against ``numpy.fft`` at 2^20 and at 1000 = 25 x 40.
-* The port's route on the CPU (``core._fft_any`` to the K5 split's plain
+* The port's route on the CPU (``core.sfft`` to the K5 split's plain
   version, ``stream_plain``) against the reference, through the check
   that decides ``correct`` and the cell's limits.
 * The dispatch at (2^20, float32): the split of 2, not K1 nor the

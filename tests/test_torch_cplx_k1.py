@@ -1,7 +1,7 @@
 """K1's interleaved complex mode: ``fft``/``ifft`` at K1's register lengths.
 
-``ops/cfft.py:_fft_impl`` sends a complex64 or complex128 tensor whose
-transform axis is the last, at a length of ``fused_fft.REG_LENGTHS`` of
+``ops/core.py:complex_pass`` sends a complex64 or complex128 tensor whose
+transform axis is the last, at a length of ``plan.REG_LENGTHS`` of
 its real dtype, through ``fused_fft.cfft_interleaved``: on the card one
 launch of the C entry ``k1_cplx_f32``/``f64`` on the (re, im) pairs as the
 tensor holds them, on the CPU K1's plain version on the ``view_as_real``
@@ -28,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 import cfftpack_tpu as jt
 import cfftpack_tpu_torch as pt
+from cfftpack_tpu_torch import plan
 from cfftpack_tpu_torch.config import fwd_scale, inv_scale
 from cfftpack_tpu_torch.ops import _build, fused_fft
 from cfftpack_tpu_torch.utils import profiling
@@ -183,7 +184,7 @@ def cplx_entry(monkeypatch):
     monkeypatch.setattr(_build, "_enter",
                         lambda fn, dev, args: fn(*args, None))
     monkeypatch.setattr(fused_fft, "_cplx_check", lambda *a: None)
-    monkeypatch.setattr(fused_fft, "_PLANS", {})
+    monkeypatch.setattr(plan, "_LAUNCH_PLANS", {})
     monkeypatch.setattr(profiling, "launches",
                         dict.fromkeys(profiling.KERNELS, 0))
     return record, calls

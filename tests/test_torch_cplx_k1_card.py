@@ -1,7 +1,7 @@
 """K1's interleaved complex mode on the card (``-m cuda``).
 
 ``fft``/``ifft`` of complex64 and complex128 rows at every length of
-``fused_fft.REG_LENGTHS`` against ``torch.fft`` in complex128 (1e-5 of
+``plan.REG_LENGTHS`` against ``torch.fft`` in complex128 (1e-5 of
 max |X| in complex64, 1e-12 in complex128), at 1, 3 and 4096 rows under
 three norms, with one K1 launch a transform and no other kernel entry;
 and the views of ``test_torch_cplx_k1.py`` (conjugate and negative bits,
@@ -16,8 +16,8 @@ import pytest
 import torch
 
 import cfftpack_tpu_torch as pt
+from cfftpack_tpu_torch import plan
 from cfftpack_tpu_torch.config import fwd_scale, inv_scale
-from cfftpack_tpu_torch.ops import fused_fft
 from cfftpack_tpu_torch.utils import profiling
 
 from torch_parity import complex_input, rel_err, to_np
@@ -25,7 +25,7 @@ from torch_parity import complex_input, rel_err, to_np
 NORMS = ("fftpack", "ortho", "backward")
 DTYPES = {np.complex64: torch.complex64, np.complex128: torch.complex128}
 CASES = [(dt, n) for dt, tdt in DTYPES.items()
-         for n in fused_fft.REG_LENGTHS[tdt.to_real()]]
+         for n in plan.REG_LENGTHS[tdt.to_real()]]
 VIEWS = ("conj", "neg_bit", "negated", "transposed", "strided", "offset",
          "flat_offset", "no_rows", "one_row", "vector", "leading_axes",
          "axis0")

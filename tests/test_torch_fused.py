@@ -169,7 +169,7 @@ def _apply_register_passes(x, n, inverse):
     return a
 
 
-@pytest.mark.parametrize("n", fused_fft.REG_LENGTHS[torch.float32])
+@pytest.mark.parametrize("n", plan.REG_LENGTHS[torch.float32])
 def test_register_schedule_matches_numpy_fft(n):
     """The register kernel's passes, index maps and pass twiddles, applied
     with numpy, against numpy.fft at every scheduled length."""
@@ -193,7 +193,7 @@ def test_launch_plan_is_built_once_per_key(monkeypatch):
     lib = types.SimpleNamespace(cfft_stockham_f32="f32",
                                 cfft_stockham_f64="f64")
     monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(fused_fft, "_PLANS", {})
+    monkeypatch.setattr(plan, "_LAUNCH_PLANS", {})
     dev = torch.device("cpu")
     for n, dt in ((1024, torch.float32), (960, torch.float64),
                   (899, torch.float32), (4096, torch.float64)):
@@ -204,14 +204,14 @@ def test_launch_plan_is_built_once_per_key(monkeypatch):
         facs = plan.factor(n)
         nstages, cfac = lp.tables[5], lp.tables[6]
         assert nstages == len(facs) and tuple(cfac[:nstages]) == facs
-        if n in fused_fft.REG_LENGTHS[dt]:
+        if n in plan.REG_LENGTHS[dt]:
             assert lp.passes == plan.reg_passes(n)
             assert tuple(p for q in lp.passes for p in q) == facs
             assert lp.tables[9] == len(lp.passes)
             assert lp.threads == lp.tile_rows * -(-n // 16)
         else:
             assert lp.passes == () and lp.tables[4] is None
-    assert len(fused_fft._PLANS) == 8
+    assert len(plan._LAUNCH_PLANS) == 8
     plan.device_tables(1024, torch.float32, dev,
                        source=plan.host_tables(1024))
     assert fused_fft.launch_plan(1024, torch.float32, False, dev) is not lp
@@ -229,8 +229,9 @@ def test_scale_is_the_unscaled_result_times_the_scale(n):
 
 
 def test_split_pass_leaves_the_scale_to_the_engine(monkeypatch):
-    """cfft._split_pass hands the norm scale to the engine and multiplies
-    nothing after it: the engine's output comes back as it is."""
+    """The split pass (``core.scaled_pass``) hands the norm scale to the
+    engine and multiplies nothing after it: the engine's output comes back
+    as it is."""
     seen = []
 
     def engine(xr, xi, n, inverse, scale=1.0):

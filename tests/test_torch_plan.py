@@ -13,7 +13,6 @@ from cfftpack_tpu.ops.pallas_fft import _flat_twiddles as j_flat_twiddles
 
 from cfftpack_tpu_torch import plan
 from cfftpack_tpu_torch.ops import core
-from cfftpack_tpu_torch.ops.fused_fft import _flat_twiddles
 from cfftpack_tpu_torch.ops.rfft import rfilter_split
 
 from torch_parity import complex_input, real_input
@@ -51,7 +50,7 @@ def test_twiddles_equal_reference(n):
     assert len(mine) == len(ref)
     for a, b in zip(mine, ref):
         assert np.array_equal(a, b)
-    offs, re, im = _flat_twiddles(mine)
+    offs, re, im = plan._flat_twiddles(mine)
     joffs, jre, jim = j_flat_twiddles(n)
     assert offs == tuple(joffs)
     assert np.array_equal(re, jre) and np.array_equal(im, jim)

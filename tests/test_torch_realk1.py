@@ -31,7 +31,7 @@ from cfftpack_tpu_torch.utils import profiling
 SETS = ("rfft", "irfft", "rfft_adj", "irfft_adj")
 BAR = {torch.float32: 1e-5, torch.float64: 1e-12}
 CARD_CASES = [(dt, 2 * h) for dt in (torch.float32, torch.float64)
-              for h in fused_fft.REG_LENGTHS[dt]]
+              for h in plan.REG_LENGTHS[dt]]
 
 
 def _map(n: int, tables: str, planes, scale: float = 1.0):
@@ -42,12 +42,12 @@ def _map(n: int, tables: str, planes, scale: float = 1.0):
 
 
 def _dense(n: int, tables: str) -> np.ndarray:
-    """The matrix of a set's plain map in float64 (``core.real_tables`` of
+    """The matrix of a set's plain map in float64 (``plan.real_tables`` of
     the host tables), columns the input coordinates (real rows, or the re
     plane's bins then the im plane's)."""
     h = n // 2
     host = plan.host_tables(n)
-    tab = torch.from_numpy(core.real_tables(host["rfft_merge"],
+    tab = torch.from_numpy(plan.real_tables(host["rfft_merge"],
                                             host["irfft_merge"])[tables])
     mode = fused_fft._REAL_MODE[tables]
     width = n if mode == "r2c" else 2 * (h + 1)

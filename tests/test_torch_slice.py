@@ -2,6 +2,7 @@
 the JAX package, that importing the port leaves JAX out, that CPU runs
 never launch the kernel, and that the entry points run on the card
 unless the caller asks for the CPU."""
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -109,6 +110,112 @@ def test_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# ------------------------------------------------------ the port's layers
+#
+# base (plan, _build, _adjoint, config, utils.profiling) <- kernel wrappers
+# <- the engine (ops/core.py, which alone picks a kernel) <- the API
+# (cfft, rfft, ...) and parallel/, read from the sources by ast.
+
+PORT = "cfftpack_tpu_torch"
+KERNEL_WRAPPERS = tuple(f"{PORT}.ops.{m}" for m in (
+    "fused_fft", "stream_fft", "rstream", "colfft", "fourstep_fft"))
+
+
+def _port_imports():
+    """({module: {(imported module, name or None)}}, packages): every
+    import of every module of the port, module-level and function-level,
+    relative ones resolved; (module, None) where a module is imported,
+    (module, name) where a name is taken from it."""
+    paths = {}
+    for p in (REPO / PORT).rglob("*.py"):
+        parts = p.relative_to(REPO).with_suffix("").parts
+        paths[".".join(parts[:-1] if parts[-1] == "__init__"
+                       else parts)] = p
+    graph = {}
+    for mod, path in paths.items():
+        pkg = mod.split(".")
+        if path.name != "__init__.py":
+            pkg = pkg[:-1]
+        deps = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                deps |= {(a.name, None) for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module
+                if node.level:
+                    up = pkg[:len(pkg) - node.level + 1]
+                    base = ".".join(up + ([base] if base else []))
+                for a in node.names:
+                    sub = f"{base}.{a.name}"
+                    deps.add((sub, None) if sub in paths else (base, a.name))
+        graph[mod] = {(m, n) for m, n in deps if m in paths}
+    packages = {m for m, p in paths.items() if p.name == "__init__.py"}
+    return graph, packages
+
+
+def _import_cycle(graph, packages):
+    """One import cycle among the port's non-package modules, or []."""
+    edges = {m: sorted({d for d, _ in deps if d not in packages})
+             for m, deps in graph.items() if m not in packages}
+    state, stack = {}, []
+
+    def visit(m):
+        state[m] = "open"
+        stack.append(m)
+        for d in edges[m]:
+            if state.get(d) == "open":
+                return stack[stack.index(d):] + [d]
+            if d not in state and (found := visit(d)):
+                return found
+        state[m] = "done"
+        stack.pop()
+        return []
+
+    for m in sorted(edges):
+        if m not in state and (found := visit(m)):
+            return found
+    return []
+
+
+def _base_reaches_ops(graph, packages):
+    base = [f"{PORT}.{m}" for m in ("plan", "ops._build", "ops._adjoint",
+                                    "config", "utils.profiling")]
+    return [(m, d) for m in base for d, _ in graph[m]
+            if d.startswith(f"{PORT}.ops") and d != m]
+
+
+def _wrappers_reach_up(graph, packages):
+    above = tuple(f"{PORT}.ops.{m}" for m in (
+        "core", "cfft", "rfft", "dct", "gdft", "hp", "oddtypes"))
+    return [(m, d) for m in KERNEL_WRAPPERS for d, _ in graph[m]
+            if d in above]
+
+
+def _api_reaches_past_engine(graph, packages):
+    mods = [m for m in graph if m in (f"{PORT}.ops.cfft", f"{PORT}.ops.rfft")
+            or m.startswith(f"{PORT}.parallel")]
+    return [(m, d, n) for m in mods for d, n in graph[m]
+            if d in KERNEL_WRAPPERS
+            or (d == f"{PORT}.ops.cfft" and n and n.startswith("_"))]
+
+
+LAYER_RULES = {
+    "no import cycle": _import_cycle,
+    "the base imports nothing from ops": _base_reaches_ops,
+    "kernel wrappers import no engine or API": _wrappers_reach_up,
+    "cfft, rfft and parallel reach no kernel wrapper": (
+        _api_reaches_past_engine),
+}
+
+
+@pytest.mark.parametrize("rule", sorted(LAYER_RULES))
+def test_port_layers(rule):
+    """The port's imports point one way: tables and the C entry under
+    the kernel wrappers, under the engine, under the API; the offending
+    imports are listed."""
+    assert LAYER_RULES[rule](*_port_imports()) == []
 
 
 @pytest.mark.parametrize("script", ["examples/torch_pricing_demo.py",

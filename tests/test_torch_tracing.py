@@ -163,7 +163,7 @@ def k1_entry(monkeypatch):
                         lambda fn, dev, args: fn(*args, None))
     monkeypatch.setattr(fused_fft, "_check", lambda *a: None)
     monkeypatch.setattr(fused_fft, "_real_check", lambda *a: None)
-    monkeypatch.setattr(fused_fft, "_PLANS", {})
+    monkeypatch.setattr(plan, "_LAUNCH_PLANS", {})
     monkeypatch.setattr(profiling, "launches",
                         dict.fromkeys(profiling.KERNELS, 0))
     monkeypatch.setattr(profiling, "real_maps", {"r2c": 0, "c2r": 0})
