@@ -6,7 +6,9 @@ a pointwise characteristic-function multiply and an inverse real FFT
 mixed-radix length 960 = 2^6*3*5 with batch 64, on inputs made exactly
 as the JAX entry makes them.  The transforms are the public names, so
 the step has their API spans and NaN check; it runs in the span
-``cfftpack.step``, its multiply in ``cfftpack.filter``.
+``cfftpack.step``, its multiply in ``cfftpack.filter``: one call of
+``ops.core.spectral_mul``, the kernel pair of ``ops.cmul`` (forward, and
+its adjoint under autograd).
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from .config import resolve_device
-from .ops import irfft_split, rfft_split
+from .ops import core, irfft_split, rfft_split
 from .utils.profiling import span
 
 N = 960
@@ -25,8 +27,8 @@ def step(v, phi_r, phi_i):
     with span("cfftpack.step"):
         sr, si = rfft_split(v)                  # (B, n//2+1), fftpack norm
         with span("cfftpack.filter"):
-            tr = sr * phi_r - si * phi_i        # pointwise characteristic fn
-            ti = sr * phi_i + si * phi_r
+            # pointwise characteristic fn
+            tr, ti = core.spectral_mul(sr, si, phi_r, phi_i)
         return irfft_split(tr, ti, v.shape[-1])  # back to payoff space
 
 

@@ -80,6 +80,11 @@ _FOURSTEP_ARGTYPES = [_P] * 11 + [_I, _P, _P] + [_I] * 4 + [_P]
 # xr, xi, yr, yi, sr, si (null in one pass), dmr, dmi, d1r, d1i, t1r, t1i,
 # b, m, inverse, natural, stream
 _MM2_ARGTYPES = [_P] * 12 + [_I] * 4 + [_P]
+# sr, si, fr, fi, tr, ti, total, h1, conj, blocks, stream
+_CMUL_ARGTYPES = [_P] * 6 + [_L, _I, _I, _I, _P]
+# gr, gi, sr, si, fr, fi, xr, xi, part, dfr, dfi, rows, h1, conj, blocks,
+# groups_per_block, threads, stream
+_CMUL_ADJ_ARGTYPES = [_P] * 11 + [_I] * 6 + [_P]
 # ar, ai, a_sb, a_si, a_sk, br, bi, b_sb, b_sk, b_sj, cr, ci, c_sb, c_si,
 # c_sj, tr, ti, M, N, K, batch, stream
 _CGEMM_ARGTYPES = (([_P] * 2 + [_L] * 3) * 3 + [_P] * 2 + [_I] * 4 + [_P])
@@ -156,7 +161,11 @@ def load() -> ctypes.CDLL:
                         ("col_fft_f32", _COL_ARGTYPES),
                         ("fourstep_fft_f32", _FOURSTEP_ARGTYPES),
                         ("mm2_fft_f32", _MM2_ARGTYPES),
-                        ("cgemm_f32", _CGEMM_ARGTYPES)):
+                        ("cgemm_f32", _CGEMM_ARGTYPES),
+                        ("cmul_f32", _CMUL_ARGTYPES),
+                        ("cmul_f64", _CMUL_ARGTYPES),
+                        ("cmul_adj_f32", _CMUL_ADJ_ARGTYPES),
+                        ("cmul_adj_f64", _CMUL_ADJ_ARGTYPES)):
         fn = getattr(lib, name)
         fn.argtypes = types
         fn.restype = ctypes.c_int
@@ -164,11 +173,11 @@ def load() -> ctypes.CDLL:
 
 
 def call(kernel: str, fn, device, *args) -> int:
-    """Call the C entry ``fn`` of ``kernel`` (its K-name) with PyTorch's
-    current stream on ``device`` as its last argument and ``device`` as
-    the current CUDA device, inside the span ``cfftpack.<kernel>``;
-    returns the entry's CUDA error code, and counts the launch in
-    ``profiling.launches`` when it is 0."""
+    """Call the C entry ``fn`` of ``kernel`` (its key in
+    ``profiling.KERNELS``) with PyTorch's current stream on ``device`` as
+    its last argument and ``device`` as the current CUDA device, inside
+    the span ``cfftpack.<kernel>``; returns the entry's CUDA error code,
+    and counts the launch in ``profiling.launches`` when it is 0."""
     with profiling.span(_SPANS[kernel]):
         err = _enter(fn, device, args)
     if err == 0:

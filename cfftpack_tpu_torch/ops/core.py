@@ -24,7 +24,9 @@ K1 runs in registers take K1's real modes (``fused_fft.srfft_real``,
 scale and the interleave in one launch, each direction one linear map
 under autograd); :func:`srfilter`, the real filter, takes the streaming
 filter (K2 and K4, or K5) on the same structural condition
-(``_use_rstream``).  The device decides one thing only, inside the
+(``_use_rstream``).  :func:`spectral_mul`, the flagship step's multiply
+of a packed spectrum by one filter, takes the kernel pair of ``cmul``
+where the inputs allow it.  The device decides one thing only, inside the
 kernels' wrappers: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel.  Elsewhere the real transforms' steps around the
 engine run in the spans ``cfftpack.merge`` (the packed spectrum's merge
@@ -43,9 +45,9 @@ import torch.nn.functional as F
 from .. import plan
 from ..utils import profiling
 from ..utils.profiling import span
-from . import colfft, fourstep_fft, fused_fft, rstream, stream_fft
+from . import cmul, colfft, fourstep_fft, fused_fft, rstream, stream_fft
 
-__all__ = ["sfft", "srfft", "sirfft", "s_shifted_dft_real"]
+__all__ = ["sfft", "srfft", "sirfft", "spectral_mul", "s_shifted_dft_real"]
 
 # --------------------------------------------- large-n four-step (local)
 #
@@ -444,6 +446,22 @@ def srfilter(x, fr, fi, n: int, scale: float = 1.0):
         with span("cfftpack.scale"):
             out = out * scale
     return out
+
+
+# ------------------------------------------------ the spectral multiply
+
+def spectral_mul(sr, si, fr, fi):
+    """(tr, ti) = (sr + i si) * (fr + i fi): the step's multiply of the
+    packed planes by the filter.  One filter of the planes' last-axis
+    length for every row, float32 or float64 throughout, planes contiguous
+    on an aligned base (``cmul.cmul_eligible``): the kernel pair of
+    ``cmul`` (its plain version on the CPU), one launch forward and one
+    adjoint under autograd.  Anything else (per-row filters, broadcast
+    shapes, views, other dtypes): the plain expression, under autograd's
+    own backward."""
+    if cmul.cmul_eligible(sr, si, fr, fi):
+        return cmul.spectral_mul(sr, si, fr, fi)
+    return sr * fr - si * fi, sr * fi + si * fr
 
 
 # ----------------------------------------------- shifted DFT (split)

@@ -17,20 +17,21 @@ costs one flag test.  The names are fixed (metrics read them):
   real spectrum's merge and unmerge), ``cfftpack.scale`` (a norm's
   multiply no kernel store takes), ``cfftpack.filter`` (the step's
   multiply), ``cfftpack.unpack`` (copies out of split planes), and
-  ``cfftpack.K1`` .. ``cfftpack.K11`` (and ``cfftpack.cgemm``) around
-  each C call (``ops._build.call``);
+  ``cfftpack.K1`` .. ``cfftpack.K11`` (and ``cfftpack.cgemm``,
+  ``cfftpack.cmul``) around each C call (``ops._build.call``);
 * ``cfftpack.adjoint``: a kernel's backward (``ops._adjoint``);
 * ``cfftpack.plan``: a cache miss that builds device tables or a launch
   plan (:func:`planning`; ``plan.device_tables``, ``plan.launch_plan``).
 
 The launch registry: :data:`launches` counts each C entry's successful
-calls by K-name (``ops._build.call``), :data:`plans` the builds under
-``cfftpack.plan``, :data:`real_maps` the real route's maps by direction
-(``r2c``, ``c2r``: ``ops.fused_fft.srfft_real``, ``sirfft_real``, on any
-device, a backward's adjoint map included), :data:`complex_maps` the
-complex API's ``fft``/``ifft`` calls by route (``interleaved``: K1's
-interleaved mode; ``planes``: the split pass, ``ops.core.complex_pass``,
-on any device); :func:`counts` reads them all, :func:`reset` zeroes them.
+calls by its key in :data:`KERNELS` (``ops._build.call``), :data:`plans`
+the builds under ``cfftpack.plan``, :data:`real_maps` the real route's
+maps by direction (``r2c``, ``c2r``: ``ops.fused_fft.srfft_real``,
+``sirfft_real``, on any device, a backward's adjoint map included),
+:data:`complex_maps` the complex API's ``fft``/``ifft`` calls by route
+(``interleaved``: K1's interleaved mode; ``planes``: the split pass,
+``ops.core.complex_pass``, on any device); :func:`counts` reads them all,
+:func:`reset` zeroes them.
 """
 from __future__ import annotations
 
@@ -44,9 +45,10 @@ import torch
 __all__ = ["trace", "Timer", "span", "planning", "counts", "reset",
            "launches", "real_maps", "complex_maps", "KERNELS"]
 
-# The C entries' names in the registry: the eleven kernels, and the
-# tensor-core product's own entry (``cgemm_f32``, called by the smoke).
-KERNELS = tuple(f"K{i}" for i in range(1, 12)) + ("cgemm",)
+# The C entries' names in the registry: the eleven kernels, the
+# tensor-core product's own entry (``cgemm_f32``, called by the smoke) and
+# the step's spectral multiply and its adjoint (``ops.cmul``).
+KERNELS = tuple(f"K{i}" for i in range(1, 12)) + ("cgemm", "cmul")
 launches: dict = dict.fromkeys(KERNELS, 0)
 real_maps: dict = {"r2c": 0, "c2r": 0}
 complex_maps: dict = {"interleaved": 0, "planes": 0}
@@ -74,9 +76,10 @@ def planning():
 
 
 def counts() -> dict:
-    """Launches by K-name, ``plans`` (the builds under ``cfftpack.plan``),
-    the real route's maps as ``real.r2c`` and ``real.c2r`` and the complex
-    API's routes as ``complex.interleaved`` and ``complex.planes``."""
+    """Launches by :data:`KERNELS` key, ``plans`` (the builds under
+    ``cfftpack.plan``), the real route's maps as ``real.r2c`` and
+    ``real.c2r`` and the complex API's routes as ``complex.interleaved``
+    and ``complex.planes``."""
     return {**launches, "plans": plans,
             **{"real." + k: v for k, v in real_maps.items()},
             **{"complex." + k: v for k, v in complex_maps.items()}}

@@ -92,7 +92,7 @@ from cfftpack_tpu_torch.config import fwd_scale, inv_scale
 from cfftpack_tpu_torch.entry import entry
 from cfftpack_tpu_torch.models import (bs_cf, conv_bsvg_option,
                                        conv_option_price)
-from cfftpack_tpu_torch.ops import _adjoint, _build, colfft, core
+from cfftpack_tpu_torch.ops import _adjoint, _build, cmul, colfft, core
 from cfftpack_tpu_torch.ops import fourstep_fft, fused_fft, rstream, stream_fft
 from cfftpack_tpu_torch.utils import profiling
 
@@ -167,7 +167,7 @@ PRODUCT_SHAPES = ((64, 1024, 64), (256, 128, 256), (3, 128, 3),
 # (inverse, natural spectrum): K11's four forms
 K11_FORMS = ((False, True), (False, False), (True, True), (True, False))
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
-           "K11")
+           "K11", "cmul")
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s,
 # float32 flop/s outside the tensor cores, and dense TF32 flop/s in them;
 # a float32-accurate 3xTF32 product does a third of that in useful work
@@ -248,6 +248,7 @@ def plain_engine():
     real_launch, cplx_launch = fused_fft._real_launch, fused_fft._cplx_launch
     rstream_launch, col_launch = rstream.launch, colfft._launch
     four_launch, mm2_launch = fourstep_fft._launch, stream_fft._mm2_launch
+    cmul_launch, cmul_adj_launch = cmul._launch, cmul._adj_launch
 
     def plain(xr, xi, n, inverse, scale=1.0):
         shape = xr.shape
@@ -263,6 +264,7 @@ def plain_engine():
     colfft._launch = colfft_plain_launch
     fourstep_fft._launch = fourstep_fft.sfft_fourstep_plain
     stream_fft._mm2_launch = stream_fft.sfft_mm2_plain
+    cmul._launch, cmul._adj_launch = cmul.cmul_plain, cmul.adjoint_plain
     try:
         yield
     finally:
@@ -274,6 +276,7 @@ def plain_engine():
         colfft._launch = col_launch
         fourstep_fft._launch = four_launch
         stream_fft._mm2_launch = mm2_launch
+        cmul._launch, cmul._adj_launch = cmul_launch, cmul_adj_launch
 
 
 @contextlib.contextmanager
@@ -906,7 +909,8 @@ PLAIN_VERSIONS = (
     (rstream, "_dct2_plain"), (rstream, "_dct3_plain"),
     (dct_ops, "_dct4_stream_plain"), (colfft, "colfft_plain"),
     (colfft, "coldct_plain"), (colfft, "coldct2_plain"),
-    (colfft, "coldct3_plain"), (fourstep_fft, "sfft_fourstep_plain"))
+    (colfft, "coldct3_plain"), (fourstep_fft, "sfft_fourstep_plain"),
+    (cmul, "cmul_plain"), (cmul, "adjoint_plain"))
 
 
 @contextlib.contextmanager
@@ -1433,7 +1437,7 @@ def phase_grad_paths(total: dict, card: str) -> list:
             want = fwd_bwd(step, args, cots)
         rec = grad_check(f"flagship step ({batch}, 960) d/d(v, phi_r, "
                          "phi_i) vs plain", step, list(args), cots, want,
-                         total, card, ("K1",))
+                         total, card, {"K1": 2, "cmul": 1})
         records.append({**rec, "shape": [batch, 960]})
     paths = [("fft_split (4096, 1024) ortho",
               list(pair((4096, 1024), f32, seed=380)),
@@ -1839,6 +1843,78 @@ def phase_cplx_k1(total: dict, card: str) -> None:
     ms = median_ms(lambda: ct.fft(x))
     print(f"  fft (4096, {n}) complex128 through K1's interleaved mode: "
           f"{ms:.4f} ms a call, event time  [{card}]")
+
+
+def phase_cmul(total: dict, card: str) -> None:
+    """Phase 40: the step's filter map (``ops.cmul``) on the card at book's
+    shape, (65536, 481) float32: the forward and the adjoint (both
+    gradients, the reduce in the same call) against their plain versions
+    on the same card inputs (1e-6 of max |t| for the planes, 1e-5 for the
+    filter's gradient), two adjoint runs the same bit for bit, every plain
+    version refused; their device times (profiler) and event times beside
+    their bounds, 504 MB and 756 MB at 3.35 TB/s, and the plain forward's;
+    then ``profiling.counts()`` over one book call and one greeks call of
+    the step."""
+    print("phase 40: the step's filter map (cmul) at (65536, 481) f32 vs its "
+          "plain version, times beside the bounds, the step's counts")
+    rows, h1 = 65536, 481
+    f32 = torch.float32
+    sr, si = pair((rows, h1), f32, seed=400)
+    gr, gi = pair((rows, h1), f32, seed=401)
+    fr, fi = pair((h1,), f32, seed=402)
+    with no_plain_on_card():
+        (tr, ti), got = drive(lambda: cmul.spectral_mul(sr, si, fr, fi),
+                              total)
+        check(launched(got) == {"cmul": 1}, f"forward: one cmul launch "
+              f"({launched(got)})")
+        adj, got = drive(lambda: cmul._adj_launch(gr, gi, sr, si, fr, fi,
+                                                  False, True), total)
+        again = cmul._adj_launch(gr, gi, sr, si, fr, fi, False, True)
+        check(launched(got) == {"cmul": 1}, f"adjoint: one cmul call "
+              f"({launched(got)})")
+    want = cmul.cmul_plain(sr, si, fr, fi)
+    e_f = max(rel_err(a, b) for a, b in zip((tr, ti), want))
+    check(e_f < 1e-6, f"forward vs plain {e_f:.3e} < 1e-6")
+    want = cmul.adjoint_plain(gr, gi, sr, si, fr, fi, False, True)
+    e_s = max(rel_err(a, b) for a, b in zip(adj[:2], want[:2]))
+    e_g = max(rel_err(a, b) for a, b in zip(adj[2:], want[2:]))
+    check(e_s < 1e-6 and e_g < 1e-5, f"adjoint vs plain: planes {e_s:.3e} "
+          f"< 1e-6, filter's gradient {e_g:.3e} < 1e-5")
+    check(all(torch.equal(a, b) for a, b in zip(adj[2:], again[2:])),
+          "two adjoint runs give the same filter gradient bit for bit")
+    del tr, ti, want, adj, again
+    fwd_bound = bound_ms(4 * rows * h1 * 4, 0)[0]
+    adj_bound = bound_ms(6 * rows * h1 * 4, 0)[0]
+    for name, fn, bound in (
+            ("forward", lambda: cmul._launch(sr, si, fr, fi), fwd_bound),
+            ("adjoint", lambda: cmul._adj_launch(gr, gi, sr, si, fr, fi,
+                                                 False, True), adj_bound),
+            ("adjoint, filter alone",
+             lambda: cmul._adj_launch(gr, gi, sr, si, fr, fi, False, False),
+             bound_ms(4 * rows * h1 * 4, 0)[0]),
+            ("plain forward", lambda: cmul.cmul_plain(sr, si, fr, fi),
+             fwd_bound)):
+        prof = profile_route(f"cmul {name}", fn, card)
+        print(f"  cmul {name}: device {prof['kernel_us']:.1f} us, event "
+              f"{prof['event_us']:.1f} us, bound {bound * 1e3:.1f} us "
+              f"({bound * 1e3 / prof['kernel_us']:.3f} of the bound's rate)"
+              f"  [{card}]")
+    del sr, si, gr, gi
+    step, args = entry(DEV, batch=rows)
+    v, phr, phi = (t.clone().requires_grad_(True) for t in args)
+    cot = real((rows, 960), f32, seed=403)
+    for _ in range(2):
+        step(*args)
+        torch.autograd.grad(step(v, phr, phi), (v, phr, phi), cot)
+    torch.cuda.synchronize()
+    _, book = drive(lambda: step(*args), total)
+    _, greeks = drive(lambda: torch.autograd.grad(
+        step(v, phr, phi), (v, phr, phi), cot), total)
+    print(f"  counts: book {launched(book)}, greeks {launched(greeks)}")
+    check(launched(book) == {"K1": 2, "cmul": 1}
+          and launched(greeks) == {"K1": 4, "cmul": 2},
+          "a book call launches K1 2, cmul 1; a greeks call K1 4, cmul 2 "
+          "(the forward, and the adjoint's one call: strips and reduce)")
 
 
 def phase_utils(card: str) -> None:
@@ -3536,6 +3612,9 @@ def main() -> None:
     # ---- phase 39: K1's interleaved complex mode under fft/ifft (after
     # phase 25 too: it profiles)
     phase_cplx_k1(total, card)
+
+    # ---- phase 40: the step's filter map (after phase 25: it profiles)
+    phase_cmul(total, card)
 
     # each kernel's bound at the shape its times were taken at: every
     # input read once and every output written once (the data planes; the

@@ -53,8 +53,8 @@ import cfftpack_tpu as ct
 
 import cfftpack_tpu_torch as pt
 from cfftpack_tpu_torch.entry import step as pt_step
-from cfftpack_tpu_torch.ops import (_adjoint, colfft, fourstep_fft, fused_fft,
-                                    rstream, stream_fft)
+from cfftpack_tpu_torch.ops import (_adjoint, cmul, colfft, fourstep_fft,
+                                    fused_fft, rstream, stream_fft)
 from cfftpack_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -508,6 +508,28 @@ WRAPPERS = [
      lambda a, b, n=n, inverse=inverse: _cplx_planes(a, b, n, inverse),
      [(3, n)] * 2, True, False)
     for n in (960, 1024) for inverse in (False, True)
+] + [
+    # the step's filter map, in the planes and in the filter apart (as
+    # K4), with the filter conjugated, and the filter gradient's row sums
+    # (the map a double backward runs) in the cotangent and the spectrum
+    ("cmul planes", lambda a, b: cmul.spectral_mul(
+        a, b, *_fixed((481,), (481,), like=a)),
+     [(3, 481)] * 2, True, False),
+    ("cmul filter", lambda c, d: cmul.spectral_mul(
+        *_fixed((3, 481), (3, 481), like=c), c, d),
+     [(481,)] * 2, True, False),
+    ("cmul conj planes", lambda a, b: cmul.spectral_mul(
+        a, b, *_fixed((17,), (17,), like=a), True),
+     [(5, 17)] * 2, True, False),
+    ("cmul conj filter", lambda c, d: cmul.spectral_mul(
+        *_fixed((5, 17), (5, 17), like=c), c, d, True),
+     [(17,)] * 2, True, False),
+    ("cmul sums", lambda a, b: cmul.cmul_sums(
+        a, b, *_fixed((5, 17), (5, 17), like=a)),
+     [(5, 17)] * 2, True, False),
+    ("cmul sums spectrum", lambda c, d: cmul.cmul_sums(
+        *_fixed((5, 17), (5, 17), like=c), c, d),
+     [(5, 17)] * 2, True, False),
 ]
 WNAMES = [w[0] for w in WRAPPERS]
 
@@ -571,7 +593,9 @@ def test_wrapper_gradcheck(name, monkeypatch):
                                   "K1 c2r 960", "K1 r2c 1024",
                                   "K1 c2r 1024", "K1 r2c 2048",
                                   "K1 c2r 2048", "K1 cplx 960",
-                                  "K1 cplx inverse 1024"])
+                                  "K1 cplx inverse 1024", "cmul planes",
+                                  "cmul filter", "cmul conj filter",
+                                  "cmul sums", "cmul sums spectrum"])
 def test_wrapper_gradient_matches_plain_autograd(name, monkeypatch):
     """The Function's backward equals autograd through the plain version
     (the gradient the CPU path gave before), in float32."""

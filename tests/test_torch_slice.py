@@ -120,7 +120,7 @@ def test_import_leaves_jax_out():
 
 PORT = "cfftpack_tpu_torch"
 KERNEL_WRAPPERS = tuple(f"{PORT}.ops.{m}" for m in (
-    "fused_fft", "stream_fft", "rstream", "colfft", "fourstep_fft"))
+    "fused_fft", "stream_fft", "rstream", "colfft", "fourstep_fft", "cmul"))
 
 
 def _port_imports():

@@ -120,8 +120,9 @@ def test_grad_through_the_step_records_the_adjoints():
             torch.autograd.grad(out, (v, phr, phi), cot)
     spans = _spans(prof)
     names = [s[0] for s in spans]
-    # one adjoint a real map of the forward, inside the grad call
-    assert names.count("cfftpack.adjoint") == 2
+    # one adjoint a map of the forward (the two real maps and the
+    # filter's multiply), inside the grad call
+    assert names.count("cfftpack.adjoint") == 3
     assert {p for n, p, *_ in spans if n == "cfftpack.adjoint"} == {
         "test.grad"}
     assert not any(n.startswith(("cfftpack.K", "cfftpack.pack",
@@ -293,7 +294,8 @@ def test_spans_on_card():
     """On the card the step's K1 launches sit in ``cfftpack.K1`` spans
     after their ``cfftpack.pack`` copies, and autograd's device thread
     runs each adjoint in ``cfftpack.adjoint``, inside the caller's
-    ``torch.autograd.grad``, with its own K1 span inside."""
+    ``torch.autograd.grad``, with its own K1 span inside, or for the
+    filter's multiply its ``cfftpack.cmul`` span."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     step, args = entry("cuda", batch=64)
@@ -312,22 +314,25 @@ def test_spans_on_card():
     pairs = _pairs(spans)
     assert {("cfftpack.K1", "cfftpack.rfft_split"),
             ("cfftpack.K1", "cfftpack.irfft_split"),
-            ("cfftpack.K1", "cfftpack.adjoint")} <= pairs, pairs
+            ("cfftpack.cmul", "cfftpack.filter"),
+            ("cfftpack.K1", "cfftpack.adjoint"),
+            ("cfftpack.cmul", "cfftpack.adjoint")} <= pairs, pairs
     # the real modes read the rows as they lie and do the glue in K1
     assert not any(n in ("cfftpack.plan", "cfftpack.pack", "cfftpack.merge",
                          "cfftpack.scale", "cfftpack.unpack")
                    for n, *_ in spans), pairs
     (grad,) = [s for s in spans if s[0] == "test.grad"]
     adj = [s for s in spans if s[0] == "cfftpack.adjoint"]
-    assert len(adj) == 2
+    assert len(adj) == 3
     for name, parent, tid, a, b in adj:
         assert tid != grad[2], "the backward ran on the caller's thread"
         assert grad[3] <= a and b <= grad[4]
-        assert any(n == "cfftpack.K1" and t == tid and a <= a2 and b2 <= b
-                   for n, _, t, a2, b2 in spans), "no K1 in the adjoint"
+        assert any(n in ("cfftpack.K1", "cfftpack.cmul") and t == tid
+                   and a <= a2 and b2 <= b
+                   for n, _, t, a2, b2 in spans), "no kernel in the adjoint"
     launches = [e.time_range.start for e in prof.events()
                 if "LaunchKernel" in e.name]
     for name, parent, tid, a, b in spans:
-        if name == "cfftpack.K1":
+        if name in ("cfftpack.K1", "cfftpack.cmul"):
             assert any(a <= t <= b for t in launches), (parent, a, b)
     assert np.isfinite(out.detach().cpu().numpy()).all()
