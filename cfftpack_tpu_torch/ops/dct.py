@@ -21,6 +21,19 @@ tables, norms and signatures:
   (Bluestein and K1 for most n); no kernel gate of this module opens for
   them.
 
+Spans (``utils.profiling``): off the K7 and K8 routes, the glue of types
+2-4 around ``core.sfft``/``srfft``/``sirfft`` runs in the leaf spans
+``cfftpack.pack`` (the Makhoul gathers, cats and flips, the DCT-III's four
+gathers, the DST's input sign or flip, the DCT-IV's flip of its odd
+half), ``cfftpack.merge``
+(the table multiplies on either side of the FFT: the DCT-II's post-FFT FMA
+and its bin-0 column, the DCT-III's pre-FFT FMA, the DCT-IV's pre- and
+post-rotations), ``cfftpack.unpack`` (everything after the last table
+multiply: riffles, interleaves, cats, the DCT-III's halving, the DST's
+output flip or sign) and ``cfftpack.scale`` (the norm's multiply); none
+holds another or a kernel's call.  K8's plain version, which shares the
+DCT-IV's pair packing, opens its pack and merge spans on the CPU.
+
 Norms: ``"fftpack"`` (and its alias ``"forward"``) puts FFTPACK's full
 scale on the forward transform, ``"ortho"`` is orthonormal both ways,
 ``"backward"`` scales the inverse.  Float64 runs natively (the JAX
@@ -37,6 +50,7 @@ import torch
 from ..config import (DEFAULT_NORM, _apply_axis, _check_axis, _check_length,
                       as_tensor, check_norm)
 from .. import plan
+from ..utils.profiling import span
 from . import _adjoint, colfft, core, fused_fft, oddtypes, rstream, stream_fft
 
 __all__ = ["dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn"]
@@ -103,8 +117,11 @@ def _dct2_core(x, n: int, mode: int = -1):
     if mode < 0:  # unscaled: the reference's DCT-II side (cosq1b_)
         return y
     if mode > 0:
-        return y * (2.0 / n)
-    return y * _tab("weights", n, x)[0]      # y0*sqrt(1/n), yk*sqrt(2/n)
+        with span("cfftpack.scale"):
+            return y * (2.0 / n)
+    w = _tab("weights", n, x)[0]            # y0*sqrt(1/n), yk*sqrt(2/n)
+    with span("cfftpack.scale"):
+        return y * w
 
 
 def _dct2_unit(x, n: int):
@@ -113,34 +130,40 @@ def _dct2_unit(x, n: int):
         return x
     if n % 2:
         # odd n: Makhoul permutation + full-length real DFT
-        v = torch.cat([x[..., 0::2], x[..., 1::2].flip(-1)], dim=-1)
+        with span("cfftpack.pack"):
+            v = torch.cat([x[..., 0::2], x[..., 1::2].flip(-1)], dim=-1)
         Vr, Vi = core.srfft(v, n)                  # bins 0..n//2
         phr, phi = _tab("cexp_fwd", n, x)
         h = n // 2
-        y_low = phr[: h + 1] * Vr - phi[: h + 1] * Vi
-        Vr_u = Vr[..., 1:].flip(-1)
-        Vi_u = Vi[..., 1:].flip(-1)
-        y_high = phr[h + 1:] * Vr_u + phi[h + 1:] * Vi_u
-        return torch.cat([y_low, y_high], dim=-1)
+        with span("cfftpack.merge"):
+            y_low = phr[: h + 1] * Vr - phi[: h + 1] * Vi
+            Vr_u = Vr[..., 1:].flip(-1)
+            Vi_u = Vi[..., 1:].flip(-1)
+            y_high = phr[h + 1:] * Vr_u + phi[h + 1:] * Vi_u
+        with span("cfftpack.unpack"):
+            return torch.cat([y_low, y_high], dim=-1)
     h = n // 2
-    if n % 4 == 0:
-        # z_p = v[2p] + i v[2p+1] with v = [x_even, rev(x_odd)] composes
-        # to stride-4 gathers of x
-        zr = torch.cat([x[..., 0::4], x[..., 3::4].flip(-1)], dim=-1)
-        zi = torch.cat([x[..., 2::4], x[..., 1::4].flip(-1)], dim=-1)
-    else:
-        v = torch.cat([x[..., 0::2], x[..., 1::2].flip(-1)], dim=-1)
-        zr = v[..., 0::2]
-        zi = v[..., 1::2]
+    with span("cfftpack.pack"):
+        if n % 4 == 0:
+            # z_p = v[2p] + i v[2p+1] with v = [x_even, rev(x_odd)]
+            # composes to stride-4 gathers of x
+            zr = torch.cat([x[..., 0::4], x[..., 3::4].flip(-1)], dim=-1)
+            zi = torch.cat([x[..., 2::4], x[..., 1::4].flip(-1)], dim=-1)
+        else:
+            v = torch.cat([x[..., 0::2], x[..., 1::2].flip(-1)], dim=-1)
+            zr = v[..., 0::2]
+            zi = v[..., 1::2]
     Zr, Zi = core.sfft(zr, zi, h, inverse=False)
     t1, t2, t3, t4, c0r, c0i = _tab("dct2", n, x)
     # interior bins from slice+flip mirror operands, the bin-0 column
     # from Z_0, its own mirror
-    Zrc = Zr[..., None, 1:]
-    Zic = Zi[..., None, 1:]
-    y_c = t1 * Zrc + t2 * Zic + t3 * Zrc.flip(-1) + t4 * Zic.flip(-1)
-    y_0 = c0r * Zr[..., None, :1] + c0i * Zi[..., None, :1]
-    y2 = torch.cat([y_0, y_c], dim=-1)
+    with span("cfftpack.merge"):
+        Zrc = Zr[..., None, 1:]
+        Zic = Zi[..., None, 1:]
+        y_c = t1 * Zrc + t2 * Zic + t3 * Zrc.flip(-1) + t4 * Zic.flip(-1)
+        y_0 = c0r * Zr[..., None, :1] + c0i * Zi[..., None, :1]
+    with span("cfftpack.unpack"):
+        y2 = torch.cat([y_0, y_c], dim=-1)
     return y2.reshape(x.shape[:-1] + (n,))
 
 
@@ -173,10 +196,15 @@ def _dct3_core(x, n: int, mode: int = -1):
     if mode < 0:
         return _dct3_unit(x, n)
     if mode > 0:  # fftpack forward (cosq1f_): 2/n overall
-        return _dct3_unit(x, n) * (2.0 / n)
+        y = _dct3_unit(x, n)
+        with span("cfftpack.scale"):
+            return y * (2.0 / n)
     # ortho (transpose of orthonormal DCT-II): input scales sqrt(2/n),
     # except 2/sqrt(n) on x0, whose 1/2 the core applies
-    return _dct3_unit(x * _tab("weights", n, x)[1], n)
+    w = _tab("weights", n, x)[1]
+    with span("cfftpack.scale"):
+        x = x * w
+    return _dct3_unit(x, n)
 
 
 def _dct3_unit(x, n: int):
@@ -193,34 +221,43 @@ def _dct3_unit(x, n: int):
     h = n // 2
     if n % 2 == 0:
         m = (n + 2) // 4 if n % 4 else n // 4
-        xa = x[..., :h]                                   # x_k
-        xb = torch.cat([torch.zeros_like(x[..., :1]),
-                        x[..., h + 1:].flip(-1)], dim=-1)  # x_{n-k}
-        xc = x[..., 1: h + 1].flip(-1)                    # x_{h-k}
-        xd = x[..., h:]                                   # x_{h+k}
+        with span("cfftpack.pack"):
+            xa = x[..., :h]                                   # x_k
+            xb = torch.cat([torch.zeros_like(x[..., :1]),
+                            x[..., h + 1:].flip(-1)], dim=-1)  # x_{n-k}
+            xc = x[..., 1: h + 1].flip(-1)                    # x_{h-k}
+            xd = x[..., h:]                                   # x_{h+k}
         a1, a2, a3, a4, b1, b2, b3, b4 = _tab("dct3", n, x)
-        Zr = xa * a1 + xb * a2 + xc * a3 + xd * a4
-        Zi = xa * b1 + xb * b2 + xc * b3 + xd * b4
+        with span("cfftpack.merge"):
+            Zr = xa * a1 + xb * a2 + xc * a3 + xd * a4
+            Zi = xa * b1 + xb * b2 + xc * b3 + xd * b4
         zr, zi = core.sfft(Zr, Zi, h, inverse=True)
-        zr = 0.5 * zr
-        zi = 0.5 * zi
-        # y[4u..4u+3] = [zr_u, zi_{h-1-u}, zi_u, zr_{h-1-u}]
-        y4 = fused_fft._interleave(zr[..., :m], zi[..., h - m:].flip(-1),
-                              zi[..., :m], zr[..., h - m:].flip(-1))
+        with span("cfftpack.unpack"):
+            zr = 0.5 * zr
+            zi = 0.5 * zi
+            # y[4u..4u+3] = [zr_u, zi_{h-1-u}, zi_u, zr_{h-1-u}]
+            y4 = fused_fft._interleave(
+                zr[..., :m], zi[..., h - m:].flip(-1), zi[..., :m],
+                zr[..., h - m:].flip(-1))
         return y4[..., :n] if 4 * m != n else y4
-    xnk = torch.cat([torch.zeros_like(x[..., :1]), x[..., 1:].flip(-1)],
-                    dim=-1)                               # x[n-k], x[n]=0
+    with span("cfftpack.pack"):
+        xnk = torch.cat([torch.zeros_like(x[..., :1]), x[..., 1:].flip(-1)],
+                        dim=-1)                           # x[n-k], x[n]=0
     phr, phi = _tab("cexp_inv", n, x)
     # V = ph * (x - i*xnk) is conjugate-symmetric: bins 0..n//2 and one
     # c2r inverse
-    Vr = (phr * x + phi * xnk)[..., : h + 1]
-    Vi = (phi * x - phr * xnk)[..., : h + 1]
-    v = 0.5 * core.sirfft(Vr, Vi, n)
-    # y[2j] = v[j], y[2j+1] = v[n-1-j] (n odd: half evens, half-1 odds)
+    with span("cfftpack.merge"):
+        Vr = (phr * x + phi * xnk)[..., : h + 1]
+        Vi = (phi * x - phr * xnk)[..., : h + 1]
+    v = core.sirfft(Vr, Vi, n)
+    # y[2j] = v[j]/2, y[2j+1] = v[n-1-j]/2 (n odd: half evens, half-1
+    # odds)
     half = (n + 1) // 2
-    out = torch.empty_like(v)
-    out[..., 0::2] = v[..., :half]
-    out[..., 1::2] = v[..., half:].flip(-1)
+    with span("cfftpack.unpack"):
+        v = 0.5 * v
+        out = torch.empty_like(v)
+        out[..., 0::2] = v[..., :half]
+        out[..., 1::2] = v[..., half:].flip(-1)
     return out
 
 
@@ -233,7 +270,12 @@ def _dst2_core(x, n: int, mode: int = -1):
     with the scale of norm ``mode`` (ortho's weight of y[n-1] is that of
     the DCT-II's bin 0)."""
     (s,) = _tab("alt", n, x)
-    return _dct2_core(x * s, n, mode).flip(-1)
+    with span("cfftpack.pack"):
+        xs = x * s
+    y = _dct2_core(xs, n, mode)
+    del xs                         # freed before the flip's output is made
+    with span("cfftpack.unpack"):
+        return y.flip(-1)
 
 
 def _dst3_core(x, n: int, mode: int = -1):
@@ -241,7 +283,12 @@ def _dst3_core(x, n: int, mode: int = -1):
     with the scale of norm ``mode`` (ortho's weight of x[n-1] is that of
     the DCT-III's x[0])."""
     (s,) = _tab("alt", n, x)
-    return s * _dct3_core(x.flip(-1), n, mode)
+    with span("cfftpack.pack"):
+        xf = x.flip(-1)
+    y = _dct3_core(xf, n, mode)
+    del xf
+    with span("cfftpack.unpack"):
+        return s * y
 
 
 def _dct1_re(x, n: int):
@@ -267,9 +314,13 @@ _dct4_post_perm = rstream._dct4_post_perm
 
 def _dct4_pack(x, n: int):
     """Even n: the pairs c[p] = x[2p] + i*x[n-1-2p] times the
-    pre-rotation e^{-i pi p/n}."""
+    pre-rotation e^{-i pi p/n}, the odd half's flip (x[n-1-2p]) under
+    ``cfftpack.pack`` and the product under ``cfftpack.merge``."""
     prer, prei = _tab("dct4", n, x)[:2]
-    return fused_fft._cmul_tab(x[..., 0::2], x.flip(-1)[..., 0::2], prer, prei)
+    with span("cfftpack.pack"):
+        xo = x[..., 1::2].flip(-1)
+    with span("cfftpack.merge"):
+        return fused_fft._cmul_tab(x[..., 0::2], xo, prer, prei)
 
 
 def _dct4_stream_ok(n: int, dtype) -> bool:
@@ -343,15 +394,26 @@ def _dct4_core(x, n: int, scale: float = 1.0, dst: bool = False):
         return _dct4_stream(x, n, scale, dst)
     if dst:
         (s,) = _tab("alt", n, x)
-        return s * _dct4_core(x.flip(-1), n, scale)
+        with span("cfftpack.pack"):
+            xf = x.flip(-1)
+        y = _dct4_core(xf, n, scale)
+        del xf
+        with span("cfftpack.unpack"):
+            return s * y
     if n % 2 == 0 and n >= 4:
         Wr, Wi = core.sfft(*_dct4_pack(x, n), n // 2, inverse=False)
-        zr, zi = fused_fft._cmul_tab(Wr, Wi, *_tab("dct4", n, x)[2:])
-        y = fused_fft._interleave(zr, -zi.flip(-1))
+        postr, posti = _tab("dct4", n, x)[2:]
+        with span("cfftpack.merge"):
+            zr, zi = fused_fft._cmul_tab(Wr, Wi, postr, posti)
+        with span("cfftpack.unpack"):
+            y = fused_fft._interleave(zr, -zi.flip(-1))
     else:
         # U[k] = sum_{j<2n} xpad[j] e^{-2i pi (j+.5)(k+.5)/(2n)}
         y, _ = core.s_shifted_dft_real(x, n, 2 * n, 0.5, 0.5, n)
-    return y * scale if scale != 1.0 else y
+    if scale == 1.0:
+        return y
+    with span("cfftpack.scale"):
+        return y * scale
 
 
 def _dst4_core(x, n: int, scale: float = 1.0):
@@ -551,9 +613,10 @@ def _dst_impl(x, t: int, axis: int, norm: str, inverse: bool):
 def dct(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
     """Forward DCT of the given type (1-8) along ``axis``.
 
-    norm="fftpack" follows the reference pairing: the type-3 transform
-    carries the full 2/N scaling (FFTPACK's "forward" DCT) and type 2 is
-    unscaled; ``idct`` undoes ``dct`` for every norm.
+    norm="fftpack" follows the reference pairing: the forward carries
+    FFTPACK's full scale, 2/n for types 2, 3 and 4 (the DCT-III's is
+    cosq1f's), and ``idct`` none (the DCT-II's unscaled side is cosq1b's);
+    ``idct`` undoes ``dct`` for every norm.
     """
     return _dct_impl(_prep_real(x), _check_type(type), axis,
                      check_norm(norm), False)
@@ -566,7 +629,8 @@ def idct(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
 
 
 def dst(x, type: int = 2, axis: int = -1, norm: str = DEFAULT_NORM):
-    """Forward DST of the given type along ``axis``."""
+    """Forward DST of the given type along ``axis``; under
+    norm="fftpack" scaled as :func:`dct` (2/n for types 2, 3 and 4)."""
     return _dst_impl(_prep_real(x), _check_type(type), axis,
                      check_norm(norm), False)
 

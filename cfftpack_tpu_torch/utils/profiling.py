@@ -13,10 +13,13 @@ costs one flag test.  The names are fixed (metrics read them):
 * ``cfftpack.<name>``: every public transform (``utils.debug.api_exit``)
   and ``cfftpack.step`` (``entry.step``);
 * the leaf steps of a call, which do not overlap: ``cfftpack.pack``
-  (copies into a kernel's row layout), ``cfftpack.merge`` (the packed
-  real spectrum's merge and unmerge), ``cfftpack.scale`` (a norm's
-  multiply no kernel store takes), ``cfftpack.filter`` (the step's
-  multiply), ``cfftpack.unpack`` (copies out of split planes), and
+  (copies into a kernel's row layout; in ``ops/dct.py`` the gathers,
+  cats and flips before the FFT), ``cfftpack.merge`` (the packed real
+  spectrum's merge and unmerge; in ``ops/dct.py`` the table multiplies on
+  either side of the FFT), ``cfftpack.scale`` (a norm's multiply no
+  kernel store takes), ``cfftpack.filter`` (the step's multiply),
+  ``cfftpack.unpack`` (copies out of split planes; in ``ops/dct.py`` the
+  riffles, cats and the DST's output flip or sign), and
   ``cfftpack.K1`` .. ``cfftpack.K11`` (and ``cfftpack.cgemm``,
   ``cfftpack.cmul``) around each C call (``ops._build.call``);
 * ``cfftpack.adjoint``: a kernel's backward (``ops._adjoint``);

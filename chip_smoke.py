@@ -57,7 +57,11 @@ at every register length in both dtypes and on every input layout
 (conjugate and negative bits, strided and transposed rows, offsets, no
 rows) against ``torch.fft``, one K1 launch a transform, and a profiled
 contiguous round trip at (4096, 1024) complex128 launching K1 alone;
-and checks each result.  Each path runs with the launch
+in phase 41 the benchmark's dctsuite call (``rfft_split``/``irfft_split``,
+``dct``/``idct`` and ``dst``/``idst`` type 2, ``dct``/``idct`` type 4
+under norm="fftpack" at 16384 rows of 960, 1000 and 1250) against the
+plain engine and scipy, with its 24 K1 launches a call; and checks each
+result.  Each path runs with the launch
 counts set to 0 just before it and read just after.  Prints CUDA-event
 times of the kernels, their plain versions and the PyTorch calls that
 compute the same functions, the measurements behind K1's rows a block,
@@ -105,9 +109,13 @@ DEV = "cuda"
 VG = dict(S=100.0, K=98.0, sigma=0.12, theta=-0.14, kappa=0.2, t=1.0, r=0.05)
 VG_CONV = 9.342473370823516
 # phase 2: the CPU test's lengths plus every length of the register
-# kernel (480 .. 8192; 8192 is float32 only), ragged and full batches
-K1_SIZES = (4, 8, 60, 64, 243, 480, 512, 899, 960, 1024, 2048, 4096, 8192)
+# kernel (480 .. 8192; 8192 is float32 only) and the stage loop's half
+# lengths of the benchmark's dctsuite (500, 625), ragged and full
+# batches, and those two at the cell's 16384 rows too
+K1_SIZES = (4, 8, 60, 64, 243, 480, 500, 512, 625, 899, 960, 1024, 2048,
+            4096, 8192)
 K1_BATCHES = (37, 4096)
+K1_SUITE_HALVES, SUITE_ROWS = (500, 625), 16384
 # the worst errors of the previous version of this script on an H100
 # (700 W), before K1's register passes and the fused K5 route, printed
 # beside this run's: phase 2, K1 vs plain and torch.fft per dtype; phase 9,
@@ -1845,6 +1853,102 @@ def phase_cplx_k1(total: dict, card: str) -> None:
           f"{ms:.4f} ms a call, event time  [{card}]")
 
 
+def phase_k1(sizes=K1_SIZES) -> None:
+    """Phase 2: K1 against its plain version and torch.fft at ``sizes``,
+    both directions unscaled and the forward with a scale in its store,
+    ragged and full batches, rows that start 4 or 8 bytes past an
+    alignment, and the dctsuite's stage-loop half lengths at its 16384
+    rows."""
+    print("phase 2: K1 vs plain version and torch.fft")
+    bars = {torch.float32: 1e-5, torch.float64: 1e-12}
+    for dt in (torch.float32, torch.float64):
+        worst_p = worst_o = 0.0
+        for n in sizes:
+            if not fused_fft.fused_eligible(n, dt):
+                continue
+            reg = n in plan.REG_LENGTHS[dt]
+            for b in (K1_BATCHES + ((5,) if reg else ())
+                      + ((SUITE_ROWS,) if n in K1_SUITE_HALVES else ())):
+                xr, xi = pair((b, n), dt, seed=n + b)
+                if b == 5:
+                    # an unaligned view: the planes start one element in
+                    buf = real((2, b * n + 1), dt, seed=n)
+                    xr, xi = (v[1:].view(b, n) for v in buf)
+                x64 = torch.complex(xr.double(), xi.double())
+                for inv, sc in ((False, 1.0), (True, 1.0), (False, 0.125)):
+                    yr, yi = fused_fft.sfft_fused(xr, xi, n, inv, sc)
+                    pr, pi = fused_fft.sfft_plain(xr, xi, n, inv)
+                    torch.cuda.synchronize()
+                    want = (torch.fft.ifft(x64) * n if inv
+                            else torch.fft.fft(x64)) * sc
+                    ep = rel_err(torch.complex(yr, yi),
+                                 torch.complex(pr, pi) * sc)
+                    eo = rel_err(torch.complex(yr, yi), want)
+                    check(ep < bars[dt] and eo < bars[dt],
+                          f"K1 {dt} n={n} b={b} inv={inv} scale={sc} "
+                          f"({'register passes' if reg else 'stage loop'}):"
+                          f" vs plain {ep:.2e}, vs torch.fft {eo:.2e} < "
+                          f"{bars[dt]:g}")
+                    worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
+        was = BEFORE_WORST[f"K1 {str(dt).split('.')[-1]}"]
+        print(f"  {dt}: worst vs plain {worst_p:.3e}, vs torch.fft "
+              f"{worst_o:.3e} (before: {fmt_pair(was)})")
+
+
+# the nine outputs a length of the benchmark's dctsuite call, in its order
+SUITE_OUTPUTS = ("rfft re", "rfft im", "irfft", "dct2", "idct2", "dst2",
+                 "idst2", "dct4", "idct4")
+
+
+def phase_dctsuite(total: dict, card: str) -> None:
+    """Phase 41: the benchmark's dctsuite call (``portbench/configs/
+    dctsuite.py``: ``rfft_split`` then ``irfft_split``, and ``dct`` type
+    2, ``dst`` type 2 and ``dct`` type 4 each then its inverse, under
+    norm="fftpack") at its 16384 float32 rows of 960, 1000 and 1250 (K1's
+    real modes at 960, its register kernel at 480 and its stage loop at
+    500 and 625; the DCT/DST glue at n % 4 = 0 and, at 1250, 2) against
+    the same call under the plain engine, which launches no kernel, at
+    K1's bar (1e-5 of max |y|) and against scipy in float64 at the same
+    bar; one K1 launch a transform (24 a call) and no other kernel; the
+    call's CUDA-event time."""
+    from portbench.configs import dctsuite
+    here = Path(__file__).resolve().parent / "portbench"
+    sizes = json.loads((here / "configs" / "dctsuite.json").read_text())
+    traffic = json.loads((here / "traffic" / "suite16k.json").read_text())
+    rows, lengths = traffic["rows"], sizes["lengths"]
+    print(f"phase 41: the dctsuite call, {rows} rows at each of {lengths} "
+          f"{sizes['dtype']} {sizes['norm']}, vs plain and scipy")
+    x = {n: real((rows, n), getattr(torch, sizes["dtype"]), seed=410 + n)
+         for n in lengths}
+    call = dctsuite.program(sizes, traffic)
+
+    def suite_call():
+        return call({"x": {n: [v] for n, v in x.items()}}, 0)
+
+    suite_call()                        # tables and launch plans built
+    out, got = drive(suite_call, total)
+    check(launched(got) == {"K1": 24}, f"one K1 launch a transform, 24 a "
+          f"call, and no other kernel ({launched(got)})")
+    plain = plain_run(suite_call, "dctsuite call")
+    for i, n in enumerate(lengths):
+        xh = x[n].double().cpu().numpy()
+        spec = scipy.fft.rfft(xh) / n
+        want = (spec.real, spec.imag, xh, scipy.fft.dct(xh, 2) / n, xh,
+                scipy.fft.dst(xh, 2) / n, xh, scipy.fft.dct(xh, 4) / n, xh)
+        for j, (name, w) in enumerate(zip(SUITE_OUTPUTS, want, strict=True)):
+            y = out[9 * i + j]
+            e_p = rel_err(y, plain[9 * i + j])
+            e_o = rel_err(y, torch.as_tensor(w, device=DEV))
+            check(bool(torch.isfinite(y).all()) and e_p < 1e-5 and e_o < 1e-5,
+                  f"{name} n={n}: vs plain {e_p:.2e}, vs scipy {e_o:.2e} "
+                  f"< 1e-5")
+    del out, plain
+    ms = median_ms(suite_call, reps=10)
+    print(f"  dctsuite call: {ms:.3f} ms by CUDA events, "
+          f"{rows / ms * 1e3:.0f} rows/s (a row at each length)  "
+          f"[{card}]")
+
+
 def phase_cmul(total: dict, card: str) -> None:
     """Phase 40: the step's filter map (``ops.cmul``) on the card at book's
     shape, (65536, 481) float32: the forward and the adjoint (both
@@ -1995,42 +2099,8 @@ def main() -> None:
         if "registers" in line or "spill" in line or "entry function" in line:
             print(f"  {line.strip()}")
 
-    # ---- phase 2: K1 against its plain version and torch.fft, both
-    # directions unscaled and the forward with a scale in its store, ragged
-    # and full batches, and rows that start 4 or 8 bytes past an alignment
-    print("phase 2: K1 vs plain version and torch.fft")
-    bars = {torch.float32: 1e-5, torch.float64: 1e-12}
-    for dt in (torch.float32, torch.float64):
-        worst_p = worst_o = 0.0
-        for n in K1_SIZES:
-            if not fused_fft.fused_eligible(n, dt):
-                continue
-            reg = n in plan.REG_LENGTHS[dt]
-            for b in K1_BATCHES + ((5,) if reg else ()):
-                xr, xi = pair((b, n), dt, seed=n + b)
-                if b == 5:
-                    # an unaligned view: the planes start one element in
-                    buf = real((2, b * n + 1), dt, seed=n)
-                    xr, xi = (v[1:].view(b, n) for v in buf)
-                x64 = torch.complex(xr.double(), xi.double())
-                for inv, sc in ((False, 1.0), (True, 1.0), (False, 0.125)):
-                    yr, yi = fused_fft.sfft_fused(xr, xi, n, inv, sc)
-                    pr, pi = fused_fft.sfft_plain(xr, xi, n, inv)
-                    torch.cuda.synchronize()
-                    want = (torch.fft.ifft(x64) * n if inv
-                            else torch.fft.fft(x64)) * sc
-                    ep = rel_err(torch.complex(yr, yi),
-                                 torch.complex(pr, pi) * sc)
-                    eo = rel_err(torch.complex(yr, yi), want)
-                    check(ep < bars[dt] and eo < bars[dt],
-                          f"K1 {dt} n={n} b={b} inv={inv} scale={sc} "
-                          f"({'register passes' if reg else 'stage loop'}):"
-                          f" vs plain {ep:.2e}, vs torch.fft {eo:.2e} < "
-                          f"{bars[dt]:g}")
-                    worst_p, worst_o = max(worst_p, ep), max(worst_o, eo)
-        was = BEFORE_WORST[f"K1 {str(dt).split('.')[-1]}"]
-        print(f"  {dt}: worst vs plain {worst_p:.3e}, vs torch.fft "
-              f"{worst_o:.3e} (before: {fmt_pair(was)})")
+    # ---- phase 2: K1 against its plain version and torch.fft
+    phase_k1()
 
     # ---- phase 2b: K1's real modes (core.srfft/sirfft at even n with
     # n/2 a register length) against their plain versions and torch.fft,
@@ -3615,6 +3685,10 @@ def main() -> None:
 
     # ---- phase 40: the step's filter map (after phase 25: it profiles)
     phase_cmul(total, card)
+
+    # ---- phase 41: the benchmark's dctsuite call against the plain engine
+    # and scipy, with its launches
+    phase_dctsuite(total, card)
 
     # each kernel's bound at the shape its times were taken at: every
     # input read once and every output written once (the data planes; the

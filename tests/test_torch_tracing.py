@@ -6,7 +6,8 @@
   each inside the span that encloses it on its thread.  On the CPU the
   plain versions run, so no ``cfftpack.K*`` or ``cfftpack.pack`` span;
   the glue's leaf spans where a real transform's half length runs K1's
-  stage loop, and the complex join where a length takes the planes.
+  stage loop, the DCT/DST glue's (``ops/dct.py``) at the benchmark's
+  suite lengths, and the complex join where a length takes the planes.
 * With no profiler no ``record_function`` is made.
 * The registry counts K1's launches as the wrapper's own counter did: one
   a successful C call, none for a CPU tensor, an empty batch or an error,
@@ -91,6 +92,49 @@ def test_glue_route_spans_nest_as_stated():
         ("cfftpack.irfft_split", None),
         ("cfftpack.merge", "cfftpack.irfft_split"),
         ("cfftpack.unpack", "cfftpack.irfft_split")}
+
+
+_SUITE = {
+    "rfft": ("rfft_split", "irfft_split",
+             lambda x: pt.rfft_split(x, norm="fftpack"),
+             lambda y, n: pt.irfft_split(*y, n, norm="fftpack")),
+    "dct2": ("dct", "idct", lambda x: pt.dct(x, 2, norm="fftpack"),
+             lambda y, n: pt.idct(y, 2, norm="fftpack")),
+    "dst2": ("dst", "idst", lambda x: pt.dst(x, 2, norm="fftpack"),
+             lambda y, n: pt.idst(y, 2, norm="fftpack")),
+    "dct4": ("dct", "idct", lambda x: pt.dct(x, 4, norm="fftpack"),
+             lambda y, n: pt.idct(y, 4, norm="fftpack")),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_SUITE))
+@pytest.mark.parametrize("n", [960, 1000, 1250])
+def test_dct_suite_spans_nest_as_stated(n, family):
+    """The round trips of the DCT/DST suite (the benchmark's ``dctsuite``)
+    open their glue's leaf spans under their API spans, none inside
+    another: each DCT/DST forward its gathers (pack), table multiplies
+    (merge), riffle (unpack) and the norm's multiply (scale), the inverse
+    the same but the scale (FFTPACK's inverse is unscaled), at n % 4 = 0
+    (960, 1000) and 2 (1250) alike; the real round trip the stage-loop
+    route's merge, scale, unmerge and interleave where the half length is
+    not a register length (1000, 1250), and none at 960, whose real modes
+    (their plain version here) open none."""
+    fwd_name, inv_name, fwd, inv = _SUITE[family]
+    x = torch.randn(4, n)
+    inv(fwd(x), n)                                      # tables built
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        inv(fwd(x), n)
+    f, i = "cfftpack." + fwd_name, "cfftpack." + inv_name
+    if family != "rfft":
+        leaves = {(f, ("pack", "merge", "unpack", "scale")),
+                  (i, ("pack", "merge", "unpack"))}
+    elif n == 960:
+        leaves = set()
+    else:
+        leaves = {(f, ("merge", "scale")), (i, ("merge", "unpack"))}
+    assert _pairs(_spans(prof)) == {(f, None), (i, None)} | {
+        ("cfftpack." + leaf, api) for api, names in leaves
+        for leaf in names}
 
 
 def test_fft_ifft_spans_nest_as_stated():
